@@ -1,0 +1,33 @@
+"""SODA-TPU ported to PyTorch and CUDA (NVIDIA Hopper).
+
+The front half (DSL parser, IR, stencil core, optimization passes,
+fusion planning, the NumPy oracle) is soda_tpu's own and is imported
+unchanged; this package owns what touches tensors and devices: the
+torch evaluator, the tile plan, the generated CUDA kernel and its
+executor. It imports torch and never jax.
+"""
+
+__version__ = '0.1.0'
+
+
+def build_stencil(source, **overrides):
+  """Parse SODA DSL text into a Stencil (soda_tpu.api.build_stencil)."""
+  from soda_tpu_torch import api
+  return api.build_stencil(source, **overrides)
+
+
+def build_stencil_from_file(path, **overrides):
+  from soda_tpu_torch import api
+  return api.build_stencil_from_file(path, **overrides)
+
+
+def get_executor(stencil, shape, backend='auto', device='cuda'):
+  """Compile a stencil for a grid shape (see soda_tpu_torch.backend)."""
+  from soda_tpu_torch.backend import get_executor as _get
+  return _get(stencil, shape, backend, device=device)
+
+
+def chained(executor, n_steps):
+  """Apply the stencil n_steps times (see soda_tpu_torch.api.chained)."""
+  from soda_tpu_torch import api
+  return api.chained(executor, n_steps)

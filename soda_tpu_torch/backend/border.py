@@ -1,0 +1,41 @@
+"""``border: preserve`` on torch tensors.
+
+The counterpart of soda_tpu/backend/reference.py:39-65
+(``preserve_border_fixup``): cells outside each output's valid region
+carry the positionally paired input's value, wrapped to the output
+type. That function looks for ``.at`` (JAX) and otherwise calls
+``.copy()``, which a torch tensor lacks, so the port keeps its own.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+from soda_tpu.backend.reference import output_valid_slices
+from soda_tpu_torch.backend import semantics
+
+
+def preserve_border_fixup(stencil, shape: Tuple[int, ...],
+                          get_input: Callable[[str], torch.Tensor],
+                          outs: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+  """Return outputs whose cells outside the valid region come from the
+  paired input. ``get_input(name)`` gives the input's storage tensor;
+  ``outs`` maps output names to storage tensors of the full grid."""
+  fixed = {}
+  n_in = len(stencil.input_names)
+  for k, name in enumerate(stencil.output_names):
+    paired = stencil.input_names[
+        k if n_in == len(stencil.output_names) else 0]
+    in_type = stencil.symbol_table[paired]
+    out_type = stencil.symbol_table[name]
+    src = get_input(paired)
+    base = semantics.wrap(semantics.to_repr(src, in_type), out_type,
+                          in_type, src.device)
+    base = semantics.to_storage(base, out_type).clone()
+    region = output_valid_slices(stencil, shape, name)
+    base[region] = outs[name][region]
+    fixed[name] = base
+  return fixed

@@ -1,0 +1,103 @@
+"""The generated CUDA kernel itself, on the card.
+
+Every test here is marked ``gpu`` and skips where no CUDA device
+exists. The file imports no jax, so it also runs on a GPU machine
+without one:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+
+(``--noconftest`` because tests/conftest.py configures jax). Each
+kernel is built with nvcc, launched through ``FusedExecutor`` and held
+against the NumPy oracle: the corpus kernels, tile plans with ragged,
+odd and one-cell tiles, an output read by another stage, params,
+``border: preserve``, and the semantics fuzz programs (every integer
+width, half and double). Integers bit-exact, floats within the
+reference threshold (tests/checks.py).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from soda_tpu import corpus
+from soda_tpu.api import build_stencil
+from soda_tpu.backend import reference
+from soda_tpu_torch.backend.fused import FusedExecutor
+from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
+                                    GEOMETRY_CASES, MULTI_OUTPUT,
+                                    check_outputs, gen_program, make_inputs)
+
+
+def _run_on_gpu(stencil, shape, inputs, params=None, tile=None):
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device (the kernel has no CPU build)')
+  ex = FusedExecutor(stencil, shape, device='cuda', tile=tile)
+  got = ex(inputs, params)
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  return {k: v.cpu().numpy() for k, v in got.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', sorted(corpus.CORPUS))
+def test_corpus_kernel_matches_oracle(name):
+  stencil = corpus.build(name)
+  shape = corpus.TEST_DIMS[name]
+  inputs = reference.make_test_inputs(stencil, shape)
+  params = reference.make_test_params(stencil)
+  got = _run_on_gpu(stencil, shape, inputs, params)
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs, params),
+                name + ' on gpu')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,shape,tile', GEOMETRY_CASES)
+def test_kernel_tile_geometry(name, shape, tile):
+  stencil = corpus.build(name)
+  inputs = reference.make_test_inputs(stencil, shape, seed=7)
+  got = _run_on_gpu(stencil, shape, inputs, tile=tile)
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                '%s tile %s on gpu' % (name, tile))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('tile', [None, (4, 8)])
+def test_kernel_output_read_by_a_stage(tile):
+  stencil = build_stencil(MULTI_OUTPUT)
+  shape = (29, 35)
+  inputs = reference.make_test_inputs(stencil, shape, seed=3)
+  got = _run_on_gpu(stencil, shape, inputs, tile=tile)
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                'multi-output tile %s on gpu' % (tile,))
+
+
+@pytest.mark.gpu
+def test_kernel_params():
+  stencil = build_stencil(CONV_PARAM)
+  shape = (24, 64)
+  inputs = reference.make_test_inputs(stencil, shape)
+  params = reference.make_test_params(stencil)
+  got = _run_on_gpu(stencil, shape, inputs, params, tile=(8, 16))
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs, params),
+                'param on gpu')
+
+
+@pytest.mark.gpu
+def test_kernel_border_preserve():
+  stencil = corpus.build('blur', border='preserve')
+  shape = corpus.TEST_DIMS['blur']
+  inputs = reference.make_test_inputs(stencil, shape)
+  got = _run_on_gpu(stencil, shape, inputs)
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                'blur:preserve on gpu', full=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('seed', FUZZ_SEEDS)
+def test_fuzz_program_matches_oracle(seed):
+  stencil = build_stencil(gen_program(seed))
+  inputs = make_inputs(stencil, FUZZ_SHAPE, seed)
+  got = _run_on_gpu(stencil, FUZZ_SHAPE, inputs)
+  with np.errstate(all='ignore'):
+    want = reference.run(stencil, inputs)
+  check_outputs(stencil, FUZZ_SHAPE, got, want, 'fuzz%d on gpu' % seed)

@@ -1,0 +1,111 @@
+"""The port's main path against the JAX package's.
+
+DSL text -> build_stencil -> get_executor(stencil, shape) -> outputs:
+``soda_tpu.get_executor`` (JAX; on the CPU the fused Pallas kernel in
+interpret mode) against ``soda_tpu_torch.get_executor(..., device='cpu')``
+on every corpus kernel. The port must never load jax, must refuse a
+CUDA device it does not have, and must name the backends it has not
+ported yet instead of falling back.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import soda_tpu
+import soda_tpu_torch
+from soda_tpu import corpus, utils
+from soda_tpu.backend import reference
+
+from checks import assert_close_reference
+
+torch.set_num_threads(1)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.mark.parametrize('name', sorted(corpus.CORPUS))
+def test_port_matches_jax_main_path(name):
+  stencil = soda_tpu_torch.build_stencil(corpus.CORPUS[name],
+                                         **({'tile_size':
+                                             corpus.TEST_TILE_SIZES[name]}
+                                            if name in corpus.TEST_TILE_SIZES
+                                            else {}))
+  shape = corpus.TEST_DIMS[name]
+  inputs = reference.make_test_inputs(stencil, shape)
+  params = reference.make_test_params(stencil)
+  want = soda_tpu.get_executor(stencil, shape)(inputs, params)
+  got = soda_tpu_torch.get_executor(stencil, shape, device='cpu')(inputs,
+                                                                  params)
+  for out in stencil.output_names:
+    region = reference.output_valid_slices(stencil, shape, out)
+    assert_close_reference(got[out].numpy()[region],
+                           np.asarray(want[out])[region],
+                           stencil.symbol_table[out].is_float,
+                           '%s:%s' % (name, out))
+
+
+def test_port_never_loads_jax():
+  code = '\n'.join([
+      'import sys',
+      'sys.path.insert(0, %r)' % str(REPO),
+      'import soda_tpu_torch',
+      'from soda_tpu import corpus',
+      'from soda_tpu.backend import reference',
+      "st = soda_tpu_torch.build_stencil(corpus.CORPUS['blur'],",
+      "                                  tile_size=(64, 0))",
+      "ex = soda_tpu_torch.get_executor(st, (40, 64), device='cpu')",
+      'out = ex(reference.make_test_inputs(st, (40, 64)))',
+      "assert out['blur_y'].shape == (40, 64)",
+      "print('jax' in sys.modules)",
+  ])
+  env = {k: v for k, v in os.environ.items() if not k.startswith('JAX')}
+  proc = subprocess.run([sys.executable, '-c', code], env=env,
+                        capture_output=True, text=True, timeout=300)
+  assert proc.returncode == 0, proc.stderr[-4000:]
+  assert proc.stdout.strip() == 'False'
+
+
+def test_cuda_device_without_a_gpu_raises():
+  if torch.cuda.is_available():
+    pytest.skip('a CUDA device exists here')
+  stencil = corpus.build('blur')
+  with pytest.raises(utils.InputError, match='no CUDA device'):
+    soda_tpu_torch.get_executor(stencil, (40, 64))
+  with pytest.raises(utils.InputError, match='no CUDA device'):
+    soda_tpu_torch.get_executor(stencil, (40, 64), device='cuda')
+
+
+@pytest.mark.parametrize('backend', ['xla', 'grouped', 'sharded',
+                                     'replicated'])
+def test_unported_backends_name_their_roadmap_item(backend):
+  stencil = corpus.build('blur')
+  with pytest.raises(NotImplementedError, match='ROADMAP A'):
+    soda_tpu_torch.get_executor(stencil, (40, 64), backend, device='cpu')
+
+
+def test_cluster_coarse_is_not_ported_yet():
+  stencil = corpus.build('blur', cluster='coarse')
+  with pytest.raises(NotImplementedError, match='ROADMAP A7'):
+    soda_tpu_torch.get_executor(stencil, (40, 64), device='cpu')
+
+
+def test_chained_applies_the_stencil_n_times():
+  stencil = corpus.build('jacobi2d')
+  shape = (40, 32)
+  inputs = reference.make_test_inputs(stencil, shape)
+  ex = soda_tpu_torch.get_executor(stencil, shape, device='cpu')
+  run3 = soda_tpu_torch.chained(ex, 3)
+  (got,) = run3(*ex.prepare(inputs))
+  want = inputs['t1']
+  for _ in range(3):
+    want = soda_tpu.get_executor(stencil, shape)({'t1': want})['t0']
+    want = np.asarray(want)
+  # three applications of a two-sweep stencil: a margin of 3 * 2 cells
+  region = (slice(6, shape[0] - 6), slice(6, shape[1] - 6))
+  assert_close_reference(got.numpy()[region], want[region], True, 'chained')
