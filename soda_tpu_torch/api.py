@@ -1,15 +1,49 @@
 """Top-level API of the port: text -> Stencil -> executor.
 
-The front half is shared: ``build_stencil`` and
-``build_stencil_from_file`` are soda_tpu.api's own.
+``build_stencil`` and ``build_stencil_from_file`` are copies of
+soda_tpu/api.py:9-39 over the port's own front half.
 """
 
 from __future__ import annotations
 
-from soda_tpu import utils
-from soda_tpu.api import build_stencil, build_stencil_from_file
+from soda_tpu_torch import utils
+from soda_tpu_torch.core.stencil import Stencil
+from soda_tpu_torch.frontend import parser
 
 __all__ = ['build_stencil', 'build_stencil_from_file', 'chained']
+
+
+def build_stencil(source: str, **overrides) -> Stencil:
+  """Parse SODA DSL text and construct a Stencil.
+
+  ``overrides`` may replace any directive (burst_width, unroll_factor,
+  tile_size, iterate, border, cluster, replication_factor, dram_in,
+  dram_out, optimizations) — the analog of the reference CLI's
+  override flags (sodac.py:45-97).
+  """
+  program = parser.parse(source)
+  args = dict(
+    border=program.border,
+    burst_width=program.burst_width,
+    cluster=program.cluster,
+    iterate=program.iterate,
+    app_name=program.app_name,
+    unroll_factor=program.unroll_factor,
+    replication_factor=overrides.pop('replication_factor', 1),
+    dim=program.dim,
+    tile_size=program.tile_size,
+    input_stmts=list(program.input_stmts),
+    param_stmts=list(program.param_stmts),
+    local_stmts=list(program.local_stmts),
+    output_stmts=list(program.output_stmts),
+  )
+  args.update(overrides)
+  return Stencil(**args)
+
+
+def build_stencil_from_file(path: str, **overrides) -> Stencil:
+  with open(path) as f:
+    return build_stencil(f.read(), **overrides)
 
 
 def chained(executor, n_steps: int):

@@ -1,7 +1,7 @@
 """``border: preserve`` on torch tensors.
 
-The counterpart of soda_tpu/backend/reference.py:39-65
-(``preserve_border_fixup``): cells outside each output's valid region
+The counterpart of backend/reference.py:39-65 (``preserve_border_fixup``,
+copied from the JAX package): cells outside each output's valid region
 carry the positionally paired input's value, wrapped to the output
 type. That function looks for ``.at`` (JAX) and otherwise calls
 ``.copy()``, which a torch tensor lacks, so the port keeps its own.
@@ -13,8 +13,8 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
-from soda_tpu.backend.reference import output_valid_slices
 from soda_tpu_torch.backend import semantics
+from soda_tpu_torch.backend.reference import output_valid_slices
 
 
 def preserve_border_fixup(stencil, shape: Tuple[int, ...],
@@ -23,7 +23,8 @@ def preserve_border_fixup(stencil, shape: Tuple[int, ...],
                           ) -> Dict[str, torch.Tensor]:
   """Return outputs whose cells outside the valid region come from the
   paired input. ``get_input(name)`` gives the input's storage tensor;
-  ``outs`` maps output names to storage tensors of the full grid."""
+  ``outs`` maps output names to storage tensors of the full grid, or of
+  a batch of grids of ``shape`` on leading axes (each grid its own)."""
   fixed = {}
   n_in = len(stencil.input_names)
   for k, name in enumerate(stencil.output_names):
@@ -35,7 +36,7 @@ def preserve_border_fixup(stencil, shape: Tuple[int, ...],
     base = semantics.wrap(semantics.to_repr(src, in_type), out_type,
                           in_type, src.device)
     base = semantics.to_storage(base, out_type).clone()
-    region = output_valid_slices(stencil, shape, name)
+    region = (Ellipsis,) + output_valid_slices(stencil, shape, name)
     base[region] = outs[name][region]
     fixed[name] = base
   return fixed

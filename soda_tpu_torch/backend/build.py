@@ -5,7 +5,8 @@ kernel's shared library lives in ``build/soda_tpu_torch/<key>/`` under
 the repository root, where ``key`` hashes the source, the shared header
 and the compiler's version, so a library is built once and reused by
 every later process. A file lock serialises builds of one key (test
-workers and repeated runs share the directory).
+workers and repeated runs share the directory); ``build_all`` runs one
+``nvcc`` per source, all at once.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so every float
 operation rounds on its own, as the NumPy oracle's do. No
@@ -14,6 +15,7 @@ operation rounds on its own, as the NumPy oracle's do. No
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import fcntl
 import hashlib
@@ -93,6 +95,15 @@ def build(kernel: KernelSource) -> pathlib.Path:
   return lib
 
 
+def build_all(kernels: Sequence[KernelSource]) -> List[pathlib.Path]:
+  """``build`` every kernel, one ``nvcc`` process per source, all
+  started together (a thread waits on each)."""
+  if not kernels:
+    return []
+  with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+    return list(pool.map(build, kernels))
+
+
 class CompiledKernel:
   """A built kernel's launch entry point, bound with ctypes."""
 
@@ -104,16 +115,18 @@ class CompiledKernel:
     lib = _LOADED[key]
     self.source = kernel
     self._launch = getattr(lib, kernel.launch_symbol)
-    self._launch.argtypes = [ctypes.c_void_p] * (n_pointers + 1)
+    self._launch.argtypes = ([ctypes.c_void_p] * n_pointers +
+                             [ctypes.c_longlong, ctypes.c_void_p])
     self._launch.restype = ctypes.c_int
     self._error = getattr(lib, kernel.error_symbol)
     self._error.argtypes = [ctypes.c_int]
     self._error.restype = ctypes.c_char_p
 
-  def launch(self, pointers: Sequence[int], stream: int) -> None:
-    """Enqueue the kernel on ``stream`` on the current CUDA device; raise
-    if CUDA refused the launch."""
-    status = self._launch(*pointers, stream)
+  def launch(self, pointers: Sequence[int], replicas: int,
+             stream: int) -> None:
+    """Enqueue the kernel over ``replicas`` grids on ``stream`` on the
+    current CUDA device; raise if CUDA refused the launch."""
+    status = self._launch(*pointers, replicas, stream)
     if status != 0:
       raise RuntimeError('fused stencil kernel %s failed to launch: %s' % (
           self.source.digest, self._error(status).decode()))

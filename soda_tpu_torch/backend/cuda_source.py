@@ -4,21 +4,27 @@ Two parts:
 
 - ``StagePrinter`` prints one stage (its ``let`` bindings and
   expression) as a C++ function with the oracle's semantics
-  (soda_tpu/backend/semantics.py ``Evaluator``): the same promotion
+  (backend/c_semantics.py ``Evaluator``): the same promotion
   (``binary_type``), lazily-typed literals, truncating division, wraps at
   casts and stores, half rounded at every half-typed result. Constant
   subtrees are folded by the oracle's own Evaluator, so literals carry
   exactly the oracle's values. Floats print as hex literals.
 - ``generate`` wraps the stage functions in the kernel (one CTA per
-  output tile, all buffers in shared memory, see tile_plan.py), a
-  ``soda_launch_<hash>`` entry point with a plain C interface, and,
-  behind ``#ifndef __CUDACC__``, ``soda_host_<hash>``: a whole-grid host
-  loop over the same stage functions, so a host C++ compiler can check
-  the printed arithmetic against the oracle where no ``nvcc`` exists.
+  output tile, all buffers in shared memory, see tile_plan.py; the grid's
+  second axis runs over replicas, independent grids laid out one after
+  another), a ``soda_launch_<hash>`` entry point with a plain C
+  interface that takes the replica count (one grid launches the
+  kernel's instantiation without the replica offset, which cost up to
+  7% of a one-grid call's device time on an H100), and, behind
+  ``#ifndef __CUDACC__``, ``soda_host_<hash>``: a whole-grid host loop
+  over the same stage functions and replicas, so a host C++ compiler can
+  check the printed arithmetic against the oracle where no ``nvcc``
+  exists.
 
 The kernel computes what soda_tpu/backend/pallas_kernel.py
 ``PallasExecutor._build`` computes; the source names that in its first
-comment. The generated text depends only on (stencil, shape, tile).
+comment. The generated text depends only on (stencil, shape, tile): the
+replica count is a launch argument, so one build serves every count.
 """
 
 from __future__ import annotations
@@ -29,11 +35,11 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from soda_tpu import utils
-from soda_tpu.backend import semantics as oracle
-from soda_tpu.backend.semantics import binary_type, promote
-from soda_tpu.ir import nodes as ir
-from soda_tpu.ir.types import Type
+from soda_tpu_torch import utils
+from soda_tpu_torch.backend import c_semantics as oracle
+from soda_tpu_torch.backend.c_semantics import binary_type, promote
+from soda_tpu_torch.ir import nodes as ir
+from soda_tpu_torch.ir.types import Type
 
 from soda_tpu_torch.backend.tile_plan import TilePlan
 
@@ -41,6 +47,8 @@ from soda_tpu_torch.backend.tile_plan import TilePlan
 THREADS = 512
 # What the kernel replaces, for the source note and the run's report.
 REPLACES = 'soda_tpu/backend/pallas_kernel.py:1543'
+# The most replicas one launch takes (CUDA's limit on gridDim.y).
+MAX_REPLICAS = 65535
 
 _INT = Type('int32')
 _FLOAT = Type('float')
@@ -484,10 +492,22 @@ def _kernel(plan: TilePlan) -> str:
   shape, tile, grid = plan.shape, plan.tile, plan.grid
   strides = _strides(shape)
   decls, _ = _io_args(plan, void=False)
-  out = ['__global__ void __launch_bounds__(%d) soda_fused_@H@(%s) {' %
+  # kReplicas: blockIdx.y picks one of several grids laid out one after
+  # another. A single grid launches the instantiation without that
+  # offset, whose pointers stay kernel parameters.
+  out = ['template <bool kReplicas>',
+         '__global__ void __launch_bounds__(%d) soda_fused_@H@(%s) {' %
          (THREADS, ', '.join(decls)),
          '  extern __shared__ __align__(16) unsigned char soda_smem[];',
-         '  long long bid = blockIdx.x;']
+         '  if (kReplicas) {',
+         '    const long long rep = blockIdx.y;']
+  cells = int(np.prod(shape))
+  for name in st.input_names:
+    out.append('    g_%s += rep * %dll;' % (name, cells))
+  for name in st.output_names:
+    out.append('    o_%s += rep * %dll;' % (name, cells))
+  out.append('  }')
+  out.append('  long long bid = blockIdx.x;')
   for a in range(dim - 1, 0, -1):
     out.append('  const int o%d = (int)(bid %% %d) * %d;' % (a, grid[a],
                                                             tile[a]))
@@ -591,16 +611,25 @@ def _launcher(plan: TilePlan) -> str:
   for name in st.output_names:
     casts.append('(%s*)o_%s' % (storage_ctype(st.symbol_table[name]), name))
   return '\n'.join([
-      'extern "C" int soda_launch_@H@(%s, void* stream) {' %
+      'extern "C" int soda_launch_@H@(%s, long long replicas, void* stream) {' %
       ', '.join(decls),
       '  const size_t smem = %d;' % plan.smem_bytes,
       '  if (smem > 48 * 1024) {',
-      '    cudaError_t err = cudaFuncSetAttribute(soda_fused_@H@,',
+      '    cudaError_t err = cudaFuncSetAttribute(soda_fused_@H@<false>,',
       '        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);',
+      '    if (err == cudaSuccess)',
+      '      err = cudaFuncSetAttribute(soda_fused_@H@<true>,',
+      '          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);',
       '    if (err != cudaSuccess) return (int)err;',
       '  }',
-      '  soda_fused_@H@<<<%d, %d, smem, (cudaStream_t)stream>>>(%s);' % (
-          plan.n_tiles, THREADS, ', '.join(casts)),
+      '  if (replicas == 1)',
+      '    soda_fused_@H@<false><<<%d, %d, smem, (cudaStream_t)stream>>>(%s);'
+      % (plan.n_tiles, THREADS, ', '.join(casts)),
+      '  else',
+      '    soda_fused_@H@<true><<<dim3(%d, (unsigned)replicas), %d, smem,'
+      % (plan.n_tiles, THREADS),
+      '                           (cudaStream_t)stream>>>(%s);' %
+      ', '.join(casts),
       '  return (int)cudaGetLastError();',
       '}',
       '',
@@ -617,7 +646,8 @@ def _host_loop(plan: TilePlan) -> str:
   strides = _strides(shape)
   decls, _ = _io_args(plan, void=False)
   cells = int(np.prod(shape))
-  out = ['extern "C" int soda_host_@H@(%s) {' % ', '.join(decls)]
+  out = ['extern "C" int soda_host_@H@(%s, long long replicas) {' %
+         ', '.join(decls)]
   bases = {name: 'g_%s' % name for name in st.input_names}
   params = ', '.join('p_%s' % s.name for s in st.param_stmts)
   outputs = set(st.output_names)
@@ -627,11 +657,12 @@ def _host_loop(plan: TilePlan) -> str:
           storage_ctype(stage.dtype), stage.name, cells))
       bases[stage.name] = 'h_%s.data()' % stage.name
   gvars = ['g%d' % a for a in range(dim)]
+  out.append('  for (long long rep = 0; rep < replicas; ++rep) {')
   for k, stage in enumerate(plan.stages):
     name = stage.name
     lo, hi = plan.margins[name]
-    indent = '  '
-    out.append('  // stage %s' % name)
+    indent = '    '
+    out.append('    // stage %s' % name)
     for a in range(dim):
       out.append('%sfor (int g%d = %d; g%d < %d; ++g%d) {' % (
           indent, a, lo[a], a, shape[a] - hi[a], a))
@@ -656,6 +687,11 @@ def _host_loop(plan: TilePlan) -> str:
     for a in range(dim):
       indent = indent[:-2]
       out.append('%s}' % indent)
+  for name in st.input_names:
+    out.append('    g_%s += %dll;' % (name, cells))
+  for name in st.output_names:
+    out.append('    o_%s += %dll;' % (name, cells))
+  out.append('  }')
   out.append('  return 0;')
   out.append('}')
   return '\n'.join(out)
@@ -670,7 +706,7 @@ def _note(plan: TilePlan) -> str:
       '// TPU kernel soda_tpu/backend/pallas_kernel.py PallasExecutor._build',
       '// (pl.pallas_call at :1543).',
       '// Bound on this card: bytes. The unique traffic is each input read',
-      '// once and each output written once (soda_tpu.profiling.stream_bytes);',
+      '// once and each output written once (profiling.stream_bytes);',
       '// a stencil does a few operations per byte, far below the H100\'s',
       '// balance point. The design therefore makes one pass over device',
       '// memory for all %d stages and all iterate sweeps: one CTA per' %
@@ -679,6 +715,10 @@ def _note(plan: TilePlan) -> str:
       '// keeps every intermediate stage there (%d bytes per CTA, buffers' %
       plan.smem_bytes,
       '// reused by liveness); only the outputs return to device memory.',
+      '// Replicas (blockIdx.y) replace the TPU\'s sequential lax.map over the',
+      '// compiled kernel (soda_tpu/parallel/replicate.py:55-69): R grids',
+      '// take one launch; one grid launches the instantiation without the',
+      '// replica offset.',
   ])
 
 

@@ -12,6 +12,11 @@ tile), evaluates each stage with the torch Evaluator over shifted
 slices in the kernel's stage order, and stores the same valid regions.
 ``FusedExecutor`` takes it only for tensors on the CPU; on a CUDA
 device it launches the kernel or raises.
+
+With ``replicas=R`` the executor runs R independent grids per call,
+stacked on a leading axis, in one launch (the kernel's second grid
+axis); the plain version is ``fused_stencil_plain`` mapped over them.
+Params are shared by all replicas.
 """
 
 from __future__ import annotations
@@ -21,12 +26,13 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from soda_tpu import utils
-from soda_tpu.backend import semantics as oracle
-from soda_tpu.ir import nodes as ir
+from soda_tpu_torch import utils
+from soda_tpu_torch.backend import c_semantics as oracle
+from soda_tpu_torch.ir import nodes as ir
 
 from soda_tpu_torch.backend import cuda_source, semantics
 from soda_tpu_torch.backend.border import preserve_border_fixup
+from soda_tpu_torch.core.stencil import Stencil
 from soda_tpu_torch.backend.tile_plan import (TilePlan, last_readers,
                                                make_tile_plan)
 
@@ -149,28 +155,138 @@ def fused_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
                for n in stencil.output_names)
 
 
+def replicated_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
+                             params: Sequence[torch.Tensor] = (),
+                             tile: Optional[TilePlan] = None
+                             ) -> Tuple[torch.Tensor, ...]:
+  """The replicated kernel's function in plain PyTorch:
+  ``fused_stencil_plain`` mapped over the leading replica axis of
+  ``inputs``; params are shared by all replicas."""
+  per = [fused_stencil_plain(stencil, [a[r] for a in inputs], params, tile)
+         for r in range(inputs[0].shape[0])]
+  return tuple(torch.stack(outs) for outs in zip(*per))
+
+
+def check_stencil(stencil) -> None:
+  """Raise TypeError unless ``stencil`` comes from this package's own
+  front half: a stencil built by another package (the JAX package's
+  ``build_stencil``) is made of other IR classes, which the port's
+  printer and evaluator do not recognise."""
+  if not isinstance(stencil, Stencil):
+    raise TypeError(
+        'expected a soda_tpu_torch.core.Stencil, got %s.%s; build it with '
+        'soda_tpu_torch.build_stencil (another package\'s stencil has '
+        'other IR classes)' % (type(stencil).__module__,
+                               type(stencil).__qualname__))
+
+
+def resolve_device(device) -> torch.device:
+  """``device`` checked for the kernel, with the current CUDA index made
+  explicit. Raises utils.InputError for 'cuda' without a usable GPU."""
+  device = torch.device(device)
+  semantics.require_device_support(device)
+  if device.type == 'cuda' and device.index is None:
+    device = torch.device('cuda', torch.cuda.current_device())
+  return device
+
+
+def prepare_args(stencil, shape: Tuple[int, ...], device: torch.device,
+                 inputs: Mapping[str, np.ndarray],
+                 params: Optional[Mapping[str, np.ndarray]] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+  """numpy inputs (each of ``shape``) and params -> storage tensors on
+  ``device``, wrapped to the declared types, in ``fn``'s positional
+  order."""
+  args = []
+  for name in stencil.input_names:
+    if name not in inputs:
+      raise utils.InputError('missing input: %s' % name)
+    arr = np.asarray(inputs[name])
+    if arr.shape != shape:
+      raise utils.InputError('input %s shape %s != compiled shape %s' %
+                             (name, arr.shape, shape))
+    arr = oracle.wrap(np, arr, stencil.symbol_table[name])
+    args.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+  params = dict(params or {})
+  for stmt in stencil.param_stmts:
+    if stmt.name not in params:
+      raise utils.InputError('missing param: %s' % stmt.name)
+    arr = np.asarray(params[stmt.name])
+    if arr.shape != tuple(stmt.size):
+      raise utils.InputError('param %s shape %s != declared %s' %
+                             (stmt.name, arr.shape, tuple(stmt.size)))
+    arr = oracle.wrap(np, arr, stmt.dtype)
+    args.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+  return tuple(args)
+
+
+def check_args(stencil, shape: Tuple[int, ...], device: torch.device,
+               args: Sequence[torch.Tensor]) -> None:
+  """Raise utils.InputError unless ``args`` are ``fn``'s positional
+  arguments: contiguous storage tensors on ``device``, inputs of
+  ``shape``, params of their declared sizes."""
+  n_in, n_par = len(stencil.input_names), len(stencil.param_names)
+  if len(args) != n_in + n_par:
+    raise utils.InputError('expected %d inputs and %d params, got %d '
+                           'arguments' % (n_in, n_par, len(args)))
+  types = [stencil.symbol_table[n] for n in stencil.input_names]
+  shapes = [shape] * n_in
+  for stmt in stencil.param_stmts:
+    types.append(stmt.dtype)
+    shapes.append(tuple(stmt.size))
+  for arg, t, want in zip(args, types, shapes):
+    if arg.device != device:
+      raise utils.InputError('argument on %s, executor on %s' %
+                             (arg.device, device))
+    if arg.dtype != semantics.storage_dtype(t):
+      raise utils.InputError('argument dtype %s, expected %s' %
+                             (arg.dtype, semantics.storage_dtype(t)))
+    if tuple(arg.shape) != want or not arg.is_contiguous():
+      raise utils.InputError('argument of shape %s (contiguous: %s), '
+                             'expected contiguous %s' %
+                             (tuple(arg.shape), arg.is_contiguous(), want))
+
+
+def fix_border(stencil, shape: Tuple[int, ...], args: Sequence[torch.Tensor],
+               outs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+  """``border: preserve`` on ``fn``'s outputs (of ``shape``, or a batch
+  of grids of ``shape``), from its positional inputs."""
+  ins = dict(zip(stencil.input_names, args))
+  fixed = preserve_border_fixup(stencil, shape, ins.__getitem__,
+                                dict(zip(stencil.output_names, outs)))
+  return tuple(fixed[n] for n in stencil.output_names)
+
+
 class FusedExecutor:
   """Run a stencil as one fused CUDA kernel (or, on the CPU, its plain
   version with the same tile geometry).
 
   Args:
-    stencil: a core.Stencil.
+    stencil: a core.Stencil of this package.
     shape: full array shape (streaming axis first).
     device: 'cuda' (default; raises without a usable GPU) or 'cpu'.
     tile: output tile per CTA (default: the largest that fits shared
       memory, see tile_plan.make_tile_plan).
+    replicas: None for one grid of ``shape`` per call, or R (1 to
+      cuda_source.MAX_REPLICAS) for a batch of R independent grids,
+      inputs and outputs of shape ``(R, *shape)``, in one launch.
 
   ``launches`` counts kernel launches made by ``fn``.
   """
 
   def __init__(self, stencil, shape: Sequence[int], device='cuda',
-               tile: Optional[Sequence[int]] = None):
+               tile: Optional[Sequence[int]] = None,
+               replicas: Optional[int] = None):
+    check_stencil(stencil)
     self.stencil = stencil
     self.shape = tuple(int(s) for s in shape)
-    self.device = torch.device(device)
-    semantics.require_device_support(self.device)
-    if self.device.type == 'cuda' and self.device.index is None:
-      self.device = torch.device('cuda', torch.cuda.current_device())
+    if replicas is not None and not 1 <= replicas <= cuda_source.MAX_REPLICAS:
+      raise utils.InputError('replicas must lie in 1..%d (one launch), got %r'
+                             % (cuda_source.MAX_REPLICAS, replicas))
+    self.replicas = replicas
+    self.batch_shape = self.shape if replicas is None else \
+        (replicas,) + self.shape
+    self.device = resolve_device(device)
     self.plan = make_tile_plan(stencil, self.shape, tile)
     self.launches = 0
     self.kernel = None
@@ -180,83 +296,38 @@ class FusedExecutor:
                len(stencil.output_names))
       self.kernel = CompiledKernel(cuda_source.generate(self.plan), n_ptr)
 
-  # -- arguments --------------------------------------------------------------
   def prepare(self, inputs: Mapping[str, np.ndarray],
               params: Optional[Mapping[str, np.ndarray]] = None
               ) -> Tuple[torch.Tensor, ...]:
-    """numpy inputs and params -> storage tensors on the device, wrapped
-    to the declared types, in ``fn``'s positional order."""
-    stencil = self.stencil
-    args = []
-    for name in stencil.input_names:
-      if name not in inputs:
-        raise utils.InputError('missing input: %s' % name)
-      arr = np.asarray(inputs[name])
-      if arr.shape != self.shape:
-        raise utils.InputError('input %s shape %s != compiled shape %s' %
-                               (name, arr.shape, self.shape))
-      arr = oracle.wrap(np, arr, stencil.symbol_table[name])
-      args.append(torch.from_numpy(np.ascontiguousarray(arr)).to(self.device))
-    params = dict(params or {})
-    for stmt in stencil.param_stmts:
-      if stmt.name not in params:
-        raise utils.InputError('missing param: %s' % stmt.name)
-      arr = np.asarray(params[stmt.name])
-      if arr.shape != tuple(stmt.size):
-        raise utils.InputError('param %s shape %s != declared %s' %
-                               (stmt.name, arr.shape, tuple(stmt.size)))
-      arr = oracle.wrap(np, arr, stmt.dtype)
-      args.append(torch.from_numpy(np.ascontiguousarray(arr)).to(self.device))
-    return tuple(args)
+    """numpy inputs (of ``batch_shape``) and params -> storage tensors on
+    the device, wrapped to the declared types, in ``fn``'s positional
+    order."""
+    return prepare_args(self.stencil, self.batch_shape, self.device, inputs,
+                        params)
 
-  def _check(self, args: Sequence[torch.Tensor]) -> None:
-    stencil = self.stencil
-    n_in, n_par = len(stencil.input_names), len(stencil.param_names)
-    if len(args) != n_in + n_par:
-      raise utils.InputError('expected %d inputs and %d params, got %d '
-                             'arguments' % (n_in, n_par, len(args)))
-    types = [stencil.symbol_table[n] for n in stencil.input_names]
-    shapes = [self.shape] * n_in
-    for stmt in stencil.param_stmts:
-      types.append(stmt.dtype)
-      shapes.append(tuple(stmt.size))
-    for arg, t, shape in zip(args, types, shapes):
-      if arg.device != self.device:
-        raise utils.InputError('argument on %s, executor on %s' %
-                               (arg.device, self.device))
-      if arg.dtype != semantics.storage_dtype(t):
-        raise utils.InputError('argument dtype %s, expected %s' %
-                               (arg.dtype, semantics.storage_dtype(t)))
-      if tuple(arg.shape) != shape or not arg.is_contiguous():
-        raise utils.InputError('argument of shape %s (contiguous: %s), '
-                               'expected contiguous %s' %
-                               (tuple(arg.shape), arg.is_contiguous(), shape))
-
-  # -- execution ----------------------------------------------------------------
   def fn(self, *args: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Positional ``fn(*inputs, *params) -> (outputs...)`` on prepared
     tensors; asynchronous on CUDA like any torch operation."""
-    self._check(args)
     stencil = self.stencil
+    check_args(stencil, self.batch_shape, self.device, args)
     n_in = len(stencil.input_names)
+    ins, pars = args[:n_in], args[n_in:]
     if self.device.type == 'cpu':
-      outs = fused_stencil_plain(stencil, args[:n_in], args[n_in:],
-                                 tile=self.plan)
+      plain = (fused_stencil_plain if self.replicas is None else
+               replicated_stencil_plain)
+      outs = plain(stencil, ins, pars, tile=self.plan)
     else:
       outs = tuple(
-          torch.empty(self.shape, device=self.device,
+          torch.empty(self.batch_shape, device=self.device,
                       dtype=semantics.storage_dtype(stencil.symbol_table[n]))
           for n in stencil.output_names)
       pointers = [t.data_ptr() for t in (*args, *outs)]
       with torch.cuda.device(self.device):  # restores the caller's device
         stream = torch.cuda.current_stream().cuda_stream
-        self.kernel.launch(pointers, stream)
+        self.kernel.launch(pointers, self.replicas or 1, stream)
       self.launches += 1
     if stencil.preserve_border:
-      ins = dict(zip(stencil.input_names, args[:n_in]))
-      fixed = preserve_border_fixup(stencil, self.shape, ins.__getitem__,
-                                    dict(zip(stencil.output_names, outs)))
-      outs = tuple(fixed[n] for n in stencil.output_names)
+      outs = fix_border(stencil, self.shape, ins, outs)
     return outs
 
   def __call__(self, inputs: Mapping[str, np.ndarray],
@@ -264,4 +335,3 @@ class FusedExecutor:
                ) -> Dict[str, torch.Tensor]:
     outs = self.fn(*self.prepare(inputs, params))
     return dict(zip(self.stencil.output_names, outs))
-

@@ -2,9 +2,10 @@
 
 The counterpart of soda_tpu/backend/semantics.py, whose ``Evaluator``
 takes an array namespace (``numpy``/``jax.numpy``). The type rules are
-not repeated: ``promote`` and ``binary_type`` are imported from there,
-and this Evaluator follows the same dispatch, so the NumPy oracle stays
-the one definition of what a statement means.
+not repeated: ``promote`` and ``binary_type`` are imported from the
+port's copy of that module's NumPy side (backend/c_semantics.py), and
+this Evaluator follows the same dispatch, so the NumPy oracle stays the
+one definition of what a statement means.
 
 What torch forces:
 
@@ -29,10 +30,10 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from soda_tpu import utils
-from soda_tpu.backend.semantics import binary_type, promote
-from soda_tpu.ir import nodes as ir
-from soda_tpu.ir.types import Type
+from soda_tpu_torch import utils
+from soda_tpu_torch.backend.c_semantics import binary_type, promote
+from soda_tpu_torch.ir import nodes as ir
+from soda_tpu_torch.ir.types import Type
 
 __all__ = ['Evaluator', 'binary_type', 'c_int_div', 'c_int_mod', 'promote',
            'require_device_support', 'to_repr', 'to_storage', 'wrap',
@@ -179,7 +180,7 @@ def wrap(value, dtype: Type, src: Optional[Type] = None,
          device='cpu') -> torch.Tensor:
   """C conversion to ``dtype``: modular wrap for integers (including
   widths that are not a power of two), truncation of floats, ordinary
-  conversion to floats. Mirrors soda_tpu.backend.semantics.wrap."""
+  conversion to floats. Mirrors c_semantics.wrap."""
   ctx = _Ctx(device)
   if dtype.is_float:
     return _as(ctx, value, dtype, src)
@@ -199,7 +200,7 @@ def wrap(value, dtype: Type, src: Optional[Type] = None,
 def wrap_promoted(value, dtype: Type, device='cpu') -> torch.Tensor:
   """Like ``wrap`` but keeps integers at their C-promoted width: the
   value wrapped into ``dtype``'s range, carried as ``promote(dtype)``
-  (soda_tpu.backend.semantics.wrap_promoted, without the range-proof
+  (c_semantics.wrap_promoted, without the range-proof
   shortcut)."""
   if dtype.is_float:
     return wrap(value, dtype, device=device)
@@ -266,7 +267,7 @@ def _truth(value: torch.Tensor) -> torch.Tensor:
 class Evaluator:
   """Evaluate one statement expression under C semantics on tensors.
 
-  The torch counterpart of soda_tpu.backend.semantics.Evaluator; values
+  The torch counterpart of c_semantics.Evaluator; values
   are ``(tensor or Python scalar, Type)`` pairs, tensors in the
   representation dtype of their type (see the module docstring).
 

@@ -29,8 +29,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from soda_tpu import utils
-from soda_tpu.backend.plan import Stage, make_plan, validate_grid
+from soda_tpu_torch import utils
+from soda_tpu_torch.backend.plan import (Stage, make_plan,
+                                         materialized_margins, validate_grid)
 
 # Shared memory a block may use on the H100 (dynamic, opt-in above 48 KB).
 SMEM_LIMIT = 232_448
@@ -116,7 +117,6 @@ class TilePlan:
 
 def _array_margins(stencil) -> Dict[str, Span]:
   """materialized_margins re-expressed per array axis."""
-  from soda_tpu.backend.plan import materialized_margins
   out = {}
   for name, (lo, hi) in materialized_margins(stencil).items():
     out[name] = (tuple(reversed(lo)), tuple(reversed(hi)))

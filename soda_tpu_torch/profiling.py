@@ -1,7 +1,7 @@
 """Timing and device reports on the GPU.
 
 The counterpart of soda_tpu/profiling.py. ``stream_bytes`` (the unique
-traffic of one pass) is imported from there. Times come from CUDA
+traffic of one pass) is a copy of its :135-144. Times come from CUDA
 events (the run reports their median and quartiles): PyTorch returns
 before the device finishes, so a host clock without a synchronise would
 time the enqueue. The TPU's peak-bandwidth
@@ -15,15 +15,75 @@ import subprocess
 import time
 from typing import Callable, Dict, List, Tuple
 
+import numpy as np
 import torch
 
-from soda_tpu.profiling import stream_bytes
+from soda_tpu_torch.ir import nodes as ir
 
-__all__ = ['back_to_back_us', 'cuda_times_ms', 'device_report',
-           'nvidia_smi_line', 'stream_bytes']
+__all__ = ['back_to_back_us', 'bound_ms', 'cuda_times_ms', 'device_report',
+           'nvidia_smi_line', 'op_count', 'stream_bytes']
 
 # bytes written between timed calls: four times the H100's 50 MB L2
 _FLUSH_BYTES = 200 * 2**20
+# spec peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
+# memory rate, and float32 operations outside the tensor cores
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+
+
+def stream_bytes(stencil, shape) -> Tuple[float, float]:
+  """Unique HBM traffic of one pass (inputs read once, outputs written
+  once)."""
+  cells = float(np.prod(shape))
+  in_b = sum(cells * stencil.symbol_table[n].width_in_bytes
+             for n in stencil.input_names)
+  out_b = sum(cells * stencil.symbol_table[n].width_in_bytes
+              for n in stencil.output_names)
+  return in_b, out_b
+
+
+def _ops(node) -> int:
+  """Arithmetic operations one evaluation of ``node`` applies."""
+  count = [0]
+
+  def visit(n, _):
+    if isinstance(n, ir.CHAIN_CLASSES):
+      count[0] += len(n.operator)
+    elif isinstance(n, ir.Unary):
+      count[0] += sum(op != '+' for op in n.operator)
+    elif isinstance(n, ir.Call):
+      count[0] += max(len(n.operand) - 1, 1)
+    return n
+
+  node.visit(visit)
+  return count[0]
+
+
+def op_count(stencil, shape) -> int:
+  """Operations one pass computes: each live stage's operations (lets
+  included) times the cells of its valid region."""
+  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+  plan = make_tile_plan(stencil, shape, shape)
+  total = 0
+  for stage in plan.stages:
+    lo, hi = plan.margins[stage.name]
+    cells = int(np.prod([s - a - b for s, a, b in zip(shape, lo, hi)]))
+    per_cell = _ops(stage.tensor.expr) + sum(_ops(let.expr)
+                                             for let in stage.tensor.lets)
+    total += per_cell * cells
+  return total
+
+
+def bound_ms(stencil, shape, grids: int = 1) -> Tuple[float, str]:
+  """(least milliseconds the card could take for ``grids`` passes of
+  ``stencil`` over ``shape``, 'bytes' or 'operations'): the larger of
+  the unique traffic over the spec memory rate and the operations over
+  the spec float32 rate outside the tensor cores (an integer operation
+  is no faster, so the bound stays a lower one)."""
+  in_b, out_b = stream_bytes(stencil, shape)
+  by_bytes = (in_b + out_b) * grids / H100_BYTES_PER_S * 1e3
+  by_ops = op_count(stencil, shape) * grids / H100_F32_OPS_PER_S * 1e3
+  return (by_bytes, 'bytes') if by_bytes >= by_ops else (by_ops, 'operations')
 
 
 def cuda_times_ms(fn: Callable[[], object], reps: int = 20,

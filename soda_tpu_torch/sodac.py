@@ -1,0 +1,314 @@
+"""The command line of the PyTorch/CUDA port.
+
+    python -m soda_tpu_torch FILE|- [--run [--bench]] [options]
+
+The counterpart of soda_tpu/sodac.py: parse a .soda program (file or
+stdin), apply directive overrides and optimizations, construct the
+Stencil, and act on it:
+
+  --emit-dot FILE   graphviz of the fusion plan
+  --run             execute on seeded inputs and self-test against the
+                    NumPy oracle (the reference's SODA_TEST_MAIN)
+  --bench           with --run: CUDA-event kernel time, unique-traffic
+                    bandwidth and pixel/ns on the card
+
+``--device`` is explicit (default ``cuda``): without a usable GPU the
+run fails; ``--device cpu`` runs the kernels' plain PyTorch versions.
+Flags of the JAX CLI that the port does not have yet exit nonzero
+naming their ROADMAP item; none is ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import statistics
+import sys
+import time
+from typing import Optional
+
+from soda_tpu_torch import utils
+
+PROG = 'python -m soda_tpu_torch'
+
+# flags of the JAX CLI not ported yet -> ROADMAP item
+_NOT_PORTED_FLAGS = (
+    ('emit_jax', '--emit-jax', 'ROADMAP A10 (--emit-torch)'),
+    ('emit_numpy', '--emit-numpy', 'ROADMAP A10 (--emit-torch)'),
+    ('estimate', '--estimate', 'ROADMAP A12 (H100 cost model)'),
+    ('model_file', '--model-file', 'ROADMAP A12 (H100 cost model)'),
+    ('compile_stats', '--compile-stats', 'ROADMAP A11 (tools)'),
+    ('tune', '--tune', 'ROADMAP A11 (tools)'),
+    ('kernel_opt', '--kernel-opt', 'ROADMAP A11 (tools)'),
+    ('mesh', '--mesh', 'ROADMAP A9 (sharding over NCCL)'),
+)
+_NOT_PORTED_BACKENDS = {
+    'xla': 'ROADMAP A2 (whole-grid executor)',
+    'pallas': 'ROADMAP A4 (the TPU kernel; its port is --backend fused)',
+    'sharded': 'ROADMAP A9 (sharding over NCCL)',
+}
+
+
+class NotPorted(Exception):
+  """A flag or backend of the JAX CLI that the port does not have yet."""
+
+
+def _build_parser() -> argparse.ArgumentParser:
+  parser = argparse.ArgumentParser(
+      prog=PROG,
+      description='SODA stencil compiler, PyTorch/CUDA port (H100)')
+  parser.add_argument('--verbose', '-v', action='count', default=0,
+                      help='increase verbosity')
+  parser.add_argument('--quiet', '-q', action='count', default=0,
+                      help='decrease verbosity')
+  parser.add_argument('--recursion-limit', type=int, default=3000,
+                      help='Python recursion limit')
+  parser.add_argument('soda_src', metavar='FILE',
+                      help='SODA program, or - for stdin')
+
+  override = parser.add_argument_group('directive overrides',
+                                       'override in-file DSL directives '
+                                       '(reference sodac.py:45-93)')
+  override.add_argument('--burst-width', type=int)
+  override.add_argument('--unroll-factor', type=int)
+  override.add_argument('--replication-factor', type=int)
+  override.add_argument('--tile-size', type=str,
+                        help='comma-separated, e.g. 2048 or 128,128')
+  override.add_argument('--dram-in', type=str)
+  override.add_argument('--dram-out', type=str)
+  override.add_argument('--iterate', type=int)
+  override.add_argument('--border', choices=('ignore', 'preserve'))
+  override.add_argument('--cluster',
+                        choices=('none', 'fine', 'coarse', 'full'))
+
+  opt = parser.add_argument_group('optimizations')
+  opt.add_argument('--computation-reuse',
+                   choices=('no', 'yes', 'greedy', 'optimal', 'beam',
+                            'glore', 'external', 'built-in',
+                            'built-in:greedy', 'built-in:optimal'),
+                   default='no')
+  opt.add_argument('--cr-cost', choices=('ops', 'tpu'), default=None,
+                   help='computation-reuse schedule objective: ops = '
+                        'the reference (num_ops, reuse distance) tuple '
+                        '(default); tpu = the JAX package\'s measured '
+                        'TPU shift prices')
+  opt.add_argument('--inline', action='store_true')
+  opt.add_argument('--distribute', action='store_true',
+                   help='factor shared coefficients: a*c + b*c -> (a+b)*c')
+  opt.add_argument('--no-separable', action='store_true',
+                   help='disable rank-1 separable factorization of '
+                        'linear stages (on by default)')
+
+  backend = parser.add_argument_group('backends')
+  backend.add_argument('--emit-dot', metavar='FILE',
+                       help='dump the fusion-plan DAG as graphviz')
+  backend.add_argument('--run', action='store_true',
+                       help='execute and self-test against the oracle')
+  backend.add_argument('--bench', action='store_true',
+                       help='with --run: time the kernel on the card')
+  backend.add_argument('--backend',
+                       choices=('auto', 'fused', 'replicated', 'xla',
+                                'pallas', 'sharded'),
+                       default='auto')
+  backend.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
+                       help='cuda (default; fails without a GPU) or cpu '
+                            '(the kernels\' plain PyTorch versions)')
+  backend.add_argument('--shape', type=str,
+                       help='grid shape, comma-separated, streaming axis '
+                            'first (default: derived from tile size)')
+  backend.add_argument('--seed', type=int, default=0)
+
+  unported = parser.add_argument_group(
+      'not ported yet', 'flags of the JAX CLI; each exits nonzero naming '
+      'its ROADMAP item')
+  for _, flag, _ in _NOT_PORTED_FLAGS:
+    if flag == '--tune':
+      unported.add_argument(flag, action='store_true')
+    elif flag == '--kernel-opt':
+      unported.add_argument(flag, action='append', metavar='KEY=VALUE')
+    else:
+      unported.add_argument(flag, metavar='ARG')
+  return parser
+
+
+def _parse_ints(text: str):
+  try:
+    return tuple(int(x) for x in text.split(','))
+  except ValueError:
+    raise utils.InputError(
+        'expected comma-separated integers (e.g. 1000,1000), got %r'
+        % text) from None
+
+
+def _default_shape(stencil):
+  rest = tuple(reversed(stencil.tile_size[:-1]))
+  return (256,) + rest
+
+
+def main(argv: Optional[list] = None) -> int:
+  """CLI entry; user-input errors (an invalid program among them) exit 1
+  with a one-line message (reference sodac exits 1 on SemanticError,
+  soda/sodac.py:146-152); what the port has not yet exits 2 naming its
+  ROADMAP item."""
+  try:
+    return _main(argv)
+  except utils.InputError as e:
+    print('%s: error: %s' % (PROG, e), file=sys.stderr)
+    return 1
+  except NotPorted as e:
+    print('%s: error: %s' % (PROG, e), file=sys.stderr)
+    return 2
+
+
+def _main(argv: Optional[list] = None) -> int:
+  parser = _build_parser()
+  args = parser.parse_args(argv)
+  for key, flag, item in _NOT_PORTED_FLAGS:
+    if getattr(args, key):
+      raise NotPorted('%s is not ported yet: %s' % (flag, item))
+  if args.backend in _NOT_PORTED_BACKENDS:
+    raise NotPorted('--backend %s is not ported yet: %s' %
+                    (args.backend, _NOT_PORTED_BACKENDS[args.backend]))
+  if args.bench and args.device != 'cuda':
+    raise utils.InputError('--bench times the kernel on the card; it needs '
+                           '--device cuda')
+  sys.setrecursionlimit(args.recursion_limit)
+  level = logging.WARNING - 10 * args.verbose + 10 * args.quiet
+  logging.basicConfig(
+      level=max(logging.DEBUG, min(logging.CRITICAL, level)),
+      format='%(levelname)s:%(name)s:%(lineno)d: %(message)s')
+
+  if args.soda_src == '-':
+    source = sys.stdin.read()
+  else:
+    with open(args.soda_src) as f:
+      source = f.read()
+
+  overrides = {}
+  for key in ('burst_width', 'unroll_factor', 'replication_factor',
+              'iterate', 'border', 'cluster', 'dram_in', 'dram_out'):
+    value = getattr(args, key)
+    if value is not None:
+      overrides[key] = value
+  if args.tile_size:
+    overrides['tile_size'] = _parse_ints(args.tile_size) + (0,)
+  optimizations = {}
+  if args.computation_reuse != 'no':
+    optimizations['computation-reuse'] = args.computation_reuse
+  if args.cr_cost is not None:
+    optimizations['cr-cost'] = args.cr_cost
+  if args.inline:
+    optimizations['inline'] = True
+  if args.distribute:
+    optimizations['distribute'] = True
+  if args.no_separable:
+    optimizations['separable'] = 'no'
+  if optimizations:
+    overrides['optimizations'] = optimizations
+
+  from soda_tpu_torch import api
+  try:
+    stencil = api.build_stencil(source, **overrides)
+  except utils.SemanticError as e:
+    raise utils.InputError('invalid SODA program: %s' % e) from None
+
+  did_something = False
+  if args.emit_dot:
+    from soda_tpu_torch.backend.plan import make_plan
+    text = make_plan(stencil).dot()
+    if args.emit_dot == '-':
+      sys.stdout.write(text + '\n')
+    else:
+      with open(args.emit_dot, 'w') as f:
+        f.write(text + '\n')
+    did_something = True
+
+  if args.run:
+    did_something = True
+    code = _run(stencil, args)
+    if code:
+      return code
+
+  if not did_something:
+    parser.error('no action requested (--emit-dot/--run)')
+  return 0
+
+
+def _run(stencil, args) -> int:
+  """Execute on seeded inputs and verify against the NumPy oracle: the
+  analog of running the generated host with SODA_TEST_MAIN."""
+  import numpy as np
+
+  from soda_tpu_torch import profiling
+  from soda_tpu_torch.backend import get_executor, reference
+
+  shape = _parse_ints(args.shape) if args.shape else _default_shape(stencil)
+  inputs = reference.make_test_inputs(stencil, shape, seed=args.seed)
+  params = reference.make_test_params(stencil)
+  want = reference.run(stencil, inputs, params)
+
+  t0 = time.perf_counter()
+  if args.backend == 'replicated':
+    # R independent grids in one launch; the self-test runs the SAME
+    # grid in every batch slot and checks slot 0 against the oracle
+    # (reference replication semantics: identical pipelines over
+    # independent tiles, core.py:565-614)
+    executor = get_executor(stencil, shape, 'replicated', device=args.device)
+    r = executor.replication_factor
+    inputs = {k: np.stack([v] * r) for k, v in inputs.items()}
+    outs = {k: v[0].cpu().numpy()
+            for k, v in executor(inputs, params).items()}
+  else:
+    executor = get_executor(stencil, shape, args.backend, device=args.device)
+    outs = {k: v.cpu().numpy() for k, v in executor(inputs, params).items()}
+  compile_and_run_s = time.perf_counter() - t0
+
+  # THRESHOLD env override, same knob as the generated hosts
+  # (reference frt/host.py:633-641, xilinx/host.py:1201-1204), in the
+  # squared-form criterion of frt/host.py:633-657 (tests/checks.py)
+  default = utils.threshold_for(stencil.app_name)
+  threshold = float(os.environ.get('THRESHOLD', repr(default))) ** 2
+  errors = 0
+  for name in stencil.output_names:
+    if stencil.preserve_border:
+      # preserve mode defines the WHOLE grid (boundary carries the
+      # paired input) — compare it all, like the hardware gate
+      got = outs[name]
+      expect = want[name]
+    else:
+      region = reference.output_valid_slices(stencil, shape, name)
+      got = outs[name][region]
+      expect = want[name][region]
+    if stencil.symbol_table[name].is_float:
+      d2 = (got.astype(np.float64) - expect.astype(np.float64)) ** 2
+      w2 = expect.astype(np.float64) ** 2
+      bad = (d2 > threshold) & (d2 > threshold * w2)
+    else:
+      bad = got != expect
+    errors += int(bad.sum())
+  cells = int(np.prod(shape))
+  print('INFO: %s!' % ('FAIL' if errors else 'PASS'))
+  print('Grid: %s (%d cells), backend=%s, device=%s, compile+run %.3f s' %
+        ('x'.join(map(str, shape)), cells, args.backend, executor.device,
+         compile_and_run_s))
+
+  if args.bench:
+    # CUDA events, each call from a cold L2 (median); the TPU CLI's
+    # chained slope timing is for remote-attached TPUs only
+    batch = getattr(executor, 'replication_factor', 1)
+    positional = executor.prepare(inputs, params)
+    dt = statistics.median(profiling.cuda_times_ms(
+        lambda: executor.fn(*positional))) / 1e3
+    in_b, out_b = profiling.stream_bytes(stencil, shape)
+    print('Effective HBM bandwidth: %.1f GB/s' %
+          ((in_b + out_b) * batch / dt / 1e9))
+    # same surface as the generated hosts (reference host.py:816-823)
+    print('Kernel execution time: %.3f ms' % (dt * 1e3))
+    print('Kernel throughput: %.6f pixel/ns' % (cells * batch / dt / 1e9))
+    print('Device: %s' % profiling.nvidia_smi_line())
+  return 1 if errors else 0
+
+
+if __name__ == '__main__':
+  sys.exit(main())

@@ -3,17 +3,17 @@
 - ``CELLS``: the 12 cells of the stencil benchmark (bench.py:51-163),
   the 11 corpus kernels plus jacobi3d at 256^3, with the benchmark's
   shapes and stencil overrides (its TPU seed configs do not apply).
-- The shared front half's test data and oracle, re-exported so that a
-  caller needs only this package: seeded inputs and params, each
-  output's valid region, the per-kernel float threshold and the NumPy
-  oracle's ``run``.
+- The front half's test data and oracle, re-exported from the port's
+  own copies: seeded inputs and params, each output's valid region, the
+  per-kernel float threshold and the NumPy oracle's ``run``.
 - ``check_outputs``: the comparison rule of the reference's self-test,
   as tests/checks.py states it. Integers bit-exact; a float fails only
   where its error exceeds the threshold both absolutely and relative to
   the reference value; NaNs in the same cells.
 - Test cases: tile geometries, an output read by a stage, a program
-  with params, and a seeded generator of random DSL programs over every
-  integer width and sign, half, float and double.
+  with params, a seeded generator of random DSL programs over every
+  integer width and sign, half, float and double, and distinct inputs
+  per replica of a replicated batch.
 """
 
 from __future__ import annotations
@@ -22,20 +22,21 @@ from typing import Mapping
 
 import numpy as np
 
-from soda_tpu.api import build_stencil
-from soda_tpu.backend import semantics as oracle
-from soda_tpu.backend.reference import (make_test_inputs, make_test_params,
-                                        output_valid_slices)
-from soda_tpu.backend.reference import run as oracle_run
-from soda_tpu.corpus import CORPUS
-from soda_tpu.ir.types import Type
-from soda_tpu.utils import threshold_for
+from soda_tpu_torch.api import build_stencil
+from soda_tpu_torch.backend import c_semantics as oracle
+from soda_tpu_torch.backend.reference import (make_test_inputs,
+                                              make_test_params,
+                                              output_valid_slices)
+from soda_tpu_torch.backend.reference import run as oracle_run
+from soda_tpu_torch.corpus import CORPUS
+from soda_tpu_torch.ir.types import Type
+from soda_tpu_torch.utils import threshold_for
 
 __all__ = ['CELLS', 'CONV_PARAM', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
            'GEOMETRY_CASES', 'MULTI_OUTPUT', 'build_cell', 'check_outputs',
            'gen_program', 'make_inputs', 'make_test_inputs',
            'make_test_params', 'oracle_run', 'output_valid_slices',
-           'threshold_for']
+           'replica_inputs', 'threshold_for']
 
 # (name, shape, stencil overrides): the benchmark's 12 cells
 CELLS = (
@@ -253,6 +254,22 @@ def gen_program(seed: int, narrow: bool = False) -> str:
       'input dram 2 %s: x' % t_x,
       'output dram 3 %s: o(0, 0) = %s' % (t_out, expr),
   ])
+
+
+def replica_inputs(stencil, shape, replicas: int):
+  """One input dict per replica: ``make_test_inputs`` with seed k for
+  replica k. Integer inputs are coordinate ramps, the same for every
+  seed, so replica k's ramp is shifted by 3k: no two replicas share a
+  grid."""
+  grids = []
+  for k in range(replicas):
+    grid = make_test_inputs(stencil, shape, seed=k)
+    for name, value in grid.items():
+      t = stencil.symbol_table[name]
+      if not t.is_float:
+        grid[name] = oracle.wrap(np, value.astype(np.int64) + 3 * k, t)
+    grids.append(grid)
+  return grids
 
 
 def make_inputs(stencil, shape, seed: int):

@@ -7,8 +7,9 @@ contraction off, as ``--fmad=false`` does on the card; undefined
 behaviour trapped where the toolchain links the sanitizer) and it is
 held against the NumPy oracle on the 11 corpus kernels and the
 semantics fuzz programs: integers bit-exact, floats within the
-reference threshold. The source must not depend on the hash seed, and
-the nvcc command must keep IEEE float semantics.
+reference threshold; with two replicas, each grid at its own offset.
+The source (also of the grouped sub-stencils) must not depend on the
+hash seed, and the nvcc command must keep IEEE float semantics.
 """
 
 import ctypes
@@ -22,13 +23,12 @@ import numpy as np
 import pytest
 import torch
 
-from soda_tpu import corpus
-from soda_tpu.api import build_stencil
-from soda_tpu.backend import reference
-from soda_tpu_torch.backend import build, cuda_source
+from soda_tpu_torch import corpus
+from soda_tpu_torch.api import build_stencil
+from soda_tpu_torch.backend import build, cuda_source, reference
 from soda_tpu_torch.backend.tile_plan import make_tile_plan
 from soda_tpu_torch.testing import (FUZZ_SEEDS, FUZZ_SHAPE, check_outputs,
-                                    gen_program, make_inputs)
+                                    gen_program, make_inputs, replica_inputs)
 
 torch.set_num_threads(1)
 
@@ -99,24 +99,58 @@ def test_host_loop_matches_oracle(host_lib, case):
   args = [np.ascontiguousarray(inputs[n]) for n in st.input_names]
   args += [np.ascontiguousarray(params[s.name]) for s in st.param_stmts]
   args += [outs[o] for o in st.output_names]
-  fn = getattr(lib, symbols[name])
-  fn.argtypes = [ctypes.c_void_p] * len(args)
-  fn.restype = ctypes.c_int
-  assert fn(*[a.ctypes.data for a in args]) == 0
+  assert _host_call(lib, symbols[name], args, 1) == 0
   check_outputs(st, shape, outs, want, name)
+
+
+def _host_call(lib, symbol, arrays, replicas):
+  fn = getattr(lib, symbol)
+  fn.argtypes = [ctypes.c_void_p] * len(arrays) + [ctypes.c_longlong]
+  fn.restype = ctypes.c_int
+  return fn(*[a.ctypes.data for a in arrays], replicas)
+
+
+def test_host_loop_runs_each_replica_on_its_own_grid(tmp_path):
+  """The replica axis: R grids laid out one after another, each read and
+  written at its own offset (the kernel's ``blockIdx.y``)."""
+  gxx = shutil.which('g++')
+  if gxx is None:
+    pytest.skip('no g++ on this machine')
+  st = corpus.build('blur')
+  shape = corpus.TEST_DIMS['blur']
+  kernel = cuda_source.generate(make_tile_plan(st, shape))
+  src = tmp_path / 'blur.cpp'
+  src.write_text(kernel.text)
+  lib = tmp_path / 'blur.so'
+  proc = subprocess.run([gxx, *_flags(gxx, tmp_path), '-o', str(lib),
+                         str(src)], capture_output=True, text=True)
+  assert proc.returncode == 0, proc.stderr[-4000:]
+  grids = replica_inputs(st, shape, 2)
+  batch = np.ascontiguousarray(np.stack([g['input'] for g in grids]))
+  out = np.zeros((2,) + shape, np.uint16)
+  assert _host_call(ctypes.CDLL(str(lib)), kernel.host_symbol, [batch, out],
+                    2) == 0
+  for k, grid in enumerate(grids):
+    check_outputs(st, shape, {'blur_y': out[k]}, reference.run(st, grid),
+                  'blur replica %d' % k)
+  assert not np.array_equal(out[0], out[1])
 
 
 _GENERATE = '''
 import hashlib, sys
 sys.path.insert(0, %r)
-from soda_tpu import corpus
+from soda_tpu_torch import corpus
 from soda_tpu_torch.backend import cuda_source
+from soda_tpu_torch.backend.grouped import group_stencils
 from soda_tpu_torch.backend.tile_plan import make_tile_plan
 greedy = {'optimizations': {'computation-reuse': 'greedy'}}
-for name, ov in (('denoise2d', {}), ('denoise3d', {}), ('sobel2d', {}),
-                 ('seidel2d', greedy), ('erosion', greedy)):
-  st = corpus.build(name, **ov)
-  text = cuda_source.generate(make_tile_plan(st, corpus.TEST_DIMS[name])).text
+_, subs = group_stencils(corpus.build('denoise2d', cluster='coarse'))
+subs = [(sub.app_name, sub, 'denoise2d') for sub in subs]
+cases = [(name, corpus.build(name, **ov), name)
+         for name, ov in (('denoise2d', {}), ('denoise3d', {}), ('sobel2d', {}),
+                          ('seidel2d', greedy), ('erosion', greedy))]
+for name, st, dims in cases + subs:
+  text = cuda_source.generate(make_tile_plan(st, corpus.TEST_DIMS[dims])).text
   print(name, hashlib.sha256(text.encode()).hexdigest())
 '''
 
@@ -134,7 +168,7 @@ def test_source_is_independent_of_the_hash_seed():
     assert proc.returncode == 0, proc.stderr[-4000:]
     outs.append(proc.stdout)
   assert outs[0] == outs[1]
-  assert len(outs[0].splitlines()) == 5
+  assert len(outs[0].splitlines()) == 5 + 8  # denoise2d: 8 groups
 
 
 def test_nvcc_command_keeps_ieee_floats():
@@ -154,7 +188,7 @@ def test_source_note_names_the_tpu_kernel_and_the_bound():
 
 
 def test_float_literals_print_exactly():
-  from soda_tpu.ir.types import Type
+  from soda_tpu_torch.ir.types import Type
   f = Type('float')
   # seidel2d's .1111111f
   assert cuda_source.literal(0.1111111, f) == '(0x1.c71c6ep-4f)'

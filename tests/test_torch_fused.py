@@ -3,9 +3,10 @@
 On the CPU ``FusedExecutor`` runs the kernel's plain PyTorch version
 over the kernel's own tiles; it must agree with the fused Pallas kernel
 (interpret mode, as tests/test_pallas.py runs it) and with the NumPy
-oracle on every corpus kernel. Forced tile plans exercise the kernel's
-geometry: ragged last tiles, odd extents, one tile, nonzero store
-offsets. The same cases run through the generated CUDA kernel itself in
+oracle on every corpus kernel. Each side builds its own stencil from
+the same DSL text: the port's classes are its own. Forced tile plans
+exercise the kernel's geometry: ragged last tiles, odd extents, one
+tile, nonzero store offsets. The same cases run through the generated CUDA kernel itself in
 tests/test_torch_gpu.py.
 """
 
@@ -13,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from soda_tpu import corpus, utils
-from soda_tpu.api import build_stencil
-from soda_tpu.backend import reference
+from soda_tpu import corpus as jax_corpus
+from soda_tpu.backend import reference as jax_reference
 from soda_tpu.backend.pallas_kernel import PallasExecutor
+from soda_tpu_torch import corpus, utils
+from soda_tpu_torch.api import build_stencil
+from soda_tpu_torch.backend import reference
 from soda_tpu_torch.backend.fused import FusedExecutor, fused_stencil_plain
 from soda_tpu_torch.backend.tile_plan import (MAX_TILE_CELLS, SMEM_LIMIT,
                                                candidate_tiles, make_tile_plan)
@@ -29,11 +32,12 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize('name', sorted(corpus.CORPUS))
 def test_corpus_matches_pallas_and_oracle(name):
   stencil = corpus.build(name)
+  jax_stencil = jax_corpus.build(name)  # the same text, the JAX classes
   shape = corpus.TEST_DIMS[name]
   inputs = reference.make_test_inputs(stencil, shape)
   params = reference.make_test_params(stencil)
-  want = reference.run(stencil, inputs, params)
-  pallas = PallasExecutor(stencil, shape, interpret=True)(inputs, params)
+  want = jax_reference.run(jax_stencil, inputs, params)
+  pallas = PallasExecutor(jax_stencil, shape, interpret=True)(inputs, params)
   got = FusedExecutor(stencil, shape, device='cpu')(inputs, params)
   got = {k: v.numpy() for k, v in got.items()}
   check_outputs(stencil, shape, got, want, name)

@@ -1,8 +1,8 @@
 """The generated CUDA kernel itself, on the card.
 
 Every test here is marked ``gpu`` and skips where no CUDA device
-exists. The file imports no jax, so it also runs on a GPU machine
-without one:
+exists. The file imports no jax and nothing of the JAX package, so it also
+runs on a GPU machine without them:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
@@ -11,7 +11,8 @@ kernel is built with nvcc, launched through ``FusedExecutor`` and held
 against the NumPy oracle: the corpus kernels, tile plans with ragged,
 odd and one-cell tiles, an output read by another stage, params,
 ``border: preserve``, and the semantics fuzz programs (every integer
-width, half and double). Integers bit-exact, floats within the
+width, half and double); then ``cluster: coarse`` (one kernel per stage
+group) and replicated batches (one launch for R grids). Integers bit-exact, floats within the
 reference threshold (tests/checks.py).
 """
 
@@ -19,13 +20,16 @@ import numpy as np
 import pytest
 import torch
 
-from soda_tpu import corpus
-from soda_tpu.api import build_stencil
-from soda_tpu.backend import reference
+from soda_tpu_torch import corpus
+from soda_tpu_torch.api import build_stencil
+from soda_tpu_torch.backend import reference
 from soda_tpu_torch.backend.fused import FusedExecutor
+from soda_tpu_torch.backend.grouped import GroupedExecutor
+from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
                                     GEOMETRY_CASES, MULTI_OUTPUT,
-                                    check_outputs, gen_program, make_inputs)
+                                    check_outputs, gen_program, make_inputs,
+                                    replica_inputs)
 
 
 def _run_on_gpu(stencil, shape, inputs, params=None, tile=None):
@@ -101,3 +105,42 @@ def test_fuzz_program_matches_oracle(seed):
   with np.errstate(all='ignore'):
     want = reference.run(stencil, inputs)
   check_outputs(stencil, FUZZ_SHAPE, got, want, 'fuzz%d on gpu' % seed)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', ['blur', 'denoise2d', 'heat3d'])
+def test_grouped_kernels_match_oracle(name):
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device (the kernel has no CPU build)')
+  stencil = corpus.build(name, cluster='coarse')
+  shape = corpus.TEST_DIMS[name]
+  inputs = reference.make_test_inputs(stencil, shape)
+  ex = GroupedExecutor(stencil, shape, device='cuda')
+  got = ex(inputs)
+  torch.cuda.synchronize()
+  assert ex.launches == len(ex.plan.groups)
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                name + ' coarse on gpu')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,border', [('blur', 'ignore'),
+                                         ('jacobi2d', 'preserve'),
+                                         ('heat3d', 'ignore')])
+def test_replicated_kernel_matches_oracle_per_replica(name, border):
+  if not torch.cuda.is_available():
+    pytest.skip('needs a CUDA device (the kernel has no CPU build)')
+  stencil = corpus.build(name, border=border)
+  shape = corpus.TEST_DIMS[name]
+  grids = replica_inputs(stencil, shape, 3)
+  ex = ReplicatedExecutor(stencil, shape, replication_factor=3,
+                          device='cuda')
+  got = ex({n: np.stack([g[n] for g in grids])
+            for n in stencil.input_names})
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  for k, grid in enumerate(grids):
+    check_outputs(stencil, shape, {o: v[k] for o, v in got.items()},
+                  reference.run(stencil, grid),
+                  '%s replica %d on gpu' % (name, k),
+                  full=border == 'preserve')

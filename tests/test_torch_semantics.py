@@ -16,10 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from soda_tpu.api import build_stencil
+import soda_tpu
 from soda_tpu.backend import semantics as oracle
-from soda_tpu.ir.types import Type
+from soda_tpu_torch.api import build_stencil
 from soda_tpu_torch.backend import semantics
+from soda_tpu_torch.ir.types import Type
 from soda_tpu_torch.testing import gen_program, make_inputs
 
 from checks import assert_close_reference
@@ -30,9 +31,12 @@ SHAPE = (8, 16)
 
 
 def _build(seed, narrow=False):
+  """(program, the port's stencil, its output, the JAX package's output)
+  from one DSL text: each side builds with its own classes."""
   program = gen_program(seed, narrow)
   stencil = build_stencil(program)
-  return program, stencil, stencil.tensors['o']
+  jax_tensor = soda_tpu.build_stencil(program).tensors['o']
+  return program, stencil, stencil.tensors['o'], jax_tensor
 
 
 def _compare(got, want, t: Type, context: str):
@@ -67,9 +71,9 @@ def _torch_eval(stencil, tensor, inputs):
 
 @pytest.mark.parametrize('seed', range(60))
 def test_random_expressions_match_oracle(seed):
-  program, stencil, tensor = _build(seed)
+  program, stencil, tensor, jax_tensor = _build(seed)
   inputs = make_inputs(stencil, SHAPE, seed)
-  want = np.broadcast_to(_numpy_eval(tensor, inputs), SHAPE)
+  want = np.broadcast_to(_numpy_eval(jax_tensor, inputs), SHAPE)
   got = _torch_eval(stencil, tensor, inputs)
   _compare(got, want, tensor.dtype, 'seed=%d\n%s' % (seed, program))
 
@@ -77,10 +81,10 @@ def test_random_expressions_match_oracle(seed):
 @pytest.mark.parametrize('seed', range(100, 125))
 def test_random_expressions_match_jax_numpy(seed):
   import jax.numpy as jnp
-  program, stencil, tensor = _build(seed, narrow=True)
+  program, stencil, tensor, jax_tensor = _build(seed, narrow=True)
   inputs = make_inputs(stencil, SHAPE, seed)
   ev = oracle.Evaluator(jnp, lambda ref: jnp.asarray(inputs[ref.name]))
-  value, _ = ev.eval_stmt(tensor)
+  value, _ = ev.eval_stmt(jax_tensor)
   want = np.broadcast_to(np.asarray(oracle.wrap(jnp, value, tensor.dtype)),
                          SHAPE)
   got = _torch_eval(stencil, tensor, inputs)
@@ -157,7 +161,7 @@ def test_transcendentals_within_threshold(fn, tname):
   t = stencil.symbol_table['x']
   x = (np.random.default_rng(5).random(SHAPE) * 3 + 0.25)
   inputs = {'x': x.astype(t.np_dtype)}
-  want = _numpy_eval(tensor, inputs)
+  want = _numpy_eval(soda_tpu.build_stencil(src).tensors['o'], inputs)
   got = _torch_eval(stencil, tensor, inputs)
   _compare(got, want, tensor.dtype, '%s %s' % (fn, tname))
 
