@@ -7,16 +7,20 @@ The main path: DSL text -> soda_tpu_torch.build_stencil (the port's own
 front half: parser, passes, fusion plan) -> soda_tpu_torch.get_executor
 -> one generated CUDA C++ kernel per stencil. Beside it, grouped
 execution (``cluster: coarse``: one kernel per stage group), replicated
-execution (R grids in one launch) and the command line. Phases, each
-printing one line per step with its seconds:
+execution (R grids in one launch), the command line, the whole-grid
+executor and sharded execution over a device mesh (the fused kernel per
+halo-extended shard). Phases, each printing one line per step with its
+seconds:
 
 1. device: a CUDA device is required (no CPU fallback); prints the card,
    its power limit and the toolchain; neither jax nor the JAX package
    may be loaded (checked again at the end).
 2. build: builds the 12 cells of the stencil benchmark (the 11 corpus
    kernels plus jacobi3d at 256^3, with the benchmark's shapes and
-   stencil overrides), the grouped cells' per-group kernels and the
-   small replicated grid's kernel: one nvcc per source, all at once.
+   stencil overrides), the grouped cells' per-group kernels, the small
+   replicated grid's kernel and the sharded cells' kernels at their
+   halo-extended shard shapes: one nvcc per source, all at once. Each
+   cell must dispatch to the fused kernel under 'auto'.
 3. main path: every cell once through ``executor(inputs)``, with every
    launch counter reset just before and read just after.
 4. kernel vs plain: each kernel against its plain PyTorch version
@@ -41,10 +45,32 @@ printing one line per step with its seconds:
    shapes, each replica its own inputs, and blur at (1024, 2048) with
    R = 16: one launch per call, each replica against the plain version;
    times, and the R = 16 launch against 16 single launches.
+   Then blur at (1024, 2048) with R = 16 on a (4,) mesh that repeats the
+   card: one launch of 4 grids per mesh entry, every replica == plain.
 10. CLI: ``python -m soda_tpu_torch FILE --run`` for blur (``--bench``),
-   denoise2d (``--cluster coarse``) and jacobi2d (``--backend
-   replicated --replication-factor 4``) at (8192, 2048): each exits 0
-   and prints ``INFO: PASS!``.
+   denoise2d (``--cluster coarse``), jacobi2d (``--backend replicated
+   --replication-factor 4``, and ``--backend xla``) and blur
+   (``--backend sharded`` on the default mesh: the visible cards, the
+   fused kernel per shard) at (8192, 2048): each exits 0, prints
+   ``INFO: PASS!`` and reports its kernel launches: none for
+   ``--backend xla``, at least one for every other run.
+11. whole-grid: the 12 cells through ``get_executor(..., 'xla')`` (the
+   plain version over the whole grid, no kernel of ours): held against
+   the cell's kernel output and its plain version; cold-L2 median
+   beside the kernel's, the host's against the device's microseconds per call back
+   to back, and the operations per call that make the host wait for the
+   card (``profiling.sync_count``).
+12. sharded: the ``testing.SHARDED`` cells at the benchmark shapes on
+   meshes that repeat the card, through ``get_executor(..., 'sharded')``
+   with each counter reset just before its run and read just after:
+   launches == shards x groups (0 for the whole-grid inner); outputs
+   finite and held against ``fused_stencil_plain`` on the unsharded
+   grid; blur bit-exact against the NumPy oracle; overlap 'on' (the JAX
+   package's mode, here the same exchange) equal to 'off' bit for bit;
+   times beside the unsharded kernel's, and host
+   against device microseconds per call back to back (whether the
+   host's enqueueing of the per-shard operations holds the card back),
+   and the synchronising operations per call.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
@@ -54,6 +80,7 @@ exits nonzero. Inputs are made from seeded numpy (make_test_inputs).
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -63,16 +90,20 @@ FLAGSHIP = 'blur'
 KERNEL_REPS = 20
 PLAIN_REPS = 5
 HOST_CALLS = 200
+WHOLE_GRID_CALLS = 50
 GROUPED = ('blur', 'sobel2d', 'denoise2d', 'heat3d')
 REPLICATED = ('blur', 'jacobi2d', 'heat3d')
 REPLICAS = 4
 SMALL_SHAPE, SMALL_REPLICAS = (1024, 2048), 16
 CLI_SHAPE = '8192,2048'
+MESH_REPLICAS = (4,)
 CLI_RUNS = (
     ('blur', ['--bench']),
     ('denoise2d', ['--cluster', 'coarse']),
     ('jacobi2d', ['--backend', 'replicated', '--replication-factor',
                   str(REPLICAS)]),
+    ('jacobi2d', ['--backend', 'xla']),
+    ('blur', ['--backend', 'sharded']),
 )
 
 
@@ -99,10 +130,11 @@ def main() -> int:
   import soda_tpu_torch
   from soda_tpu_torch import corpus, profiling, testing
   from soda_tpu_torch.backend import build, cuda_source, grouped
-  from soda_tpu_torch.backend.fused import (fused_stencil_plain,
+  from soda_tpu_torch.backend.fused import (FusedExecutor,
+                                            fused_stencil_plain,
                                             replicated_stencil_plain)
   from soda_tpu_torch.backend.tile_plan import make_tile_plan
-  from soda_tpu_torch.parallel import replicate
+  from soda_tpu_torch.parallel import replicate, spmd
 
   # 1. device
   t0 = time.time()
@@ -148,6 +180,21 @@ def main() -> int:
                 for sub in subs]
   small = testing.build_cell(FLAGSHIP, overrides_of[FLAGSHIP])
   sources.append(cuda_source.generate(make_tile_plan(small, SMALL_SHAPE)))
+  card = torch.device('cuda', 0)
+
+  def sharded_stencil(name, inner):
+    return coarse[name] if inner == 'grouped' else stencils[name]
+
+  for name, mesh_shape, inner, _ in testing.SHARDED:
+    if inner == 'xla':
+      continue
+    stencil = sharded_stencil(name, inner)
+    ext = spmd.geometry(stencil, shape_of[name],
+                        testing.repeated_mesh(card, mesh_shape))[-1]
+    subs = (grouped.group_stencils(stencil)[1] if inner == 'grouped'
+            else [stencil])
+    sources += [cuda_source.generate(make_tile_plan(sub, ext))
+                for sub in subs]
   t = time.time()
   build.build_all(sources)
   say('[build] nvcc: %d kernels at once (%.1fs)' % (len(sources),
@@ -156,6 +203,9 @@ def main() -> int:
   for name, shape, overrides in testing.CELLS:
     stencil = stencils[name]
     ex = soda_tpu_torch.get_executor(stencil, shape)
+    if not isinstance(ex, FusedExecutor):
+      raise RuntimeError('%s: auto did not dispatch to the fused kernel' %
+                         name)
     say('[build] %-12s %-16s tile %-14s smem %6d B  %5d CTAs' % (
         name, shape, ex.plan.tile, ex.plan.smem_bytes, ex.plan.n_tiles))
     inputs = testing.make_test_inputs(stencil, shape)
@@ -219,7 +269,7 @@ def main() -> int:
       name, shape, time.time() - t))
 
   # 6. times
-  kernels = []
+  kernels, kernel_ms, plain_ms_of = [], {}, {}
   for name, shape, stencil, ex, inputs, params in cells:
     args = ex.prepare(inputs, params)
     n_in = len(stencil.input_names)
@@ -227,6 +277,7 @@ def main() -> int:
         lambda: ex.fn(*args),
         lambda: fused_stencil_plain(stencil, args[:n_in], args[n_in:]))
     q1, _, q3 = statistics.quantiles(k_ms, n=4)
+    kernel_ms[name], plain_ms_of[name] = ms, plain_ms
     in_b, out_b = profiling.stream_bytes(stencil, shape)
     kernels.append(record('fused_stencil[%s]' % name,
                           'soda_tpu_torch/backend/cuda_source.py',
@@ -250,7 +301,7 @@ def main() -> int:
                   HOST_CALLS, smi))
 
   # 8. grouped: one kernel per stage group, handing off through memory
-  groups = {}
+  groups, grouped_ms = {}, {}
   for name in GROUPED:
     groups[name] = soda_tpu_torch.get_executor(coarse[name], shape_of[name])
     if not isinstance(groups[name], grouped.GroupedExecutor):
@@ -288,6 +339,7 @@ def main() -> int:
         lambda: ex.fn(*args),
         lambda: grouped.grouped_stencil_plain(stencil, args[:n_in],
                                               args[n_in:]))
+    grouped_ms[name] = ms
     kernels.append(record('fused_stencil_grouped[%s]' % name,
                           'soda_tpu_torch/backend/grouped.py',
                           grouped.REPLACES, launches_g[name], err, ms,
@@ -373,6 +425,41 @@ def main() -> int:
       '(cold L2); back to back %.1f vs %.1f us per %d grids | %s' % (
           FLAGSHIP, SMALL_SHAPE, SMALL_REPLICAS, one_ms, SMALL_REPLICAS,
           many_ms, one_us, many_us, SMALL_REPLICAS, smi))
+  # the same batch split over a mesh that repeats the card: one
+  # replicated launch per entry of the mesh's first axis
+  small_plain = replicated_stencil_plain(small, args_r)
+  ex_m = soda_tpu_torch.get_executor(
+      small, SMALL_SHAPE, 'replicated', replication_factor=SMALL_REPLICAS,
+      mesh=testing.repeated_mesh(card, MESH_REPLICAS))
+  ex_m.launches = 0
+  t = time.time()
+  got_m = ex_m(small_batch)
+  torch.cuda.synchronize()
+  launches_m = ex_m.launches
+  if launches_m != MESH_REPLICAS[0]:
+    raise RuntimeError('meshed replicated: %d launches on a %s mesh' % (
+        launches_m, MESH_REPLICAS))
+  err = 0.0
+  for k in range(SMALL_REPLICAS):
+    got_k = {o: v[k] for o, v in got_m.items()}
+    check_finite(small, SMALL_SHAPE, got_k, 'mesh replica %d' % k)
+    err = max(err, testing.check_outputs(
+        small, SMALL_SHAPE, got_k,
+        {o: v[k] for o, v in zip(small.output_names, small_plain)},
+        '%s mesh replica %d' % (small_name, k)))
+  args_m = ex_m.prepare(small_batch)
+  _, ms, plain_ms = times(lambda: ex_m.fn(*args_m),
+                          lambda: replicated_stencil_plain(small, args_r))
+  kernels.append(record('fused_stencil_replicated[%s mesh %s]' % (
+      small_name, MESH_REPLICAS), 'soda_tpu_torch/parallel/replicate.py',
+                        replicate.REPLACES, launches_m, err, ms, plain_ms,
+                        small, SMALL_SHAPE, grids=SMALL_REPLICAS))
+  say('[replicated] %s on a %s mesh of %s: %d launches of %d grids, every '
+      'replica == plain (max |err| %.3g)  kernels %.4f ms (one launch: %.4f '
+      'ms)  plain %.3f ms  bound %.4f ms (%.1fs) | %s' % (
+          small_name, MESH_REPLICAS, card, launches_m, ex_m.per_device, err,
+          ms, one_ms, plain_ms, kernels[-1]['bound_ms'], time.time() - t,
+          smi))
 
   # 10. the command line, as a user runs it
   cli_dir = os.path.join(here, 'build', 'chip_smoke')
@@ -392,8 +479,95 @@ def main() -> int:
     if proc.returncode != 0 or 'INFO: PASS!' not in proc.stdout:
       raise RuntimeError('%s: %s exited %d without INFO: PASS!' % (
           name, ' '.join(cmd[1:]), proc.returncode))
-    say('[cli] %s %s: exit 0, INFO: PASS! (%.1fs) | %s' % (
-        name, ' '.join(flags), time.time() - t, smi))
+    found = re.search(r', (\d+) kernel launches$', proc.stdout, re.M)
+    count = int(found.group(1)) if found else -1
+    if count < 0 or (count == 0) != ('xla' in flags):
+      raise RuntimeError('%s %s: %d kernel launches' % (
+          name, ' '.join(flags), count))
+    say('[cli] %s %s: exit 0, INFO: PASS!, %d kernel launches (%.1fs) | %s'
+        % (name, ' '.join(flags), count, time.time() - t, smi))
+
+  # 11. the whole-grid executor: plain PyTorch on the card
+  for name, shape, stencil, ex, inputs, params in cells:
+    t = time.time()
+    wex = soda_tpu_torch.get_executor(stencil, shape, 'xla')
+    got = wex(inputs, params)
+    torch.cuda.synchronize()
+    check_finite(stencil, shape, got, name + ' whole-grid')
+    testing.check_outputs(stencil, shape, got, results[name],
+                          name + ' whole-grid vs kernel')
+    err = testing.check_outputs(stencil, shape, got, plains[name],
+                                name + ' whole-grid vs plain')
+    args = wex.prepare(inputs, params)
+    w_ms = statistics.median(profiling.cuda_times_ms(lambda: wex.fn(*args),
+                                                     reps=KERNEL_REPS))
+    host_us, device_us = profiling.back_to_back_us(lambda: wex.fn(*args),
+                                                   calls=WHOLE_GRID_CALLS)
+    syncs = profiling.sync_count(lambda: wex.fn(*args))
+    del got, args
+    say('[whole-grid] %-12s == kernel and == plain (max |err| %.3g)  %.4f ms '
+        'against the kernel\'s %.4f ms (%.1fx); back to back host %.1f us, '
+        'device %.1f us per call (n=%d); %d synchronising operations per '
+        'call (%.1fs) | %s' % (
+            name, err, w_ms, kernel_ms[name], w_ms / kernel_ms[name], host_us,
+            device_us, WHOLE_GRID_CALLS, syncs, time.time() - t, smi))
+  torch.cuda.empty_cache()
+
+  # 12. sharded: the grid split over meshes that repeat the card
+  offs = {}
+  for name, mesh_shape, inner, overlap in testing.SHARDED:
+    _, shape, _, _, inputs, params = by_name[name]
+    stencil = sharded_stencil(name, inner)
+    t = time.time()
+    ex = soda_tpu_torch.get_executor(
+        stencil, shape, 'sharded', inner=inner, overlap=overlap,
+        mesh=testing.repeated_mesh(card, mesh_shape))
+    label = '%s %s %s%s' % (name, mesh_shape, inner,
+                            ' overlap' if overlap == 'on' else '')
+    ex.launches = 0
+    got = ex(inputs, params)
+    torch.cuda.synchronize()
+    count = ex.launches
+    per_shard = {'fused': 1, 'xla': 0,
+                 'grouped': len(grouped.group_stencils(stencil)[1])}[inner]
+    if count != ex.n_shards * per_shard:
+      raise RuntimeError('%s: %d launches for %d shards x %d kernels' % (
+          label, count, ex.n_shards, per_shard))
+    check_finite(stencil, shape, got, label)
+    err = testing.check_outputs(stencil, shape, got, plains[name],
+                                label + ' vs unsharded plain')
+    exact = ''
+    if name == FLAGSHIP:
+      testing.check_outputs(stencil, shape, got, oracle, label + ' vs oracle')
+      exact = ', bit-exact vs the NumPy oracle'
+    if inner == 'xla' and overlap == 'off':
+      offs[name] = got
+    elif inner == 'xla':
+      for out in stencil.output_names:
+        if not torch.equal(got[out], offs[name][out]):
+          raise RuntimeError('%s:%s differs from overlap off' % (label, out))
+      exact = ', == overlap off bit for bit'
+    args = ex.prepare(inputs, params)
+    ms = statistics.median(profiling.cuda_times_ms(lambda: ex.fn(*args),
+                                                   reps=KERNEL_REPS))
+    host_us, device_us = profiling.back_to_back_us(lambda: ex.fn(*args),
+                                                   calls=HOST_CALLS)
+    syncs = profiling.sync_count(lambda: ex.fn(*args))
+    unsharded = grouped_ms[name] if inner == 'grouped' else kernel_ms[name]
+    bound, _ = profiling.bound_ms(stencil, shape)
+    if inner != 'xla':
+      kernels.append(record(
+          'fused_stencil_sharded[%s %s]' % (name, mesh_shape),
+          'soda_tpu_torch/parallel/spmd.py', spmd.REPLACES, count, err, ms,
+          plain_ms_of[name], stencil, shape))
+    del got, args
+    say('[sharded] %-34s %d shards, ext %s, %d launches: == unsharded plain '
+        '(max |err| %.3g)%s  %.4f ms  unsharded %.4f ms (%.2fx)  bound %.4f '
+        'ms; back to back host %.1f us, device %.1f us per call (n=%d); %d '
+        'synchronising operations per call (%.1fs) | %s' % (
+            label, ex.n_shards, ex.ext_shape, count, err, exact, ms,
+            unsharded, ms / unsharded, bound, host_us, device_us, HOST_CALLS,
+            syncs, time.time() - t, smi))
 
   no_jax_loaded()
   say(smi)

@@ -270,15 +270,20 @@ class FusedExecutor:
     replicas: None for one grid of ``shape`` per call, or R (1 to
       cuda_source.MAX_REPLICAS) for a batch of R independent grids,
       inputs and outputs of shape ``(R, *shape)``, in one launch.
+    apply_preserve_border: apply ``border: preserve`` after the kernel
+      (default). The sharded executor passes False: it crops each
+      shard and redoes the border against the global grid.
 
   ``launches`` counts kernel launches made by ``fn``.
   """
 
   def __init__(self, stencil, shape: Sequence[int], device='cuda',
                tile: Optional[Sequence[int]] = None,
-               replicas: Optional[int] = None):
+               replicas: Optional[int] = None,
+               apply_preserve_border: bool = True):
     check_stencil(stencil)
     self.stencil = stencil
+    self.apply_preserve_border = apply_preserve_border
     self.shape = tuple(int(s) for s in shape)
     if replicas is not None and not 1 <= replicas <= cuda_source.MAX_REPLICAS:
       raise utils.InputError('replicas must lie in 1..%d (one launch), got %r'
@@ -326,7 +331,7 @@ class FusedExecutor:
         stream = torch.cuda.current_stream().cuda_stream
         self.kernel.launch(pointers, self.replicas or 1, stream)
       self.launches += 1
-    if stencil.preserve_border:
+    if stencil.preserve_border and self.apply_preserve_border:
       outs = fix_border(stencil, self.shape, ins, outs)
     return outs
 

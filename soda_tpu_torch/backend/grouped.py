@@ -154,15 +154,18 @@ class GroupedExecutor:
       'coarse').
     device: 'cuda' (default; raises without a usable GPU) or 'cpu'.
     replicas: as FusedExecutor's: None, or R grids per call.
+    apply_preserve_border: as FusedExecutor's.
 
   ``launches`` is the sum of the groups' kernel launches.
   """
 
   def __init__(self, stencil, shape: Sequence[int],
                cluster: Optional[str] = None, device='cuda',
-               replicas: Optional[int] = None):
+               replicas: Optional[int] = None,
+               apply_preserve_border: bool = True):
     check_stencil(stencil)
     self.stencil = stencil
+    self.apply_preserve_border = apply_preserve_border
     self.shape = tuple(int(s) for s in shape)
     # per-group sub-stencils see their group inputs as margin-zero, so
     # the per-executor checks do NOT compose to the full window:
@@ -205,7 +208,7 @@ class GroupedExecutor:
     outs = _compose(self.stencil, [sub for sub, _ in self.executors],
                     lambda gi, group_args: self.executors[gi][1].fn(
                         *group_args), args)
-    if self.stencil.preserve_border:
+    if self.stencil.preserve_border and self.apply_preserve_border:
       outs = fix_border(self.stencil, self.shape,
                         args[:len(self.stencil.input_names)], outs)
     return outs

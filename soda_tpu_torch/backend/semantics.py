@@ -123,31 +123,50 @@ def require_device_support(device: torch.device) -> None:
                                       cap[0], cap[1]))
 
 
+# (device, how, numpy dtype, bytes) -> 0-d tensor. A scalar crosses to a
+# CUDA device as a copy the host waits for, so each constant crosses
+# once per process, not once per use. Nothing writes into these.
+_SCALARS: Dict[tuple, torch.Tensor] = {}
+
+
 class _Ctx:
   """Device on which Python constants become tensors."""
 
   def __init__(self, device):
     self.device = torch.device(device)
 
+  def _cached(self, arr: np.ndarray, how: str, make) -> torch.Tensor:
+    if arr.ndim:
+      return make()
+    key = (self.device, how, arr.dtype.str, arr.tobytes())
+    if key not in _SCALARS:
+      _SCALARS[key] = make()
+    return _SCALARS[key]
+
   def const(self, value, dtype: Type) -> torch.Tensor:
     """A Python or numpy scalar converted exactly as numpy's
     ``asarray(value).astype(dtype)`` converts it."""
     arr = np.asarray(value).astype(dtype.np_dtype)
     name = dtype.np_dtype.name
-    if name in _UNSIGNED:
-      rep, view = _UNSIGNED[name]
-      arr = arr.view(np.dtype('int%d' % (arr.itemsize * 8)))
-      out = torch.as_tensor(arr, device=self.device).to(rep)
+
+    def make():
+      if name not in _UNSIGNED:
+        return torch.as_tensor(arr, device=self.device)
+      rep, _ = _UNSIGNED[name]
+      out = torch.as_tensor(arr.view(np.dtype('int%d' % (arr.itemsize * 8))),
+                            device=self.device).to(rep)
       mask = _mask_bits(dtype)
       return out & mask if mask is not None else out
-    return torch.as_tensor(arr, device=self.device)
+
+    return self._cached(arr, 'const', make)
 
   def tensor(self, value) -> torch.Tensor:
     """A value as numpy's ``asarray`` would type it."""
     if isinstance(value, torch.Tensor):
       return value
     arr = np.asarray(value)
-    return torch.as_tensor(arr, device=self.device)
+    return self._cached(arr, 'tensor',
+                        lambda: torch.as_tensor(arr, device=self.device))
 
 
 def _to_int(value: torch.Tensor, dtype: Type) -> torch.Tensor:

@@ -332,6 +332,7 @@ def make_tile_plan(stencil, shape: Sequence[int],
     raise utils.InputError(
         'the fused kernel needs %d bytes of shared memory even for a '
         'one-cell tile, more than the %d a block may use; split the '
-        'pipeline (cluster: coarse) or shorten its window' %
+        'pipeline (cluster: coarse), shorten its window, or run the '
+        "whole-grid executor (backend 'xla')" %
         (tp.smem_bytes, SMEM_LIMIT))
   return chosen

@@ -13,6 +13,7 @@ from __future__ import annotations
 import shutil
 import subprocess
 import time
+import warnings
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -21,7 +22,7 @@ import torch
 from soda_tpu_torch.ir import nodes as ir
 
 __all__ = ['back_to_back_us', 'bound_ms', 'cuda_times_ms', 'device_report',
-           'nvidia_smi_line', 'op_count', 'stream_bytes']
+           'nvidia_smi_line', 'op_count', 'stream_bytes', 'sync_count']
 
 # bytes written between timed calls: four times the H100's 50 MB L2
 _FLUSH_BYTES = 200 * 2**20
@@ -29,6 +30,8 @@ _FLUSH_BYTES = 200 * 2**20
 # memory rate, and float32 operations outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
+# what PyTorch's sync debug mode warns at each synchronising operation
+_SYNC_WARNING = 'called a synchronizing CUDA operation'
 
 
 def stream_bytes(stencil, shape) -> Tuple[float, float]:
@@ -134,6 +137,25 @@ def back_to_back_us(fn: Callable[[], object], calls: int = 200,
   end.record()
   end.synchronize()
   return host / calls * 1e6, start.elapsed_time(end) / calls * 1e3
+
+
+def sync_count(fn: Callable[[], object]) -> int:
+  """Operations in one call of ``fn()`` that make the host wait for the
+  device (a blocking copy from or to host memory, ``.item()``): PyTorch's
+  sync debug mode warns at each, and the warnings are counted. Where a
+  call has any, the host cannot run ahead of the card. (The mode's
+  first use in a process also warns that it is a prototype; that
+  warning is not counted.)"""
+  if not torch.cuda.is_available():
+    raise RuntimeError('sync_count needs a CUDA device')
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    torch.cuda.set_sync_debug_mode('warn')
+    try:
+      fn()
+    finally:
+      torch.cuda.set_sync_debug_mode('default')
+  return sum(str(w.message).startswith(_SYNC_WARNING) for w in caught)
 
 
 def nvidia_smi_line() -> str:

@@ -11,6 +11,9 @@ Stencil, and act on it:
                     NumPy oracle (the reference's SODA_TEST_MAIN)
   --bench           with --run: CUDA-event kernel time, unique-traffic
                     bandwidth and pixel/ns on the card
+  --backend         auto|fused (one kernel, or one per group under
+                    cluster: coarse/fine), xla (whole grid), replicated,
+                    sharded [--mesh 4 | --mesh 2,2]
 
 ``--device`` is explicit (default ``cuda``): without a usable GPU the
 run fails; ``--device cpu`` runs the kernels' plain PyTorch versions.
@@ -41,12 +44,9 @@ _NOT_PORTED_FLAGS = (
     ('compile_stats', '--compile-stats', 'ROADMAP A11 (tools)'),
     ('tune', '--tune', 'ROADMAP A11 (tools)'),
     ('kernel_opt', '--kernel-opt', 'ROADMAP A11 (tools)'),
-    ('mesh', '--mesh', 'ROADMAP A9 (sharding over NCCL)'),
 )
 _NOT_PORTED_BACKENDS = {
-    'xla': 'ROADMAP A2 (whole-grid executor)',
     'pallas': 'ROADMAP A4 (the TPU kernel; its port is --backend fused)',
-    'sharded': 'ROADMAP A9 (sharding over NCCL)',
 }
 
 
@@ -118,6 +118,11 @@ def _build_parser() -> argparse.ArgumentParser:
                        help='grid shape, comma-separated, streaming axis '
                             'first (default: derived from tile size)')
   backend.add_argument('--seed', type=int, default=0)
+  backend.add_argument('--mesh', type=str,
+                       help='with --backend sharded: the mesh shape, e.g. '
+                            '4 or 2,2, over that many distinct visible '
+                            'devices of --device (default: every visible '
+                            'device on one axis)')
 
   unported = parser.add_argument_group(
       'not ported yet', 'flags of the JAX CLI; each exits nonzero naming '
@@ -164,6 +169,11 @@ def main(argv: Optional[list] = None) -> int:
 def _main(argv: Optional[list] = None) -> int:
   parser = _build_parser()
   args = parser.parse_args(argv)
+  if args.kernel_opt and args.backend == 'xla':
+    raise utils.InputError('--kernel-opt configures the fused kernel; the '
+                           'xla backend has no such knobs')
+  if args.mesh and args.backend != 'sharded':
+    raise utils.InputError('--mesh applies to --backend sharded')
   for key, flag, item in _NOT_PORTED_FLAGS:
     if getattr(args, key):
       raise NotPorted('%s is not ported yet: %s' % (flag, item))
@@ -235,6 +245,29 @@ def _main(argv: Optional[list] = None) -> int:
   return 0
 
 
+def _mesh(args):
+  """The ``--mesh`` over the first distinct visible devices of
+  ``--device``, or None for the executor's default mesh."""
+  if not args.mesh:
+    return None
+  import numpy as np
+
+  from soda_tpu_torch.parallel.mesh import Mesh, visible_devices
+  dims = _parse_ints(args.mesh)
+  if not 1 <= len(dims) <= 2 or min(dims) < 1:
+    raise utils.InputError('--mesh takes one or two positive sizes, got %r'
+                           % args.mesh)
+  n = int(np.prod(dims))
+  devices = visible_devices(args.device)
+  if len(devices) < n:
+    raise utils.InputError(
+        '--mesh %s needs %d distinct %s devices, but %d %s visible' % (
+            args.mesh, n, args.device, len(devices),
+            'is' if len(devices) == 1 else 'are'))
+  return Mesh(np.array(devices[:n], dtype=object).reshape(dims),
+              'xy'[:len(dims)])
+
+
 def _run(stencil, args) -> int:
   """Execute on seeded inputs and verify against the NumPy oracle: the
   analog of running the generated host with SODA_TEST_MAIN."""
@@ -260,7 +293,11 @@ def _run(stencil, args) -> int:
     outs = {k: v[0].cpu().numpy()
             for k, v in executor(inputs, params).items()}
   else:
-    executor = get_executor(stencil, shape, args.backend, device=args.device)
+    # sharded: the port's default inner, the fused kernel per shard
+    # (the JAX CLI's is 'xla', compiled there; sodac.py:408)
+    kwargs = {'mesh': _mesh(args)} if args.backend == 'sharded' else {}
+    executor = get_executor(stencil, shape, args.backend, device=args.device,
+                            **kwargs)
     outs = {k: v.cpu().numpy() for k, v in executor(inputs, params).items()}
   compile_and_run_s = time.perf_counter() - t0
 
@@ -289,9 +326,10 @@ def _run(stencil, args) -> int:
     errors += int(bad.sum())
   cells = int(np.prod(shape))
   print('INFO: %s!' % ('FAIL' if errors else 'PASS'))
-  print('Grid: %s (%d cells), backend=%s, device=%s, compile+run %.3f s' %
-        ('x'.join(map(str, shape)), cells, args.backend, executor.device,
-         compile_and_run_s))
+  print('Grid: %s (%d cells), backend=%s, device=%s, compile+run %.3f s, '
+        '%d kernel launches' % ('x'.join(map(str, shape)), cells,
+                                args.backend, executor.device,
+                                compile_and_run_s, executor.launches))
 
   if args.bench:
     # CUDA events, each call from a cold L2 (median); the TPU CLI's

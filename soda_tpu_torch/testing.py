@@ -3,6 +3,8 @@
 - ``CELLS``: the 12 cells of the stencil benchmark (bench.py:51-163),
   the 11 corpus kernels plus jacobi3d at 256^3, with the benchmark's
   shapes and stencil overrides (its TPU seed configs do not apply).
+- ``SHARDED``: the sharded path's cells, each a benchmark cell on a
+  mesh that repeats one device (``repeated_mesh``).
 - The front half's test data and oracle, re-exported from the port's
   own copies: seeded inputs and params, each output's valid region, the
   per-kernel float threshold and the NumPy oracle's ``run``.
@@ -21,6 +23,7 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from soda_tpu_torch.api import build_stencil
 from soda_tpu_torch.backend import c_semantics as oracle
@@ -30,9 +33,10 @@ from soda_tpu_torch.backend.reference import (make_test_inputs,
 from soda_tpu_torch.backend.reference import run as oracle_run
 from soda_tpu_torch.corpus import CORPUS
 from soda_tpu_torch.ir.types import Type
+from soda_tpu_torch.parallel.mesh import Mesh
 from soda_tpu_torch.utils import threshold_for
 
-__all__ = ['CELLS', 'CONV_PARAM', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
+__all__ = ['CELLS', 'CONV_PARAM', 'SHARDED', 'repeated_mesh', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
            'GEOMETRY_CASES', 'MULTI_OUTPUT', 'build_cell', 'check_outputs',
            'gen_program', 'make_inputs', 'make_test_inputs',
            'make_test_params', 'oracle_run', 'output_valid_slices',
@@ -62,6 +66,32 @@ CELLS = (
     ('denoise3d', (2048, 32, 128), {'tile_size': (128, 32, 0)}),
     ('jacobi3d_256', (256, 256, 256), {'tile_size': (256, 256, 0)}),
 )
+
+
+# (cell, mesh shape, inner, overlap): the sharded executor's cells. A
+# 1-D exchange (bit-exact against the oracle), a 2-D decomposition with
+# corner halos, a 9-row halo, a 3-D grid on two sharded axes, two
+# inputs through one kernel per stage group (denoise2d under ``cluster:
+# coarse``), and the whole-grid inner under overlap 'off' and 'on'
+# (the JAX package's mode, here the same exchange).
+SHARDED = (
+    ('blur', (4,), 'fused', 'off'),
+    ('blur', (2, 2), 'fused', 'off'),
+    ('erosion', (4,), 'fused', 'off'),
+    ('heat3d', (2, 2), 'fused', 'off'),
+    ('denoise2d', (4,), 'grouped', 'off'),
+    ('jacobi2d', (4,), 'xla', 'off'),
+    ('jacobi2d', (4,), 'xla', 'on'),
+)
+
+
+def repeated_mesh(device, shape):
+  """A mesh of ``shape`` whose every entry is ``device``, on axes 'x'
+  (and 'y'): how one card (or the CPU) holds a multi-shard mesh."""
+  n = int(np.prod(shape))
+  devices = np.empty(n, dtype=object)
+  devices[:] = [torch.device(device)] * n
+  return Mesh(devices.reshape(tuple(shape)), ('x', 'y')[:len(shape)])
 
 
 def build_cell(name: str, overrides: Mapping):

@@ -3,8 +3,10 @@
 On the CPU it runs with ``--device cpu`` (the kernels' plain versions)
 and self-tests against the NumPy oracle, printing the JAX CLI's
 ``INFO: PASS!`` verdict; without it, on a machine with no GPU, it fails
-rather than falling back. Flags of the JAX CLI that the port does not
-have yet exit nonzero naming their ROADMAP item.
+rather than falling back. ``--backend xla`` (the whole-grid executor)
+and ``--backend sharded`` (``--mesh`` over distinct visible devices)
+pass there too. Flags of the JAX CLI that the port does not have yet
+exit nonzero naming their ROADMAP item.
 """
 
 import os
@@ -34,7 +36,13 @@ def _run(module, args, tmp_path, name='blur'):
     ('erosion', ['--computation-reuse', 'greedy']),
     ('denoise2d', ['--cluster', 'coarse']),
     ('jacobi2d', ['--backend', 'replicated', '--replication-factor', '2']),
-], ids=['blur', 'erosion-cr-greedy', 'denoise2d-coarse', 'jacobi2d-replicated'])
+    ('jacobi2d', ['--backend', 'xla']),
+    ('blur', ['--backend', 'sharded']),
+    ('blur', ['--backend', 'sharded', '--mesh', '1']),
+    ('denoise2d', ['--backend', 'sharded', '--border', 'preserve']),
+], ids=['blur', 'erosion-cr-greedy', 'denoise2d-coarse', 'jacobi2d-replicated',
+        'jacobi2d-xla', 'blur-sharded', 'blur-sharded-mesh-1',
+        'denoise2d-sharded-preserve'])
 def test_run_passes_on_the_cpu(name, flags, tmp_path):
   shape = ','.join(map(str, corpus.TEST_DIMS[name]))
   r = _run('soda_tpu_torch', ['--run', '--device', 'cpu', '--shape', shape,
@@ -74,10 +82,8 @@ def test_invalid_program_exits_1(tmp_path, capsys):
     (['--compile-stats', '-'], 'A11'),
     (['--run', '--tune'], 'A11'),
     (['--run', '--kernel-opt', 'block_rows=8'], 'A11'),
-    (['--run', '--mesh', '2'], 'A9'),
-    (['--run', '--backend', 'xla'], 'A2'),
+    (['--run', '--backend', 'sharded', '--kernel-opt', 'tile=8'], 'A11'),
     (['--run', '--backend', 'pallas'], 'A4'),
-    (['--run', '--backend', 'sharded'], 'A9'),
 ], ids=lambda v: v if isinstance(v, str) else v[-2].lstrip('-') + '-' + v[-1])
 def test_unported_flags_name_their_roadmap_item(flags, item, tmp_path,
                                                 capsys):
@@ -86,6 +92,38 @@ def test_unported_flags_name_their_roadmap_item(flags, item, tmp_path,
   code, out = _main([str(soda), '--device', 'cpu', *flags], capsys)
   assert code != 0
   assert 'ROADMAP %s' % item in out.err
+
+
+def test_same_verdict_as_the_jax_cli_sharded(tmp_path):
+  # the JAX CLI shards over the conftest's virtual devices, the port's
+  # over the one visible CPU device
+  args = ['--run', '--shape', '64,32', '--backend', 'sharded']
+  port = _run('soda_tpu_torch', args + ['--device', 'cpu'], tmp_path,
+              'jacobi2d')
+  jax = _run('soda_tpu', args, tmp_path, 'jacobi2d')
+  assert port.returncode == jax.returncode == 0, port.stderr + jax.stderr
+  assert port.stdout.splitlines()[0] == jax.stdout.splitlines()[0] == \
+      'INFO: PASS!'
+
+
+@pytest.mark.parametrize('flags,message', [
+    (['--backend', 'sharded', '--mesh', '2'],
+     '--mesh 2 needs 2 distinct cpu devices, but 1 is visible'),
+    (['--backend', 'sharded', '--mesh', '2,2'],
+     '--mesh 2,2 needs 4 distinct cpu devices, but 1 is visible'),
+    (['--backend', 'sharded', '--mesh', '1,1,1'], 'one or two positive'),
+    (['--mesh', '1'], '--mesh applies to --backend sharded'),
+    (['--backend', 'xla', '--kernel-opt', 'block_rows=8'],
+     'the xla backend has no such knobs'),
+], ids=['mesh-2', 'mesh-2x2', 'mesh-3d', 'mesh-without-sharded',
+        'xla-kernel-opt'])
+def test_mesh_and_backend_errors_exit_1(flags, message, tmp_path, capsys):
+  soda = tmp_path / 'blur.soda'
+  soda.write_text(corpus.CORPUS['blur'])
+  code, out = _main([str(soda), '--run', '--device', 'cpu', '--shape', '40,64',
+                     *flags], capsys)
+  assert code == 1
+  assert message in out.err and 'PASS' not in out.out
 
 
 def test_no_gpu_is_no_cpu_fallback(tmp_path, capsys):

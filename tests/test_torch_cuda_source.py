@@ -8,11 +8,14 @@ behaviour trapped where the toolchain links the sanitizer) and it is
 held against the NumPy oracle on the 11 corpus kernels and the
 semantics fuzz programs: integers bit-exact, floats within the
 reference threshold; with two replicas, each grid at its own offset.
-The source (also of the grouped sub-stencils) must not depend on the
-hash seed, and the nvcc command must keep IEEE float semantics.
+The source (also of the grouped sub-stencils and of a sharded
+executor's halo-extended shard) must not depend on the hash seed, the
+12 benchmark cells' sources are pinned by their hashes, and the nvcc
+command must keep IEEE float semantics.
 """
 
 import ctypes
+import hashlib
 import os
 import pathlib
 import shutil
@@ -27,8 +30,10 @@ from soda_tpu_torch import corpus
 from soda_tpu_torch.api import build_stencil
 from soda_tpu_torch.backend import build, cuda_source, reference
 from soda_tpu_torch.backend.tile_plan import make_tile_plan
-from soda_tpu_torch.testing import (FUZZ_SEEDS, FUZZ_SHAPE, check_outputs,
-                                    gen_program, make_inputs, replica_inputs)
+from soda_tpu_torch.optimization import cr_schedules
+from soda_tpu_torch.testing import (CELLS, FUZZ_SEEDS, FUZZ_SHAPE, build_cell,
+                                    check_outputs, gen_program, make_inputs,
+                                    replica_inputs)
 
 torch.set_num_threads(1)
 
@@ -139,19 +144,27 @@ def test_host_loop_runs_each_replica_on_its_own_grid(tmp_path):
 _GENERATE = '''
 import hashlib, sys
 sys.path.insert(0, %r)
+import numpy as np
+import torch
 from soda_tpu_torch import corpus
 from soda_tpu_torch.backend import cuda_source
 from soda_tpu_torch.backend.grouped import group_stencils
 from soda_tpu_torch.backend.tile_plan import make_tile_plan
+from soda_tpu_torch.parallel import mesh, spmd
 greedy = {'optimizations': {'computation-reuse': 'greedy'}}
 _, subs = group_stencils(corpus.build('denoise2d', cluster='coarse'))
-subs = [(sub.app_name, sub, 'denoise2d') for sub in subs]
-cases = [(name, corpus.build(name, **ov), name)
+subs = [(sub.app_name, sub, corpus.TEST_DIMS['denoise2d']) for sub in subs]
+cases = [(name, corpus.build(name, **ov), corpus.TEST_DIMS[name])
          for name, ov in (('denoise2d', {}), ('denoise3d', {}), ('sobel2d', {}),
                           ('seidel2d', greedy), ('erosion', greedy))]
-for name, st, dims in cases + subs:
-  text = cuda_source.generate(make_tile_plan(st, corpus.TEST_DIMS[dims])).text
-  print(name, hashlib.sha256(text.encode()).hexdigest())
+# a 2x2 mesh's halo-extended shard of seidel2d (diagonal taps)
+st = corpus.build('seidel2d', **greedy)
+square = mesh.Mesh(np.array([torch.device('cpu')] * 4,
+                            dtype=object).reshape(2, 2), ('x', 'y'))
+ext = spmd.geometry(st, (48, 64), square)[-1]
+for name, st, shape in cases + subs + [('seidel2d-shard', st, ext)]:
+  text = cuda_source.generate(make_tile_plan(st, shape)).text
+  print(name, shape, hashlib.sha256(text.encode()).hexdigest())
 '''
 
 
@@ -168,7 +181,52 @@ def test_source_is_independent_of_the_hash_seed():
     assert proc.returncode == 0, proc.stderr[-4000:]
     outs.append(proc.stdout)
   assert outs[0] == outs[1]
-  assert len(outs[0].splitlines()) == 5 + 8  # denoise2d: 8 groups
+  # denoise2d: 8 groups; seidel2d's shard on a 2x2 mesh
+  assert len(outs[0].splitlines()) == 5 + 8 + 1
+  assert 'seidel2d-shard (28, 36)' in outs[0]
+
+
+class _StepClock:
+  """A stand-in for the ``time`` module whose clock advances a fixed
+  step per reading, so the schedulers' time budgets end alike on every
+  machine."""
+
+  def __init__(self, step=0.5):
+    self.now, self.step = 0.0, step
+
+  def monotonic(self):
+    self.now += self.step
+    return self.now
+
+
+# sha256 (first 16 hex digits) of each benchmark cell's generated
+# source, as the fused kernel's generator printed it before the sharded
+# executor existed: the sharded path changes no kernel source. The
+# stencils are built with the in-process schedulers under _StepClock.
+CELL_SOURCES = {
+    'blur': 'dff6ad3b15226ca0',
+    'jacobi2d': '495a9a06ca9ed1f6',
+    'jacobi3d': 'eda28e44e9f8a911',
+    'heat3d': 'eec52704f6db6d9a',
+    'seidel2d': '876dd6e650f40ce5',
+    'erosion': '987cbe8f820242a5',
+    'sobel2d': 'ca2e7182a811ea45',
+    'xcorr': 'baee7cc74bb9da95',
+    'contrast': '28d3b85553c28a71',
+    'denoise2d': '4ec236113b4143d5',
+    'denoise3d': '307a08e9fdcd1777',
+    'jacobi3d_256': '98d66f7c05fd9a9a',
+}
+
+
+@pytest.mark.parametrize('name,shape,overrides', CELLS,
+                         ids=[c[0] for c in CELLS])
+def test_cell_source_is_unchanged(name, shape, overrides, monkeypatch):
+  monkeypatch.setattr(cr_schedules, 'find_external_cr', lambda: None)
+  monkeypatch.setattr(cr_schedules, 'time', _StepClock())
+  text = cuda_source.generate(make_tile_plan(build_cell(name, overrides),
+                                             shape)).text
+  assert hashlib.sha256(text.encode()).hexdigest()[:16] == CELL_SOURCES[name]
 
 
 def test_nvcc_command_keeps_ieee_floats():

@@ -5,8 +5,9 @@ DSL text -> build_stencil -> get_executor(stencil, shape) -> outputs:
 interpret mode) against ``soda_tpu_torch.get_executor(..., device='cpu')``
 on every corpus kernel, each side with its own stencil built from the
 same DSL text. The port must never load jax or the JAX package, must
-refuse a CUDA device it does not have, and must name the backends it
-has not ported yet instead of falling back.
+refuse a CUDA device it does not have, and must take every backend name
+of the JAX package that it has ported ('xla', 'sharded', 'replicated')
+to its own executor, with no fallback.
 """
 
 import os
@@ -23,7 +24,9 @@ import soda_tpu_torch
 from soda_tpu_torch import corpus, utils
 from soda_tpu_torch.backend import reference
 from soda_tpu_torch.backend.grouped import GroupedExecutor
+from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
+from soda_tpu_torch.parallel.spmd import ShardedExecutor
 
 from checks import assert_close_reference
 
@@ -89,11 +92,25 @@ def test_cuda_device_without_a_gpu_raises():
     soda_tpu_torch.get_executor(stencil, (40, 64), device='cuda')
 
 
-@pytest.mark.parametrize('backend', ['xla', 'sharded'])
-def test_unported_backends_name_their_roadmap_item(backend):
+@pytest.mark.parametrize('backend,kind', [('xla', WholeGridExecutor),
+                                          ('sharded', ShardedExecutor)])
+def test_unported_backends_name_their_roadmap_item(backend, kind):
+  """The backends that raised naming their ROADMAP items (A2, A9) before
+  they were ported now build their executors, which match the JAX
+  package's backend of the same name and the oracle."""
   stencil = corpus.build('blur')
-  with pytest.raises(NotImplementedError, match='ROADMAP A'):
-    soda_tpu_torch.get_executor(stencil, (40, 64), backend, device='cpu')
+  shape = corpus.TEST_DIMS['blur']
+  ex = soda_tpu_torch.get_executor(stencil, shape, backend, device='cpu')
+  assert isinstance(ex, kind)
+  inputs = reference.make_test_inputs(stencil, shape)
+  got = ex(inputs)['blur_y'].numpy()
+  want = soda_tpu.get_executor(soda_tpu.build_stencil(
+      corpus.CORPUS['blur'], **_overrides('blur')), shape, backend)(inputs)
+  region = reference.output_valid_slices(stencil, shape)
+  np.testing.assert_array_equal(got[region],
+                                np.asarray(want['blur_y'])[region])
+  np.testing.assert_array_equal(
+      got[region], reference.run(stencil, inputs)['blur_y'][region])
 
 
 def test_unknown_backend_raises():
