@@ -72,6 +72,26 @@ seconds:
    host's enqueueing of the per-shard operations holds the card back),
    and the synchronising operations per call.
 
+13. kernel modes: the ``testing.MODE_CELLS`` at the benchmark shapes
+   (the streaming loop plain and peeled, the deep cp.async ring, split
+   fills, staged stores) through ``get_executor(..., **options)``, each
+   counter reset just before its run and read just after: one launch per
+   call; held against the mode's plain version (``streamed_stencil_plain``,
+   the kernel's walk: runs of tiles, rolling windows) and against
+   ``fused_stencil_plain`` over the whole grid; blur bit-exact against the
+   NumPy oracle; the cold-L2 median beside the default kernel's, the bound
+   and its share, back-to-back device microseconds, CTAs and steps per CTA.
+14. tools: ``tune`` on blur and jacobi3d with a cache under
+   ``build/chip_smoke/`` (the winner and its time against the default
+   kernel's; a second call probes nothing); ``python -m
+   soda_tpu_torch.tools.gpu_validate --variants`` (every row PASS, the
+   contrast float64-truth check included); ``compiled_stats`` of the blur
+   and contrast kernels (registers and CTAs per SM from the card); and the
+   CLI with ``--kernel-opt stream_loop=peel --kernel-opt prefetch=3``
+   (jacobi3d), ``--tune``, ``--compile-stats -`` and ``--backend sharded
+   --kernel-opt stream_loop=peel`` (blur), each exiting 0 with ``INFO:
+   PASS!`` and at least one kernel launch.
+
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``), and ``{"ok": true, "device": ...}``. Any failure raises and
@@ -105,6 +125,16 @@ CLI_RUNS = (
     ('jacobi2d', ['--backend', 'xla']),
     ('blur', ['--backend', 'sharded']),
 )
+# (cell, flags): the tools' command lines, at the cell's shape
+TOOL_CLI_RUNS = (
+    ('jacobi3d', ['--kernel-opt', 'stream_loop=peel', '--kernel-opt',
+                  'prefetch=3']),
+    ('blur', ['--tune']),
+    ('blur', ['--compile-stats', '-']),
+    ('blur', ['--backend', 'sharded', '--kernel-opt', 'stream_loop=peel']),
+)
+TUNED = ('blur', 'jacobi3d')
+COMPILED = ('blur', 'contrast')
 
 
 def say(*parts):
@@ -132,12 +162,15 @@ def main() -> int:
   from soda_tpu_torch.backend import build, cuda_source, grouped
   from soda_tpu_torch.backend.fused import (FusedExecutor,
                                             fused_stencil_plain,
-                                            replicated_stencil_plain)
-  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+                                            replicated_stencil_plain,
+                                            streamed_stencil_plain)
+  from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
+  from soda_tpu_torch.model.compiled import compiled_stats
   from soda_tpu_torch.parallel import replicate, spmd
+  from soda_tpu_torch.tools import autotune, gpu_validate
 
   # 1. device
-  t0 = time.time()
+  t0 = t_start = time.time()
   report = profiling.device_report()
   no_jax_loaded()
   say('[device] %s | torch %s | cuda %s | %s (%.1fs)' % (
@@ -195,6 +228,22 @@ def main() -> int:
             else [stencil])
     sources += [cuda_source.generate(make_tile_plan(sub, ext))
                 for sub in subs]
+  # the kernel modes, and every configuration the tuner probes
+  sources += [cuda_source.generate(kernel_plan(stencils[name], shape_of[name],
+                                               **opts))
+              for name, opts in testing.MODE_CELLS]
+  for name in TUNED:
+    sources += [cuda_source.generate(kernel_plan(stencils[name],
+                                                 shape_of[name], **cfg))
+                for cfg in autotune.candidate_configs(stencils[name],
+                                                      shape_of[name])]
+  # the validation gate's kernels (phase 14 runs it; it finds them built)
+  gate_stencils = {}
+  for _, name, variants, opts in gpu_validate.cases(True):
+    sources += gpu_validate.sources(name, variants, opts, gate_stencils)
+  sources += gpu_validate.sources('contrast', gpu_validate.F64_VARIANTS,
+                                  cache=gate_stencils)
+  sources = list({src.digest: src for src in sources}.values())
   t = time.time()
   build.build_all(sources)
   say('[build] nvcc: %d kernels at once (%.1fs)' % (len(sources),
@@ -464,28 +513,55 @@ def main() -> int:
   # 10. the command line, as a user runs it
   cli_dir = os.path.join(here, 'build', 'chip_smoke')
   os.makedirs(cli_dir, exist_ok=True)
-  env = dict(os.environ, PYTHONPATH=here)
-  for name, flags in CLI_RUNS:
-    path = os.path.join(cli_dir, name + '.soda')
-    with open(path, 'w') as f:
-      f.write(corpus.CORPUS[name])
-    cmd = [sys.executable, '-m', 'soda_tpu_torch', path, '--run', '--shape',
-           CLI_SHAPE, '--tile-size', CLI_SHAPE.split(',')[1]] + flags
+  # the tuner's default cache lies under HOME: keep it in the checkout
+  env = dict(os.environ, PYTHONPATH=here, HOME=os.path.join(cli_dir, 'home'))
+
+  def cli(runs, tag='cli'):
+    """Run the command lines ``runs`` ((name, flags, shape, tile size))
+    side by side, then check each: exit 0, INFO: PASS! and its kernel
+    launches. A run that times the card (--bench, --tune) is given
+    alone."""
+    procs = []
     t = time.time()
-    proc = subprocess.run(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True, timeout=600)
-    for line in proc.stdout.strip().splitlines():
-      say('[cli] %s: %s' % (name, line))
-    if proc.returncode != 0 or 'INFO: PASS!' not in proc.stdout:
-      raise RuntimeError('%s: %s exited %d without INFO: PASS!' % (
-          name, ' '.join(cmd[1:]), proc.returncode))
-    found = re.search(r', (\d+) kernel launches$', proc.stdout, re.M)
-    count = int(found.group(1)) if found else -1
-    if count < 0 or (count == 0) != ('xla' in flags):
-      raise RuntimeError('%s %s: %d kernel launches' % (
-          name, ' '.join(flags), count))
-    say('[cli] %s %s: exit 0, INFO: PASS!, %d kernel launches (%.1fs) | %s'
-        % (name, ' '.join(flags), count, time.time() - t, smi))
+    for i, (name, flags, shape, tile_size) in enumerate(runs):
+      path = os.path.join(cli_dir, name + '.soda')
+      with open(path, 'w') as f:
+        f.write(corpus.CORPUS[name])
+      cmd = [sys.executable, '-m', 'soda_tpu_torch', path, '--run',
+             '--shape', shape, '--tile-size', tile_size] + flags
+      log = open(os.path.join(cli_dir, '%s-%d.log' % (tag, i)), 'w+')
+      procs.append((name, flags, cmd, log, subprocess.Popen(
+          cmd, cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT,
+          text=True)))
+    for name, flags, cmd, log, proc in procs:
+      code = proc.wait(timeout=600)
+      log.seek(0)
+      out = log.read()
+      log.close()
+      for line in out.strip().splitlines():
+        say('[%s] %s: %s' % (tag, name, line))
+      if code != 0 or 'INFO: PASS!' not in out:
+        raise RuntimeError('%s: %s exited %d without INFO: PASS!' % (
+            name, ' '.join(cmd[1:]), code))
+      found = re.search(r', (\d+) kernel launches$', out, re.M)
+      count = int(found.group(1)) if found else -1
+      if count < 0 or (count == 0) != ('xla' in flags):
+        raise RuntimeError('%s %s: %d kernel launches' % (
+            name, ' '.join(flags), count))
+      say('[%s] %s %s: exit 0, INFO: PASS!, %d kernel launches (%.1fs for '
+          'the %d run(s) side by side) | %s' % (
+              tag, name, ' '.join(flags), count, time.time() - t, len(runs),
+              smi))
+
+  def timing(flags):
+    return '--bench' in flags or '--tune' in flags
+
+  cli_tile = CLI_SHAPE.split(',')[1]
+  cli([(name, flags, CLI_SHAPE, cli_tile) for name, flags in CLI_RUNS
+       if not timing(flags)])
+  for name, flags in CLI_RUNS:
+    if timing(flags):
+      cli([(name, flags, CLI_SHAPE, cli_tile)])
 
   # 11. the whole-grid executor: plain PyTorch on the card
   for name, shape, stencil, ex, inputs, params in cells:
@@ -569,7 +645,158 @@ def main() -> int:
             unsharded, ms / unsharded, bound, host_us, device_us, HOST_CALLS,
             syncs, time.time() - t, smi))
 
+  # 13. kernel modes: the streaming loop, the cp.async ring, split
+  # fills and staged stores, each through the user's entry point
+  modes = []
+  for name, opts in testing.MODE_CELLS:
+    ex = soda_tpu_torch.get_executor(stencils[name], shape_of[name], **opts)
+    if not isinstance(ex, FusedExecutor) or ex.config.is_default:
+      raise RuntimeError('%s %s: not a mode kernel' % (name, opts))
+    plan = ex.plan
+    say('[build] %-12s %-22s tile %-14s smem %6d B  %4d CTAs x %d steps, %d '
+        'slot(s)%s' % (name, cuda_source.mode_name(ex.config), plan.tile,
+                       plan.smem_bytes, plan.n_ctas, plan.steps, plan.slots,
+                       ', rolling' if plan.rolling else ''))
+    modes.append((name, opts, ex))
+  for name, opts, ex in modes:
+    _, shape, stencil, _, inputs, params = by_name[name]
+    ex.launches = 0
+    t = time.time()
+    got = ex(inputs, params)
+    torch.cuda.synchronize()
+    count = ex.launches
+    args = ex.prepare(inputs, params)
+    n_in = len(stencil.input_names)
+    if count != 1:
+      raise RuntimeError('%s %s: %d launches for one call' % (name, opts,
+                                                              count))
+    label = '%s %s' % (name, cuda_source.mode_name(ex.config))
+    check_finite(stencil, shape, got, label)
+    testing.check_outputs(stencil, shape, got, plains[name],
+                          label + ' vs whole-grid plain')
+    streamed = []
+    p_ms = profiling.cuda_times_ms(
+        lambda: streamed.append(streamed_stencil_plain(
+            stencil, args[:n_in], args[n_in:], tile=ex.plan)),
+        reps=1, warmup=0)[0]
+    err = testing.check_outputs(stencil, shape, got,
+                                dict(zip(stencil.output_names, streamed[0])),
+                                label + ' vs streamed plain')
+    exact = ''
+    if name == FLAGSHIP:
+      check_oracle(got, label)
+      exact = ', bit-exact vs the NumPy oracle'
+    del streamed
+    k_ms = profiling.cuda_times_ms(lambda: ex.fn(*args), reps=KERNEL_REPS)
+    ms = statistics.median(k_ms)
+    _, device_us = profiling.back_to_back_us(lambda: ex.fn(*args),
+                                             calls=HOST_CALLS)
+    # the TPU code of the mode that sets this kernel apart
+    lead = next(key for key in ('prefetch', 'dma_split', 'out_dma',
+                                'stream_loop') if key in opts)
+    kernels.append(record('fused_stencil_mode[%s]' % label,
+                          'soda_tpu_torch/backend/cuda_source.py',
+                          cuda_source.MODE_REPLACES[lead], count, err, ms,
+                          p_ms, stencil, shape))
+    bound = kernels[-1]['bound_ms']
+    plan = ex.plan
+    say('[modes] %-30s tile %s, %d CTAs x %d steps, %d slot(s)%s, smem %d B: '
+        '1 launch, == whole-grid plain and == streamed plain (max |err| '
+        '%.3g)%s  kernel %.4f ms (default kernel %.4f ms, %.2fx)  bound '
+        '%.4f ms (%.0f%%)  streamed plain %.1f ms  back to back %.1f us/call '
+        '(%.1fs) | %s' % (
+            label, plan.tile, plan.n_ctas, plan.steps, plan.slots,
+            ', rolling' if plan.rolling else '', plan.smem_bytes, err, exact,
+            ms, kernel_ms[name], ms / kernel_ms[name], bound,
+            100 * bound / ms, p_ms, device_us, time.time() - t, smi))
+    del got, args
+  torch.cuda.empty_cache()
+
+  # 14. tools: the tuner, the validation gate, compiled statistics, and
+  # the command line's tuning flags
+  tune_cache = os.path.join(cli_dir, 'tune.json')
+  if os.path.exists(tune_cache):
+    os.remove(tune_cache)
+  timed = autotune._time_config
+  probes = []
+
+  def counted(*a, **k):
+    probes.append(a[2])
+    return timed(*a, **k)
+
+  autotune._time_config = counted
+  try:
+    for name in TUNED:
+      stencil, shape = stencils[name], shape_of[name]
+      t = time.time()
+      del probes[:]
+      cfg = autotune.tune(stencil, shape, cache_path=tune_cache)
+      first = len(probes)
+      entry = next(e for e in autotune._load(tune_cache).values()
+                   if e['stencil'] == stencil.app_name)
+      default = entry['probes'][json.dumps(
+          {'tile': list(make_tile_plan(stencil, shape).tile)}, sort_keys=True)]
+      del probes[:]
+      again = autotune.tune(stencil, shape, cache_path=tune_cache)
+      if probes or again != cfg or not first:
+        raise RuntimeError('%s: tune probed %d, then %d (%s, then %s)' % (
+            name, first, len(probes), cfg, again))
+      say('[tune] %-10s %d candidates probed: winner %s %.4f ms against the '
+          'default kernel\'s %.4f ms (%.2fx); a second call probed 0 '
+          '(%.1fs) | %s' % (name, first, cfg, entry['ms'], default,
+                            default / entry['ms'], time.time() - t, smi))
+      for probe, probe_ms in sorted(entry['probes'].items(),
+                                    key=lambda kv: kv[1]):
+        say('[tune] %-10s   %-50s %.4f ms' % (name, probe, probe_ms))
+  finally:
+    autotune._time_config = timed
+
+  for name in COMPILED:
+    stats = compiled_stats(by_name[name][3])
+    for kernel in stats['kernels']:
+      if kernel['registers'] is None or not kernel['ctas_per_sm']:
+        raise RuntimeError('%s: compiled_stats gave %s' % (name, kernel))
+      say('[compiled] %-10s %d registers/thread (ptxas %d), smem %d B static '
+          '+ %d B dynamic, %d B local, spills %d/%d B, %d CTA(s)/SM; tile %s, '
+          '%d CTAs, %d B in, %d B out | %s' % (
+              name, kernel['registers'], kernel['registers_ptxas'],
+              kernel['smem_static'], kernel['smem_dynamic'],
+              kernel['local_bytes'], kernel['spill_stores'],
+              kernel['spill_loads'], kernel['ctas_per_sm'],
+              tuple(kernel['tile']), kernel['ctas'], kernel['bytes_in'],
+              kernel['bytes_out'], smi))
+
+  # the gate (its kernels were built in phase 2) beside the command
+  # lines that time nothing
+  t = time.time()
+  gate_log = open(os.path.join(cli_dir, 'gpu_validate.log'), 'w+')
+  gate = subprocess.Popen(
+      [sys.executable, '-m', 'soda_tpu_torch.tools.gpu_validate',
+       '--variants'], cwd=here, env=env, stdout=gate_log,
+      stderr=subprocess.STDOUT, text=True)
+  tool_runs = [(name, flags, ','.join(map(str, shape_of[name])),
+                ','.join(map(str, overrides_of[name]['tile_size'][:-1])))
+               for name, flags in TOOL_CLI_RUNS]
+  cli([run for run in tool_runs if not timing(run[1])], tag='tools-cli')
+  code = gate.wait(timeout=900)
+  gate_log.seek(0)
+  out = gate_log.read()
+  gate_log.close()
+  for line in out.strip().splitlines():
+    say('[validate] %s' % line)
+  rows = [line for line in out.splitlines()
+          if re.match(r'\S+ +(PASS|FAIL|ERROR)', line)]
+  if (code != 0 or any(' PASS' not in row for row in rows) or
+      not any(row.startswith('contrast+f64truth ') for row in rows)):
+    raise RuntimeError('gpu_validate --variants exited %d' % code)
+  say('[validate] %d rows, every one PASS (%.1fs) | %s' % (
+      len(rows), time.time() - t, smi))
+  for run in tool_runs:
+    if timing(run[1]):
+      cli([run], tag='tools-cli')
+
   no_jax_loaded()
+  say('[done] every phase passed (%.1fs)' % (time.time() - t_start))
   say(smi)
   say(json.dumps({'kernels': kernels}))
   say(json.dumps({'ok': True, 'device': {

@@ -11,6 +11,9 @@ workers and repeated runs share the directory); ``build_all`` runs one
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so every float
 operation rounds on its own, as the NumPy oracle's do. No
 ``--use_fast_math``: division and square root stay IEEE-exact.
+``-Xptxas -v``: the assembler's report of each kernel's registers,
+shared memory and spills is kept beside the library as ``ptxas.log``
+(``ptxas_report``; model/compiled.py reads it).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import fcntl
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 from typing import Dict, List, Sequence
@@ -31,7 +35,8 @@ PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / 'csrc'
 BUILD_ROOT = PACKAGE_DIR.parent / 'build' / 'soda_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '--fmad=false', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '--fmad=false', '-Xptxas', '-v', '-shared',
+              '-Xcompiler', '-fPIC')
 
 # key -> loaded library (a library is loaded once per process)
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -70,11 +75,15 @@ def _key(kernel: KernelSource, version: str) -> str:
   return h.hexdigest()[:32]
 
 
+def build_dir(kernel: KernelSource) -> pathlib.Path:
+  """The directory ``build`` keeps ``kernel``'s library in."""
+  return BUILD_ROOT / _key(kernel, nvcc_version(find_nvcc()))
+
+
 def build(kernel: KernelSource) -> pathlib.Path:
   """Compile ``kernel`` (once per key) and return its shared library."""
   nvcc = find_nvcc()
-  key = _key(kernel, nvcc_version(nvcc))
-  out_dir = BUILD_ROOT / key
+  out_dir = build_dir(kernel)
   lib = out_dir / 'kernel.so'
   out_dir.mkdir(parents=True, exist_ok=True)
   with open(out_dir / 'lock', 'w') as lock:
@@ -89,10 +98,44 @@ def build(kernel: KernelSource) -> pathlib.Path:
                               text=True)
         if proc.returncode != 0:
           raise RuntimeError('nvcc failed on %s:\n%s' % (src, proc.stdout))
+        (out_dir / 'ptxas.log').write_text(proc.stdout)
         os.replace(tmp, lib)
     finally:
       fcntl.flock(lock, fcntl.LOCK_UN)
   return lib
+
+
+def ptxas_report(kernel: KernelSource) -> Dict[str, Dict[str, int]]:
+  """What ``-Xptxas -v`` said of ``kernel``'s entry functions when it
+  was built (``parse_ptxas``). Builds the kernel first if need be."""
+  build(kernel)
+  return parse_ptxas((build_dir(kernel) / 'ptxas.log').read_text())
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+  """``-Xptxas -v`` output -> mangled entry name -> {'registers' (per
+  thread), 'spill_stores', 'spill_loads' (bytes)}."""
+  out: Dict[str, Dict[str, int]] = {}
+  entry = None
+  for line in text.splitlines():
+    found = re.search(r"Compiling entry function '([^']+)'", line)
+    if found:
+      entry = out.setdefault(found.group(1), {
+          'registers': 0, 'spill_stores': 0, 'spill_loads': 0})
+      continue
+    found = re.search(r'Function properties for (\S+)', line)
+    if found:  # a device function's properties are not its caller's
+      entry = out.get(found.group(1))
+      continue
+    if entry is None:
+      continue
+    for key, pattern in (('spill_stores', r'(\d+) bytes spill stores'),
+                         ('spill_loads', r'(\d+) bytes spill loads'),
+                         ('registers', r'Used (\d+) registers')):
+      found = re.search(pattern, line)
+      if found:
+        entry[key] = int(found.group(1))
+  return out
 
 
 def build_all(kernels: Sequence[KernelSource]) -> List[pathlib.Path]:

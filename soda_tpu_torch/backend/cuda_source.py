@@ -41,7 +41,7 @@ from soda_tpu_torch.backend.c_semantics import binary_type, promote
 from soda_tpu_torch.ir import nodes as ir
 from soda_tpu_torch.ir.types import Type
 
-from soda_tpu_torch.backend.tile_plan import TilePlan
+from soda_tpu_torch.backend.tile_plan import TilePlan, copy_width
 
 # Threads per CTA: every stage loop strides its tile extent by this.
 THREADS = 512
@@ -486,82 +486,51 @@ def _io_args(plan: TilePlan, void: bool) -> Tuple[List[str], List[str]]:
   return decls, names
 
 
-def _kernel(plan: TilePlan) -> str:
+def _cell_loop(plan: TilePlan, name: str, body: List[str]) -> List[str]:
+  """A CTA's threads over the cells of ``name``'s extent around the tile
+  at ``o0, o1, ...``: local ``l<a>`` and global ``g<a>`` coordinates."""
+  ext = plan.extent(name)
+  neg = plan.spans[name][0]
+  cells = int(np.prod(ext))
+  lines = ['  for (int i = threadIdx.x; i < %d; i += %d) {' %
+           (cells, THREADS)]
+  lines += ['    ' + s for s in _coords(ext)]
+  for a in range(plan.dim):
+    lines.append('    const int g%d = o%d - %d + l%d;' % (a, a, neg[a], a))
+  lines += ['    ' + s for s in body]
+  lines.append('  }')
+  return lines
+
+
+def _smem_ptr(plan: TilePlan, name: str, const: bool) -> str:
+  t = storage_ctype(plan.dtype(name))
+  return '%s%s* s_%s = reinterpret_cast<%s%s*>(soda_smem + %d);' % (
+      'const ' if const else '', t, name, 'const ' if const else '', t,
+      plan.offsets[name])
+
+
+def _stage_blocks(plan: TilePlan, buf, valid, store) -> List[str]:
+  """Every stage's block: the CTA's threads over the stage's extent, the
+  stage function where the cell is valid, the value kept in its buffer
+  and, for an output, stored; a barrier between consecutive stages.
+
+  ``buf(name, const)`` declares a buffer's pointer, ``valid(a, lo, hi)``
+  is the validity test on axis ``a``, and ``store(name, own)`` gives
+  (declarations, lines) that store an output's value ``v`` where the
+  cell lies in the tile (``own``)."""
   st = plan.stencil
   dim = plan.dim
-  shape, tile, grid = plan.shape, plan.tile, plan.grid
-  strides = _strides(shape)
-  decls, _ = _io_args(plan, void=False)
-  # kReplicas: blockIdx.y picks one of several grids laid out one after
-  # another. A single grid launches the instantiation without that
-  # offset, whose pointers stay kernel parameters.
-  out = ['template <bool kReplicas>',
-         '__global__ void __launch_bounds__(%d) soda_fused_@H@(%s) {' %
-         (THREADS, ', '.join(decls)),
-         '  extern __shared__ __align__(16) unsigned char soda_smem[];',
-         '  if (kReplicas) {',
-         '    const long long rep = blockIdx.y;']
-  cells = int(np.prod(shape))
-  for name in st.input_names:
-    out.append('    g_%s += rep * %dll;' % (name, cells))
-  for name in st.output_names:
-    out.append('    o_%s += rep * %dll;' % (name, cells))
-  out.append('  }')
-  out.append('  long long bid = blockIdx.x;')
-  for a in range(dim - 1, 0, -1):
-    out.append('  const int o%d = (int)(bid %% %d) * %d;' % (a, grid[a],
-                                                            tile[a]))
-    out.append('  bid /= %d;' % grid[a])
-  out.append('  const int o0 = (int)bid * %d;' % tile[0])
+  shape, tile = plan.shape, plan.tile
   params = ', '.join('p_%s' % s.name for s in st.param_stmts)
-
-  def buf(name, const):
-    t = storage_ctype(plan.dtype(name))
-    return '%s%s* s_%s = reinterpret_cast<%s%s*>(soda_smem + %d);' % (
-        'const ' if const else '', t, name, 'const ' if const else '', t,
-        plan.offsets[name])
-
-  def cell_loop(name, body):
-    ext = plan.extent(name)
-    neg = plan.spans[name][0]
-    cells = int(np.prod(ext))
-    lines = ['  for (int i = threadIdx.x; i < %d; i += %d) {' %
-             (cells, THREADS)]
-    lines += ['    ' + s for s in _coords(ext)]
-    for a in range(dim):
-      lines.append('    const int g%d = o%d - %d + l%d;' % (a, a, neg[a], a))
-    lines += ['    ' + s for s in body]
-    lines.append('  }')
-    return lines
-
-  # inputs: halo tiles, zero outside the array
-  for name in st.input_names:
-    if not plan.buffered(name):
-      continue
-    t = storage_ctype(plan.dtype(name))
-    inside = ' && '.join('g%d >= 0 && g%d < %d' % (a, a, shape[a])
-                         for a in range(dim))
-    out.append('  {  // input %s' % name)
-    out.append('    ' + buf(name, const=False))
-    out += ['  ' + s for s in cell_loop(name, [
-        '%s v = 0;' % t,
-        'if (%s) v = g_%s[%s];' % (inside, name,
-                                   _flat(['g%d' % a for a in range(dim)],
-                                         strides)),
-        's_%s[i] = v;' % name])]
-    out.append('  }')
-  out.append('  __syncthreads();')
-
   outputs = set(st.output_names)
+  out = []
   for k, stage in enumerate(plan.stages):
     name = stage.name
     t = storage_ctype(stage.dtype)
     lo, hi = plan.margins[name]
     neg = plan.spans[name][0]
-    valid = ' && '.join('g%d >= %d && g%d < %d' % (a, lo[a], a,
-                                                   shape[a] - hi[a])
-                        for a in range(dim))
-    body = ['%s v = 0;' % t, 'const bool ok = %s;' % valid, 'if (ok) {']
+    ok = ' && '.join(valid(a, lo[a], shape[a] - hi[a]) for a in range(dim))
+    body = ['%s v = 0;' % t, 'const bool ok = %s;' % ok, 'if (ok) {']
     loaders = []
     for p in _stage_parents(stage):
       pext = plan.extent(p)
@@ -580,22 +549,365 @@ def _kernel(plan: TilePlan) -> str:
     body.append('}')
     if plan.buffered(name):
       body.append('s_%s[i] = v;' % name)
+    decls = []
     if name in outputs:
       own = ' && '.join('l%d >= %d && l%d < %d' % (a, neg[a], a,
                                                     neg[a] + tile[a])
                         for a in range(dim))
-      body.append('if (ok && %s) o_%s[%s] = v;' % (
-          own, name, _flat(['g%d' % a for a in range(dim)], strides)))
+      decls, lines = store(name, own)
+      body += lines
     out.append('  {  // stage %s' % name)
     for p in _stage_parents(stage):
       out.append('    ' + buf(p, const=True))
     if plan.buffered(name):
       out.append('    ' + buf(name, const=False))
-    out += ['  ' + s for s in cell_loop(name, body)]
+    out += ['    ' + d for d in decls]
+    out += ['  ' + s for s in _cell_loop(plan, name, body)]
     out.append('  }')
     if k + 1 < len(plan.stages):
       out.append('  __syncthreads();')
+  return out
+
+
+def _kernel_head(plan: TilePlan) -> List[str]:
+  """The kernel's signature, its replica offsets and the tile origin on
+  every axis but the first (``o1, o2, ...``) from ``blockIdx.x``; what
+  is left of the block index is in ``bid``."""
+  st = plan.stencil
+  grid, tile = plan.grid, plan.tile
+  decls, _ = _io_args(plan, void=False)
+  # kReplicas: blockIdx.y picks one of several grids laid out one after
+  # another. A single grid launches the instantiation without that
+  # offset, whose pointers stay kernel parameters.
+  out = ['template <bool kReplicas>',
+         '__global__ void __launch_bounds__(%d) soda_fused_@H@(%s) {' %
+         (THREADS, ', '.join(decls)),
+         '  extern __shared__ __align__(16) unsigned char soda_smem[];',
+         '  if (kReplicas) {',
+         '    const long long rep = blockIdx.y;']
+  cells = int(np.prod(plan.shape))
+  for name in st.input_names:
+    out.append('    g_%s += rep * %dll;' % (name, cells))
+  for name in st.output_names:
+    out.append('    o_%s += rep * %dll;' % (name, cells))
+  out.append('  }')
+  out.append('  long long bid = blockIdx.x;')
+  for a in range(plan.dim - 1, 0, -1):
+    out.append('  const int o%d = (int)(bid %% %d) * %d;' % (a, grid[a],
+                                                            tile[a]))
+    out.append('  bid /= %d;' % grid[a])
+  return out
+
+
+def _kernel(plan: TilePlan) -> str:
+  st = plan.stencil
+  dim = plan.dim
+  shape, tile = plan.shape, plan.tile
+  strides = _strides(shape)
+  out = _kernel_head(plan)
+  out.append('  const int o0 = (int)bid * %d;' % tile[0])
+
+  # inputs: halo tiles, zero outside the array
+  for name in st.input_names:
+    if not plan.buffered(name):
+      continue
+    t = storage_ctype(plan.dtype(name))
+    inside = ' && '.join('g%d >= 0 && g%d < %d' % (a, a, shape[a])
+                         for a in range(dim))
+    out.append('  {  // input %s' % name)
+    out.append('    ' + _smem_ptr(plan, name, const=False))
+    out += ['  ' + s for s in _cell_loop(plan, name, [
+        '%s v = 0;' % t,
+        'if (%s) v = g_%s[%s];' % (inside, name,
+                                   _flat(['g%d' % a for a in range(dim)],
+                                         strides)),
+        's_%s[i] = v;' % name])]
+    out.append('  }')
+  out.append('  __syncthreads();')
+
+  def store(name, own):
+    return [], ['if (ok && %s) o_%s[%s] = v;' % (
+        own, name, _flat(['g%d' % a for a in range(dim)], strides))]
+
+  out += _stage_blocks(
+      plan, lambda name, const: _smem_ptr(plan, name, const),
+      lambda a, lo, hi: 'g%d >= %d && g%d < %d' % (a, lo, a, hi), store)
   out.append('}')
+  return '\n'.join(out)
+
+
+# -- the mode kernels (stream_loop, prefetch, dma_split, out_dma) -----------
+def _fill_function(plan: TilePlan, index: int, name: str) -> List[str]:
+  """``soda_fill_<index><kCheck0>``: the CTA's threads fill window rows
+  [r0, r1) (axis 0) of input ``name`` around the tile at ``o0, ...``,
+  as copy_width says: cp.async copies issued into the current commit
+  group, or plain loads; cells outside the array read as 0 (cp.async's
+  src-size 0 reads nothing). ``kCheck0`` false drops the axis-0 test of
+  the array's bounds (a steady step's window lies inside)."""
+  st = plan.stencil
+  dim, shape = plan.dim, plan.shape
+  ext = plan.extent(name)
+  neg = plan.spans[name][0]
+  t = storage_ctype(plan.dtype(name))
+  width, phase = copy_width(st, name, shape, plan.tile, plan.spans)
+  itemsize = plan.dtype(name).np_dtype.itemsize
+  strides = _strides(shape)
+  el = ext[-1]
+  per_row = int(np.prod(ext[1:-1]))  # lines per axis-0 row of the window
+  words = (el - phase) // 2
+  units = el if width in (0, itemsize) else phase + words + (el - phase) % 2
+  last = dim - 1
+  how = {0: 'plain element loads',
+         itemsize: '%d-byte cp.async per element' % itemsize}.get(
+             width, '4-byte cp.async per element pair, window %d element(s) '
+             'into its slot' % phase)
+  out = ['// input %s: window %s, %s' % (name, ext, how),
+         'template <bool kCheck0>',
+         'static __device__ __forceinline__ void soda_fill_%d(%s* s, const %s* '
+         '__restrict__ g, %s, int r0, int r1) {' % (
+             index, t, t, ', '.join('int o%d' % a for a in range(dim))),
+         '  const int n = (r1 - r0) * %d;' % (per_row * units),
+         '  for (int i = threadIdx.x; i < n; i += %d) {' % THREADS,
+         '    const int line = i / %d;' % units,
+         '    const int u = i - line * %d;' % units,
+         '    int r = line;']
+  for a in range(dim - 2, 0, -1):
+    out.append('    const int l%d = r %% %d;' % (a, ext[a]))
+    out.append('    r /= %d;' % ext[a])
+  out.append('    const int l0 = r0 + r;')
+  for a in range(last):
+    out.append('    const int g%d = o%d - %d + l%d;' % (a, a, neg[a], a))
+  row_in = ['(!kCheck0 || (g0 >= 0 && g0 < %d))' % shape[0]]
+  row_in += ['g%d >= 0 && g%d < %d' % (a, a, shape[a]) for a in range(1, last)]
+  out.append('    const bool row_in = %s;' % ' && '.join(row_in))
+  flat = 'l0'
+  for a in range(1, last):
+    flat = '(%s) * %d + l%d' % (flat, ext[a], a)
+  out.append('    const int e = (%s) * %d;' % (flat, el))
+  terms = ['(long long)g%d * %dll' % (a, strides[a]) for a in range(last)]
+  out.append('    const long long gl = %s + (o%d - %d);' % (
+      ' + '.join(terms), last, neg[-1]))
+
+  def element(indent):
+    return [indent + 'const int gc = o%d - %d + c;' % (last, neg[-1]),
+            indent + 'const bool in = row_in && gc >= 0 && gc < %d;' %
+            shape[-1],
+            indent + 's[e + c] = in ? g[gl + c] : (%s)0;' % t]
+
+  if width == 0:
+    out.append('    const int c = u;')
+    out += element('    ')
+  elif width == itemsize:
+    out += ['    const int c = u;',
+            '    const int gc = o%d - %d + c;' % (last, neg[-1]),
+            '    const bool in = row_in && gc >= 0 && gc < %d;' % shape[-1],
+            '    soda::cp_async<%d>(s + e + c, in ? g + gl + c : g, in ? %d : '
+            '0);' % (width, width)]
+  else:
+    out += ['    if (u < %d || u >= %d) {  // a row\'s odd edge element' % (
+        phase, phase + words),
+            '      const int c = u < %d ? 0 : %d;' % (phase, el - 1)]
+    out += element('      ')
+    out += ['    } else {  // an aligned pair: both in the array or neither',
+            '      const int c = %d + 2 * (u - %d);' % (phase, phase),
+            '      const int gc = o%d - %d + c;' % (last, neg[-1]),
+            '      const bool in = row_in && gc >= 0 && gc < %d;' % shape[-1],
+            '      soda::cp_async<4>(s + e + c, in ? g + gl + c : g, in ? 4 : '
+            '0);',
+            '    }']
+  out += ['  }', '}', '']
+  return out
+
+
+def _staged_stores(plan: TilePlan) -> List[str]:
+  """out_dma: after a barrier, each output's staged tile stored row by
+  row (16 bytes per thread where the rows and the tile's rows are whole
+  16-byte units, else one element per thread), clipped to the array."""
+  st = plan.stencil
+  dim, shape, tile = plan.dim, plan.shape, plan.tile
+  strides = _strides(shape)
+  last = dim - 1
+  lines_per_tile = int(np.prod(tile[:-1]))
+  out = ['    __syncthreads();']
+  for name in st.output_names:
+    t = storage_ctype(plan.dtype(name))
+    itemsize = plan.dtype(name).np_dtype.itemsize
+    vec = (tile[-1] * itemsize) % 16 == 0 and (shape[-1] * itemsize) % 16 == 0
+    chunk = 16 // itemsize if vec else 1
+    units = tile[-1] // chunk
+    out += ['    {  // store %s: %s per thread' % (
+        name, '16 bytes' if vec else 'one element'),
+            '      const %s* t_%s = reinterpret_cast<const %s*>(soda_smem + '
+            '%d);' % (t, name, t, plan.staging[name]),
+            '      for (int i = threadIdx.x; i < %d; i += %d) {' % (
+                lines_per_tile * units, THREADS),
+            '        const int line = i / %d;' % units,
+            '        const int c = (i - line * %d) * %d;' % (units, chunk),
+            '        int r = line;']
+    for a in range(dim - 2, 0, -1):
+      out.append('        const int t%d = r %% %d;' % (a, tile[a]))
+      out.append('        r /= %d;' % tile[a])
+    out.append('        const int t0 = r;')
+    inside = ['(!kCheck0 || o0 + t0 < %d)' % shape[0]]
+    inside += ['o%d + t%d < %d' % (a, a, shape[a]) for a in range(1, last)]
+    inside.append('o%d + c < %d' % (last, shape[-1]))
+    index = ' + '.join(['(long long)(o%d + t%d) * %dll' % (a, a, strides[a])
+                        for a in range(last)] + ['(o%d + c)' % last])
+    store = ('soda::store16(o_%s + gi, t_%s + line * %d + c);' if vec else
+             'o_%s[gi] = t_%s[line * %d + c];') % (name, name, tile[-1])
+    out += ['        if (%s) {' % ' && '.join(inside),
+            '          const long long gi = %s;' % index,
+            '          ' + store,
+            '        }',
+            '      }',
+            '    }']
+  return out
+
+
+def _mode_kernel(plan: TilePlan) -> str:
+  """The kernel of a mode plan (tile_plan.KernelConfig): a CTA walks
+  ``plan.steps`` axis-0 tiles of one tile column; each step's input
+  windows are filled into a ring of ``plan.slots`` slots ``slots - 1``
+  steps ahead, as ``dma_split`` commit groups each; with ``rolling`` a
+  step after the run's first loads only its new rows and takes the
+  overlap from the previous window; under 'peel' the steady steps drop
+  the axis-0 bounds checks; ``out_dma`` stages the outputs."""
+  st = plan.stencil
+  dim, shape, tile, grid = plan.dim, plan.shape, plan.tile, plan.grid
+  strides = _strides(shape)
+  cfg = plan.config
+  slots, split, steps = plan.slots, cfg.dma_split, plan.steps
+  k_lo, k_hi = plan.steady
+  inputs = [n for n in st.input_names if plan.buffered(n)]
+  out = []
+  for i, name in enumerate(inputs):
+    out += _fill_function(plan, i, name)
+  out += _kernel_head(plan)
+  out += ['  const int k_first = (int)bid * %d;' % steps,
+          '  const int k_end = k_first + %d < %d ? k_first + %d : %d;' % (
+              steps, grid[0], steps, grid[0])]
+
+  def window(name, slot, const=False):
+    t = storage_ctype(plan.dtype(name))
+    return 'reinterpret_cast<%s%s*>(soda_smem + %d + (%s) * %d)' % (
+        'const ' if const else '', t, plan.offsets[name], slot,
+        plan.slot_bytes[name])
+
+  # fill: the windows of step k into `slot`, `split` commit groups
+  out += ['  auto fill = [&](auto kc, int k, int slot) {',
+          '    constexpr bool kCheck0 = decltype(kc)::value;',
+          '    const int o0 = k * %d;' % tile[0]]
+  others = ''.join(', o%d' % a for a in range(1, dim))
+  for i, name in enumerate(inputs):
+    first = plan.halo0(name) if plan.rolling else 0
+    out.append('    const int r0_%d = k == k_first ? 0 : %d;' % (i, first)
+               if first else '    const int r0_%d = 0;' % i)
+  if split == 1:
+    for i, name in enumerate(inputs):
+      out.append('    soda_fill_%d<kCheck0>(%s, g_%s, o0%s, r0_%d, %d);' % (
+          i, window(name, 'slot'), name, others, i, plan.extent(name)[0]))
+    out.append('    soda::cp_async_commit();')
+  else:
+    out.append('    for (int j = 0; j < %d; ++j) {  // plane sub-ranges' %
+               split)
+    for i, name in enumerate(inputs):
+      rows = '(%d - r0_%d)' % (plan.extent(name)[0], i)
+      out += ['      const int a_%d = r0_%d + (%s / %d) * j + (j < %s %% %d '
+              '? j : %s %% %d);' % (i, i, rows, split, rows, split, rows,
+                                    split),
+              '      const int b_%d = a_%d + %s / %d + (j < %s %% %d ? 1 : '
+              '0);' % (i, i, rows, split, rows, split),
+              '      soda_fill_%d<kCheck0>(%s, g_%s, o0%s, a_%d, b_%d);' % (
+                  i, window(name, 'slot'), name, others, i, i)]
+    out += ['      soda::cp_async_commit();', '    }']
+  out.append('  };')
+
+  steady = '%d <= k && k <= %d' % (k_lo, k_hi)
+  out += ['  auto issue = [&](int k, int slot) {',
+          '    if (k < k_end) {']
+  if plan.peel:
+    out += ['      if (%s) fill(std::false_type{}, k, slot);' % steady,
+            '      else fill(std::true_type{}, k, slot);']
+  else:
+    out.append('      fill(std::true_type{}, k, slot);')
+  out += ['    } else {  // no such step: empty groups keep the count',
+          '      for (int j = 0; j < %d; ++j) soda::cp_async_commit();' %
+          split,
+          '    }',
+          '  };']
+
+  # step: every stage over the tile at (k * tile[0], o1, ...)
+  def buf(name, const):
+    if name in st.input_names:
+      t = storage_ctype(plan.dtype(name))
+      return 'const %s* s_%s = %s;' % (t, name, window(name, 'slot', True))
+    return _smem_ptr(plan, name, const)
+
+  def valid(a, lo, hi):
+    test = 'g%d >= %d && g%d < %d' % (a, lo, a, hi)
+    return '(!kCheck0 || (%s))' % test if a == 0 else test
+
+  tstrides = _strides(tile)
+
+  def store(name, own):
+    if not cfg.out_dma:
+      return [], ['if (ok && %s) o_%s[%s] = v;' % (
+          own, name, _flat(['g%d' % a for a in range(dim)], strides))]
+    t = storage_ctype(plan.dtype(name))
+    neg = plan.spans[name][0]
+    local = ' + '.join('(l%d - %d) * %d' % (a, neg[a], tstrides[a])
+                       for a in range(dim))
+    return (['%s* t_%s = reinterpret_cast<%s*>(soda_smem + %d);' % (
+        t, name, t, plan.staging[name])],
+            ['if (%s) t_%s[%s] = v;' % (own, name, local)])
+
+  out += ['  auto step = [&](auto kc, int k, int slot) {',
+          '    constexpr bool kCheck0 = decltype(kc)::value;',
+          '    const int o0 = k * %d;' % tile[0]]
+  out += ['  ' + s for s in _stage_blocks(plan, buf, valid, store)]
+  if cfg.out_dma:
+    out += _staged_stores(plan)
+  out.append('  };')
+
+  if slots > 1:
+    out.append('  for (int f = 0; f < %d; ++f) issue(k_first + f, f);' %
+               (slots - 1))
+  out += ['  #pragma unroll 1',
+          '  for (int k = k_first; k < k_end; ++k) {',
+          '    const int it = k - k_first;',
+          '    const int slot = it %% %d;' % slots,
+          '    // every thread is done with the slot the next fill overwrites',
+          '    if (it > 0) __syncthreads();',
+          '    issue(k + %d, (it + %d) %% %d);' % (slots - 1, slots - 1, slots),
+          '    soda::cp_async_wait<%d>();  // step k\'s groups have landed' %
+          ((slots - 1) * split),
+          '    __syncthreads();']
+  if plan.rolling:
+    out.append('    if (k + 1 < k_end) {  // the next window starts with this '
+               'one\'s last rows')
+    for name in inputs:
+      halo = plan.halo0(name)
+      if not halo:
+        continue
+      row = int(np.prod(plan.extent(name)[1:]))
+      t = storage_ctype(plan.dtype(name))
+      out += ['      {',
+              '        const %s* src = %s + %d;' % (
+                  t, window(name, 'slot', True), tile[0] * row),
+              '        %s* dst = %s;' % (t, window(name, '(it + 1) %% %d' %
+                                                 slots)),
+              '        for (int i = threadIdx.x; i < %d; i += %d) dst[i] = '
+              'src[i];' % (halo * row, THREADS),
+              '      }']
+    out.append('    }')
+  if plan.peel:
+    out += ['    if (k != k_first && k != k_end - 1 && %s)' % steady,
+            '      step(std::false_type{}, k, slot);',
+            '    else',
+            '      step(std::true_type{}, k, slot);']
+  else:
+    out.append('    step(std::true_type{}, k, slot);')
+  out += ['  }', '}']
   return '\n'.join(out)
 
 
@@ -624,10 +936,10 @@ def _launcher(plan: TilePlan) -> str:
       '  }',
       '  if (replicas == 1)',
       '    soda_fused_@H@<false><<<%d, %d, smem, (cudaStream_t)stream>>>(%s);'
-      % (plan.n_tiles, THREADS, ', '.join(casts)),
+      % (plan.n_ctas, THREADS, ', '.join(casts)),
       '  else',
       '    soda_fused_@H@<true><<<dim3(%d, (unsigned)replicas), %d, smem,'
-      % (plan.n_tiles, THREADS),
+      % (plan.n_ctas, THREADS),
       '                           (cudaStream_t)stream>>>(%s);' %
       ', '.join(casts),
       '  return (int)cudaGetLastError();',
@@ -722,12 +1034,101 @@ def _note(plan: TilePlan) -> str:
   ])
 
 
+def _mode_note(plan: TilePlan) -> str:
+  st = plan.stencil
+  cfg = plan.config
+  lines = [
+      '// Fused SODA stencil kernel for `%s` at shape %s, tile %s, in the' % (
+          st.app_name, plan.shape, plan.tile),
+      '// modes %s.' % mode_name(cfg),
+      '// Generated by soda_tpu_torch/backend/cuda_source.py; replaces the',
+      '// TPU kernel soda_tpu/backend/pallas_kernel.py PallasExecutor._build',
+      '// (pl.pallas_call at :1543) in the same modes:']
+  if cfg.stream_loop:
+    lines += [
+        '// - stream_loop=%r (%s): one CTA walks %d' % (
+            cfg.stream_loop, MODE_REPLACES['stream_loop'], plan.steps),
+        '//   consecutive axis-0 tiles of one tile column (%d CTAs; the run' %
+        plan.n_ctas,
+        '//   is the longest that keeps tile_plan.MIN_CTAS), its input',
+        '//   windows kept in shared memory from step to step.']
+    if plan.rolling:
+      lines += [
+          '//   Rolling fill (pallas_kernel.py:857-1003): a step after the',
+          '//   run\'s first loads only its %d new rows and copies the rows it' %
+          plan.tile[0],
+          '//   shares with the previous window inside shared memory.']
+    if plan.peel:
+      lines += [
+          '//   \'peel\' (:1456-1495): a run\'s first and last steps, and steps',
+          '//   near the array\'s axis-0 ends, keep the axis-0 bounds checks;',
+          '//   the steady steps (axis-0 tiles %d..%d) run without them.' %
+          plan.steady]
+  if cfg.prefetch > 2:
+    lines += [
+        '// - prefetch=%d (%s): a ring of %d windows' % (
+            cfg.prefetch, MODE_REPLACES['prefetch'], plan.slots),
+        '//   per input, filled with cp.async %d steps ahead (commit_group,' %
+        (plan.slots - 1),
+        '//   then wait_group leaves the later steps\' groups in flight).']
+  if cfg.dma_split > 1:
+    lines += [
+        '// - dma_split=%d (%s): each fill issued as %d' % (
+            cfg.dma_split, MODE_REPLACES['dma_split'], cfg.dma_split),
+        '//   cp.async commit groups over plane sub-ranges; a step waits for',
+        '//   all of them.']
+  if cfg.out_dma:
+    lines += [
+        '// - out_dma (%s): each output tile staged in' %
+        MODE_REPLACES['out_dma'],
+        '//   shared memory, stored after a barrier row by row (16 bytes per',
+        '//   thread where the rows allow).']
+  lines += [
+      '// Bound on this card: bytes (each input read once, each output',
+      '// written once; a stencil does a few operations per byte). What the',
+      '// modes do about it: rows that consecutive windows share are read',
+      '// from device memory once (rolling); the next steps\' loads are in',
+      '// flight while a step computes (cp.async ring, commit groups); outputs',
+      '// leave as whole rows (staging). Cells outside the array are filled',
+      '// with 0, as the default kernel does: cp.async with src-size 0 reads',
+      '// nothing. %d bytes of shared memory per CTA, %d window slot(s) per' % (
+          plan.smem_bytes, plan.slots),
+      '// input.']
+  return '\n'.join(lines)
+
+
+# The TPU code each mode replaces (for the source note and the run's
+# report).
+MODE_REPLACES = {
+    'stream_loop': 'soda_tpu/backend/pallas_kernel.py:1456',
+    'prefetch': 'soda_tpu/backend/pallas_kernel.py:825',
+    'dma_split': 'soda_tpu/backend/pallas_kernel.py:369',
+    'out_dma': 'soda_tpu/backend/pallas_kernel.py:1018',
+}
+
+
+def mode_name(config) -> str:
+  """A short name of a kernel config, e.g. ``peel+prefetch3``."""
+  parts = []
+  if config.stream_loop:
+    parts.append('peel' if config.stream_loop == 'peel' else 'stream')
+  if config.prefetch > 2:
+    parts.append('prefetch%d' % config.prefetch)
+  if config.dma_split > 1:
+    parts.append('split%d' % config.dma_split)
+  if config.out_dma:
+    parts.append('out_dma')
+  return '+'.join(parts) or 'default'
+
+
 def generate(plan: TilePlan) -> KernelSource:
-  """CUDA C++ source of the fused kernel for ``plan``."""
+  """CUDA C++ source of the fused kernel for ``plan`` (a mode plan's
+  kernel where ``plan.config`` sets a mode)."""
   funcs = [_stage_function(plan, k, stage)
            for k, stage in enumerate(plan.stages)]
+  default = plan.config.is_default
   text = '\n'.join([
-      _note(plan),
+      _note(plan) if default else _mode_note(plan),
       '#include "soda_stencil.cuh"',
       '',
       '#ifdef __CUDACC__',
@@ -739,7 +1140,7 @@ def generate(plan: TilePlan) -> KernelSource:
       '',
       '\n'.join(funcs),
       '#ifdef __CUDACC__',
-      _kernel(plan),
+      _kernel(plan) if default else _mode_kernel(plan),
       '',
       _launcher(plan),
       '#else',

@@ -33,8 +33,8 @@ from soda_tpu_torch.ir import nodes as ir
 from soda_tpu_torch.backend import cuda_source, semantics
 from soda_tpu_torch.backend.border import preserve_border_fixup
 from soda_tpu_torch.core.stencil import Stencil
-from soda_tpu_torch.backend.tile_plan import (TilePlan, last_readers,
-                                               make_tile_plan)
+from soda_tpu_torch.backend.tile_plan import (TilePlan, kernel_plan,
+                                               last_readers, make_tile_plan)
 
 
 def _box(plan: TilePlan, name: str, origin: Sequence[int]
@@ -55,28 +55,43 @@ def _box(plan: TilePlan, name: str, origin: Sequence[int]
   return tuple(box)
 
 
+def _window(plan: TilePlan, name: str, origin: Sequence[int],
+            inputs: Dict[str, torch.Tensor], device: torch.device,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+  """Rows ``rows`` (axis-0 window rows; default all) of ``name``'s
+  window around the tile at ``origin``, zero outside the array."""
+  ext = list(plan.extent(name))
+  neg = plan.spans[name][0]
+  first = 0
+  if rows is not None:
+    first, ext[0] = rows[0], rows[1] - rows[0]
+  buf = torch.zeros(ext, dtype=inputs[name].dtype, device=device)
+  src, dst = [], []
+  for a in range(plan.dim):
+    base = origin[a] - neg[a] + (first if a == 0 else 0)
+    g0, g1 = max(base, 0), min(base + ext[a], plan.shape[a])
+    src.append(slice(g0, max(g0, g1)))
+    dst.append(slice(g0 - base, max(g0, g1) - base))
+  buf[tuple(dst)] = inputs[name][tuple(src)]
+  return buf
+
+
 def _run_tile(plan: TilePlan, origin: Sequence[int],
               inputs: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
               outs: Dict[str, torch.Tensor], readers: Dict[str, int],
-              device: torch.device) -> None:
+              device: torch.device,
+              windows: Optional[Dict[str, torch.Tensor]] = None) -> None:
+  """Evaluate every stage over the tile at ``origin`` and store its
+  outputs; input windows are loaded here unless ``windows`` gives
+  them."""
   stencil = plan.stencil
   dim = plan.dim
 
   bufs: Dict[str, torch.Tensor] = {}
   for name in stencil.input_names:
-    if name not in readers:
-      continue
-    ext = plan.extent(name)
-    neg = plan.spans[name][0]
-    buf = torch.zeros(ext, dtype=inputs[name].dtype, device=device)
-    src, dst = [], []
-    for a in range(dim):
-      base = origin[a] - neg[a]
-      g0, g1 = max(base, 0), min(base + ext[a], plan.shape[a])
-      src.append(slice(g0, max(g0, g1)))
-      dst.append(slice(g0 - base, max(g0, g1) - base))
-    buf[tuple(dst)] = inputs[name][tuple(src)]
-    bufs[name] = buf
+    if name in readers:
+      bufs[name] = (windows[name] if windows is not None else
+                    _window(plan, name, origin, inputs, device))
 
   for idx, stage in enumerate(plan.stages):
     name = stage.name
@@ -155,6 +170,79 @@ def fused_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
                for n in stencil.output_names)
 
 
+def _check_steady(plan: TilePlan, origin: Sequence[int]) -> None:
+  """A step of the steady range runs without axis-0 bounds checks on
+  the card: every window row must lie in the array and every stage box
+  must cover its whole extent on axis 0."""
+  for name in plan.stencil.input_names:
+    if plan.buffered(name):
+      top = origin[0] - plan.spans[name][0][0]
+      if top < 0 or top + plan.extent(name)[0] > plan.shape[0]:
+        raise utils.InternalError('steady step at %s reads %s outside the '
+                                  'array' % (origin, name))
+  for stage in plan.stages:
+    base = origin[0] - plan.spans[stage.name][0][0]
+    lo, hi = plan.margins[stage.name]
+    if lo[0] > base or base + plan.extent(stage.name)[0] > plan.shape[0] - hi[0]:
+      raise utils.InternalError('steady step at %s clips stage %s on axis 0'
+                                % (origin, stage.name))
+
+
+def streamed_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
+                           params: Sequence[torch.Tensor] = (),
+                           tile: Optional[TilePlan] = None
+                           ) -> Tuple[torch.Tensor, ...]:
+  """The mode kernels' function in plain PyTorch, walked as they walk
+  it: per CTA (a tile column on the axes after the first, and a run of
+  ``tile.steps`` consecutive axis-0 tiles), one input window per input
+  kept from step to step. With ``tile.rolling`` a run's first step
+  loads the whole window ('full') and every later step keeps the
+  ``halo0`` rows it shares with the previous window and loads only the
+  ``tile[0]`` new rows ('mid', or 'tail' where they run past the
+  array's end: TilePlan.fill_class). Under 'peel' the steps the kernel
+  runs without axis-0 bounds checks are checked here to need none.
+
+  Args and result as fused_stencil_plain's; ``tile`` is a mode plan
+  (make_tile_plan with a KernelConfig).
+  """
+  plan = tile
+  if plan is None:
+    raise ValueError('streamed_stencil_plain walks a tile plan; pass one')
+  shape = plan.shape
+  device = inputs[0].device
+  ins = {name: semantics.to_repr(t, stencil.symbol_table[name])
+         for name, t in zip(stencil.input_names, inputs)}
+  pars = {stmt.name: semantics.to_repr(t, stmt.dtype)
+          for stmt, t in zip(stencil.param_stmts, params)}
+  outs = {name: torch.zeros(shape, device=device, dtype=semantics.repr_dtype(
+      stencil.symbol_table[name])) for name in stencil.output_names}
+  readers = last_readers(plan.stages)
+  buffered = [n for n in stencil.input_names if n in readers]
+  t0 = plan.tile[0]
+  k_lo, k_hi = plan.steady
+  for column in np.ndindex(*plan.grid[1:]):
+    rest = tuple(int(i) * t for i, t in zip(column, plan.tile[1:]))
+    for chunk in range(plan.n_chunks):
+      first = chunk * plan.steps
+      last = min(first + plan.steps, plan.grid[0])
+      windows: Dict[str, torch.Tensor] = {}
+      for k in range(first, last):
+        origin = (k * t0,) + rest
+        for name in buffered:
+          if plan.fill_class(name, k, first) == 'full':
+            windows[name] = _window(plan, name, origin, ins, device)
+            continue
+          halo = plan.halo0(name)
+          new = _window(plan, name, origin, ins, device,
+                        rows=(halo, plan.extent(name)[0]))
+          windows[name] = torch.cat([windows[name][t0:t0 + halo], new])
+        if plan.peel and first < k < last - 1 and k_lo <= k <= k_hi:
+          _check_steady(plan, origin)
+        _run_tile(plan, origin, ins, pars, outs, readers, device, windows)
+  return tuple(semantics.to_storage(outs[n], stencil.symbol_table[n])
+               for n in stencil.output_names)
+
+
 def replicated_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
                              params: Sequence[torch.Tensor] = (),
                              tile: Optional[TilePlan] = None
@@ -162,7 +250,9 @@ def replicated_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
   """The replicated kernel's function in plain PyTorch:
   ``fused_stencil_plain`` mapped over the leading replica axis of
   ``inputs``; params are shared by all replicas."""
-  per = [fused_stencil_plain(stencil, [a[r] for a in inputs], params, tile)
+  plain = (streamed_stencil_plain if tile is not None and
+           tile.config.stream_loop else fused_stencil_plain)
+  per = [plain(stencil, [a[r] for a in inputs], params, tile)
          for r in range(inputs[0].shape[0])]
   return tuple(torch.stack(outs) for outs in zip(*per))
 
@@ -273,6 +363,28 @@ class FusedExecutor:
     apply_preserve_border: apply ``border: preserve`` after the kernel
       (default). The sharded executor passes False: it crops each
       shard and redoes the border against the global grid.
+    stream_loop: False (one CTA per tile), True (one CTA walks a run of
+      consecutive axis-0 tiles of one tile column, keeping its input
+      windows in shared memory; tile_plan.steps_per_cta sizes the run)
+      or 'peel' (the same, with a run's first and last steps bounds
+      checked on axis 0 and the steady steps not; at least 4 steps).
+    prefetch: input windows in flight, 2-4 (the cp.async ring's depth;
+      > 2 needs ``stream_loop``: a CTA without it computes one tile, so
+      there is no next step to fetch). Depth 2 with at least 3 steps
+      and an axis-0 halo shorter than the tile loads only the new rows
+      of each window (the rolling fill).
+    dma_split: 1-8, 3-D grids only: each window fill issued as that
+      many cp.async commit groups over plane sub-ranges.
+    out_dma: stage each output tile in shared memory and store it after
+      a barrier with a cooperative, row-contiguous store.
+    block_rows, mid_tile: the tile's axis-0 and axis-1 extents, by the
+      JAX kernel's names (instead of ``tile``).
+
+  The JAX kernel's VPU-layout keys (``lane_shift``, ``shift_mode``,
+  ``transpose_lanes``, ``narrow``, ``stage_mode``, ``compute_chunk``,
+  ``interpret``) raise utils.InputError (ROADMAP B item 9). On the CPU
+  the executor runs ``streamed_stencil_plain`` whenever ``stream_loop``
+  is set, else ``fused_stencil_plain`` over the plan's tiles.
 
   ``launches`` counts kernel launches made by ``fn``.
   """
@@ -280,7 +392,7 @@ class FusedExecutor:
   def __init__(self, stencil, shape: Sequence[int], device='cuda',
                tile: Optional[Sequence[int]] = None,
                replicas: Optional[int] = None,
-               apply_preserve_border: bool = True):
+               apply_preserve_border: bool = True, **opts):
     check_stencil(stencil)
     self.stencil = stencil
     self.apply_preserve_border = apply_preserve_border
@@ -292,7 +404,8 @@ class FusedExecutor:
     self.batch_shape = self.shape if replicas is None else \
         (replicas,) + self.shape
     self.device = resolve_device(device)
-    self.plan = make_tile_plan(stencil, self.shape, tile)
+    self.plan = kernel_plan(stencil, self.shape, tile, **opts)
+    self.config = self.plan.config
     self.launches = 0
     self.kernel = None
     if self.device.type == 'cuda':
@@ -318,8 +431,9 @@ class FusedExecutor:
     n_in = len(stencil.input_names)
     ins, pars = args[:n_in], args[n_in:]
     if self.device.type == 'cpu':
-      plain = (fused_stencil_plain if self.replicas is None else
-               replicated_stencil_plain)
+      plain = (replicated_stencil_plain if self.replicas is not None else
+               streamed_stencil_plain if self.config.stream_loop else
+               fused_stencil_plain)
       outs = plain(stencil, ins, pars, tile=self.plan)
     else:
       outs = tuple(

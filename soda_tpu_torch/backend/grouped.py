@@ -31,7 +31,7 @@ from soda_tpu_torch.backend.fused import (FusedExecutor, check_args,
                                           fused_stencil_plain, prepare_args,
                                           resolve_device)
 from soda_tpu_torch.backend.plan import make_plan, validate_grid
-from soda_tpu_torch.backend.tile_plan import make_tile_plan
+from soda_tpu_torch.backend.tile_plan import kernel_plan
 from soda_tpu_torch.core.stencil import Stencil
 from soda_tpu_torch.frontend import ast
 
@@ -155,6 +155,9 @@ class GroupedExecutor:
     device: 'cuda' (default; raises without a usable GPU) or 'cpu'.
     replicas: as FusedExecutor's: None, or R grids per call.
     apply_preserve_border: as FusedExecutor's.
+    **opts: every group kernel's options (FusedExecutor's ``tile`` and
+      modes), as GroupedPallasExecutor forwards its ``**kwargs``
+      (soda_tpu/backend/grouped.py:95,110).
 
   ``launches`` is the sum of the groups' kernel launches.
   """
@@ -162,7 +165,7 @@ class GroupedExecutor:
   def __init__(self, stencil, shape: Sequence[int],
                cluster: Optional[str] = None, device='cuda',
                replicas: Optional[int] = None,
-               apply_preserve_border: bool = True):
+               apply_preserve_border: bool = True, **opts):
     check_stencil(stencil)
     self.stencil = stencil
     self.apply_preserve_border = apply_preserve_border
@@ -175,11 +178,11 @@ class GroupedExecutor:
     self.plan, subs = group_stencils(stencil, cluster)
     if self.device.type == 'cuda':  # every group's nvcc at once
       from soda_tpu_torch.backend.build import build_all
-      build_all([cuda_source.generate(make_tile_plan(sub, self.shape))
+      build_all([cuda_source.generate(kernel_plan(sub, self.shape, **opts))
                  for sub in subs])
     self.executors: List[Tuple[Stencil, FusedExecutor]] = [
         (sub, FusedExecutor(sub, self.shape, device=self.device,
-                            replicas=replicas)) for sub in subs]
+                            replicas=replicas, **opts)) for sub in subs]
     self.replicas = replicas
     self.batch_shape = self.executors[0][1].batch_shape
 

@@ -225,4 +225,34 @@ SODA_HD float h2f(uint16_t h) {
 SODA_HD float rh(float x) { return h2f(f2h(x)); }
 SODA_HD float rh(double x) { return h2f(d2h(x)); }
 
+#ifdef __CUDACC__
+// ---- the mode kernels' copies (cuda_source.py _mode_kernel) ---------------
+// cp.async of Bytes (4, 8 or 16) from global `src` to shared `dst`, both
+// aligned to Bytes; bytes past `src_bytes` are written as 0, and with
+// src_bytes == 0 nothing is read.
+template <int Bytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  static_assert(Bytes == 4 || Bytes == 8 || Bytes == 16,
+                "cp.async copies 4, 8 or 16 bytes");
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(Bytes), "r"(src_bytes)
+               : "memory");
+}
+// close this thread's current group of cp.async copies
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// 16 bytes from shared `src` to global `dst`, both 16-byte aligned
+__device__ __forceinline__ void store16(void* dst, const void* src) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+#endif
+
 }  // namespace soda

@@ -53,11 +53,14 @@ class ReplicatedExecutor:
       over the batch axis and ``Replicated`` params, and ``fn`` takes
       and returns those.
     backend: 'auto' (default), 'fused' or 'xla'.
+    **kwargs: the inner executor's options (the fused kernel's ``tile``
+      and modes, FusedExecutor), as the JAX package forwards them
+      (soda_tpu/parallel/replicate.py:36,48).
   """
 
   def __init__(self, stencil, shape: Sequence[int],
                replication_factor: Optional[int] = None, device='cuda',
-               mesh=None, backend: str = 'auto'):
+               mesh=None, backend: str = 'auto', **kwargs):
     from soda_tpu_torch.backend import get_executor
     if backend not in ('auto', 'fused', 'xla'):
       raise ValueError('unknown backend for replication: %s' % backend)
@@ -81,7 +84,8 @@ class ReplicatedExecutor:
       devices = [mesh.devices[(i,) + (0,) * (mesh.devices.ndim - 1)]
                  for i in range(axis_size)]
     self.per_device = factor // len(devices)
-    kwargs = {} if backend == 'xla' else {'replicas': self.per_device}
+    if backend != 'xla':
+      kwargs['replicas'] = self.per_device
     # one executor per distinct device, one batch slice per mesh entry
     self._executors = {d: get_executor(stencil, self.shape, backend,
                                        device=d, **kwargs)

@@ -14,6 +14,14 @@ Stencil, and act on it:
   --backend         auto|fused (one kernel, or one per group under
                     cluster: coarse/fine), xla (whole grid), replicated,
                     sharded [--mesh 4 | --mesh 2,2]
+  --kernel-opt K=V  the fused kernel's config (repeatable): tile,
+                    block_rows, mid_tile, stream_loop, prefetch,
+                    dma_split, out_dma; with --backend sharded the
+                    per-shard kernel's, with replicated the replicas'
+  --tune            with --run: probe the kernel's configs on the card
+                    and cache the winner (tools/autotune.py)
+  --compile-stats   FILE or -: each kernel's registers, shared memory,
+                    spills and CTAs per SM, and its plan (JSON)
 
 ``--device`` is explicit (default ``cuda``): without a usable GPU the
 run fails; ``--device cpu`` runs the kernels' plain PyTorch versions.
@@ -41,9 +49,6 @@ _NOT_PORTED_FLAGS = (
     ('emit_numpy', '--emit-numpy', 'ROADMAP A10 (--emit-torch)'),
     ('estimate', '--estimate', 'ROADMAP A12 (H100 cost model)'),
     ('model_file', '--model-file', 'ROADMAP A12 (H100 cost model)'),
-    ('compile_stats', '--compile-stats', 'ROADMAP A11 (tools)'),
-    ('tune', '--tune', 'ROADMAP A11 (tools)'),
-    ('kernel_opt', '--kernel-opt', 'ROADMAP A11 (tools)'),
 )
 _NOT_PORTED_BACKENDS = {
     'pallas': 'ROADMAP A4 (the TPU kernel; its port is --backend fused)',
@@ -123,18 +128,62 @@ def _build_parser() -> argparse.ArgumentParser:
                             '4 or 2,2, over that many distinct visible '
                             'devices of --device (default: every visible '
                             'device on one axis)')
+  backend.add_argument('--tune', action='store_true',
+                       help='with --run: probe the fused kernel\'s configs '
+                            'on the card and cache the winner '
+                            '(~/.cache/soda_tpu_torch_tune.json); needs '
+                            '--device cuda')
+  backend.add_argument('--kernel-opt', action='append', default=[],
+                       metavar='KEY=VALUE',
+                       help='fused-kernel config (repeatable): tile=64,128 '
+                            'block_rows=64 mid_tile=8 stream_loop=peel '
+                            'prefetch=3 dma_split=2 out_dma=true; applies '
+                            'to the auto/fused/replicated backends and, '
+                            'with --backend sharded, to the per-shard '
+                            'kernel; mutually exclusive with --tune')
+  backend.add_argument('--compile-stats', metavar='FILE',
+                       help='write each kernel\'s registers, shared memory, '
+                            'spills and CTAs per SM, and its plan, as JSON '
+                            '(- for stdout)')
 
   unported = parser.add_argument_group(
       'not ported yet', 'flags of the JAX CLI; each exits nonzero naming '
       'its ROADMAP item')
   for _, flag, _ in _NOT_PORTED_FLAGS:
-    if flag == '--tune':
-      unported.add_argument(flag, action='store_true')
-    elif flag == '--kernel-opt':
-      unported.add_argument(flag, action='append', metavar='KEY=VALUE')
-    else:
-      unported.add_argument(flag, metavar='ARG')
+    unported.add_argument(flag, metavar='ARG')
   return parser
+
+
+def _parse_kernel_opts(pairs):
+  """KEY=VALUE list -> FusedExecutor keyword arguments, validated once,
+  up front, against its config keys (tile_plan.CONFIG_KEYS): true/false
+  and integers convert, ``tile`` takes comma-separated integers, other
+  values (``peel``) pass as text. The JAX kernel's VPU-layout keys raise
+  naming ROADMAP B item 9; other unknown keys list the valid ones."""
+  from soda_tpu_torch.backend import tile_plan
+  opts = {}
+  for pair in pairs:
+    key, sep, value = pair.partition('=')
+    if not sep or not key:
+      raise utils.InputError('--kernel-opt expects KEY=VALUE, got %r' % pair)
+    key = key.replace('-', '_')
+    tile_plan.reject_layout_keys([key])
+    if key not in tile_plan.CONFIG_KEYS:
+      raise utils.InputError('unknown --kernel-opt key %r (valid: %s)' %
+                             (key, ', '.join(tile_plan.CONFIG_KEYS)))
+    low = value.lower()
+    if key == 'tile':
+      opts[key] = _parse_ints(value)
+    elif low in ('true', 'yes'):
+      opts[key] = True
+    elif low in ('false', 'no'):
+      opts[key] = False
+    else:
+      try:
+        opts[key] = int(value)
+      except ValueError:
+        opts[key] = value
+  return opts
 
 
 def _parse_ints(text: str):
@@ -169,7 +218,10 @@ def main(argv: Optional[list] = None) -> int:
 def _main(argv: Optional[list] = None) -> int:
   parser = _build_parser()
   args = parser.parse_args(argv)
-  if args.kernel_opt and args.backend == 'xla':
+  kernel_opts = _parse_kernel_opts(args.kernel_opt)
+  if kernel_opts and args.tune:
+    raise utils.InputError('--kernel-opt and --tune are mutually exclusive')
+  if kernel_opts and args.backend == 'xla':
     raise utils.InputError('--kernel-opt configures the fused kernel; the '
                            'xla backend has no such knobs')
   if args.mesh and args.backend != 'sharded':
@@ -180,9 +232,15 @@ def _main(argv: Optional[list] = None) -> int:
   if args.backend in _NOT_PORTED_BACKENDS:
     raise NotPorted('--backend %s is not ported yet: %s' %
                     (args.backend, _NOT_PORTED_BACKENDS[args.backend]))
-  if args.bench and args.device != 'cuda':
-    raise utils.InputError('--bench times the kernel on the card; it needs '
-                           '--device cuda')
+  for flag, on in (('--bench', args.bench), ('--tune', args.tune)):
+    if on and args.device != 'cuda':
+      raise utils.InputError('%s times the kernel on the card; it needs '
+                             '--device cuda' % flag)
+  if args.tune and not args.run:
+    raise utils.InputError('--tune applies to --run')
+  if args.tune and args.backend not in ('auto', 'fused'):
+    raise utils.InputError('--tune picks the fused kernel\'s config; it '
+                           'applies to --backend auto or fused')
   sys.setrecursionlimit(args.recursion_limit)
   level = logging.WARNING - 10 * args.verbose + 10 * args.quiet
   logging.basicConfig(
@@ -234,15 +292,52 @@ def _main(argv: Optional[list] = None) -> int:
         f.write(text + '\n')
     did_something = True
 
+  if args.compile_stats:
+    import json
+
+    from soda_tpu_torch.model.compiled import compiled_stats
+    shape = _parse_ints(args.shape) if args.shape else _default_shape(stencil)
+    stats = compiled_stats(_executor(stencil, shape, args, kernel_opts))
+    text = json.dumps(stats, indent=2) + '\n'
+    if args.compile_stats == '-':
+      sys.stdout.write(text)
+    else:
+      with open(args.compile_stats, 'w') as f:
+        f.write(text)
+    did_something = True
+
   if args.run:
     did_something = True
-    code = _run(stencil, args)
+    code = _run(stencil, args, kernel_opts)
     if code:
       return code
 
   if not did_something:
-    parser.error('no action requested (--emit-dot/--run)')
+    parser.error('no action requested (--emit-dot/--compile-stats/--run)')
   return 0
+
+
+def _executor(stencil, shape, args, kernel_opts):
+  """The executor ``--backend`` names, on ``--device``, with the kernel
+  options (the per-shard kernel's under sharded) or the tuner's pick.
+  A bad option value is an input error."""
+  from soda_tpu_torch.backend import get_executor
+  try:
+    if args.tune:
+      from soda_tpu_torch.tools.autotune import tuned_executor
+      return tuned_executor(stencil, shape, device=args.device)
+    if args.backend == 'replicated':
+      return get_executor(stencil, shape, 'replicated', device=args.device,
+                          **kernel_opts)
+    if args.backend == 'sharded':
+      # the port's default inner is the fused kernel per shard (the JAX
+      # CLI's is 'xla', compiled there; sodac.py:408)
+      return get_executor(stencil, shape, 'sharded', device=args.device,
+                          mesh=_mesh(args), inner_opts=kernel_opts)
+    return get_executor(stencil, shape, args.backend, device=args.device,
+                        **kernel_opts)
+  except ValueError as e:
+    raise utils.InputError(str(e)) from None
 
 
 def _mesh(args):
@@ -268,13 +363,23 @@ def _mesh(args):
               'xy'[:len(dims)])
 
 
-def _run(stencil, args) -> int:
+def _describe(executor, kernel_opts) -> str:
+  """The kernel's modes and tile (a fused executor's), else the options
+  given."""
+  config = getattr(executor, 'config', None)
+  if config is None:
+    return str(kernel_opts)
+  from soda_tpu_torch.backend.cuda_source import mode_name
+  return '%s, tile %s' % (mode_name(config), executor.plan.tile)
+
+
+def _run(stencil, args, kernel_opts) -> int:
   """Execute on seeded inputs and verify against the NumPy oracle: the
   analog of running the generated host with SODA_TEST_MAIN."""
   import numpy as np
 
   from soda_tpu_torch import profiling
-  from soda_tpu_torch.backend import get_executor, reference
+  from soda_tpu_torch.backend import reference
 
   shape = _parse_ints(args.shape) if args.shape else _default_shape(stencil)
   inputs = reference.make_test_inputs(stencil, shape, seed=args.seed)
@@ -282,22 +387,17 @@ def _run(stencil, args) -> int:
   want = reference.run(stencil, inputs, params)
 
   t0 = time.perf_counter()
+  executor = _executor(stencil, shape, args, kernel_opts)
   if args.backend == 'replicated':
     # R independent grids in one launch; the self-test runs the SAME
     # grid in every batch slot and checks slot 0 against the oracle
     # (reference replication semantics: identical pipelines over
     # independent tiles, core.py:565-614)
-    executor = get_executor(stencil, shape, 'replicated', device=args.device)
     r = executor.replication_factor
     inputs = {k: np.stack([v] * r) for k, v in inputs.items()}
     outs = {k: v[0].cpu().numpy()
             for k, v in executor(inputs, params).items()}
   else:
-    # sharded: the port's default inner, the fused kernel per shard
-    # (the JAX CLI's is 'xla', compiled there; sodac.py:408)
-    kwargs = {'mesh': _mesh(args)} if args.backend == 'sharded' else {}
-    executor = get_executor(stencil, shape, args.backend, device=args.device,
-                            **kwargs)
     outs = {k: v.cpu().numpy() for k, v in executor(inputs, params).items()}
   compile_and_run_s = time.perf_counter() - t0
 
@@ -330,6 +430,8 @@ def _run(stencil, args) -> int:
         '%d kernel launches' % ('x'.join(map(str, shape)), cells,
                                 args.backend, executor.device,
                                 compile_and_run_s, executor.launches))
+  if args.tune or kernel_opts:
+    print('Kernel config: %s' % _describe(executor, kernel_opts))
 
   if args.bench:
     # CUDA events, each call from a cold L2 (median); the TPU CLI's

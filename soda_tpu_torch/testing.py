@@ -12,10 +12,12 @@
   as tests/checks.py states it. Integers bit-exact; a float fails only
   where its error exceeds the threshold both absolutely and relative to
   the reference value; NaNs in the same cells.
-- Test cases: tile geometries, an output read by a stage, a program
-  with params, a seeded generator of random DSL programs over every
-  integer width and sign, half, float and double, and distinct inputs
-  per replica of a replicated batch.
+- ``MODE_CELLS``: the fused kernel's modes at the benchmark shapes.
+- Test cases: tile geometries, the kernel modes at small shapes
+  (``MODE_CASES``), an output read by a stage, a program with params, a
+  seeded generator of random DSL programs over every integer width and
+  sign, half, float and double, and distinct inputs per replica of a
+  replicated batch.
 """
 
 from __future__ import annotations
@@ -37,9 +39,10 @@ from soda_tpu_torch.parallel.mesh import Mesh
 from soda_tpu_torch.utils import threshold_for
 
 __all__ = ['CELLS', 'CONV_PARAM', 'SHARDED', 'repeated_mesh', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
-           'GEOMETRY_CASES', 'MULTI_OUTPUT', 'build_cell', 'check_outputs',
-           'gen_program', 'make_inputs', 'make_test_inputs',
-           'make_test_params', 'oracle_run', 'output_valid_slices',
+           'GEOMETRY_CASES', 'MODE_CASES', 'MODE_CELLS', 'MULTI_OUTPUT',
+           'build_cell', 'check_outputs', 'gen_program', 'make_inputs',
+           'make_test_inputs', 'make_test_params', 'mode_inputs',
+           'mode_stencil', 'oracle_run', 'output_valid_slices',
            'replica_inputs', 'threshold_for']
 
 # (name, shape, stencil overrides): the benchmark's 12 cells
@@ -83,6 +86,83 @@ SHARDED = (
     ('jacobi2d', (4,), 'xla', 'off'),
     ('jacobi2d', (4,), 'xla', 'on'),
 )
+
+
+# (cell, kernel options): the fused kernel's modes at the benchmark
+# shapes. The streaming loop (plain and peeled) on 2-D and 3-D cells,
+# the deep cp.async ring on the 3-D ones, split fills on 3-D grids, and
+# staged stores on a 2-byte and a 19-tap cell.
+MODE_CELLS = tuple(
+    [(name, {'stream_loop': mode})
+     for name in ('blur', 'erosion', 'jacobi3d', 'heat3d', 'denoise2d',
+                  'jacobi3d_256') for mode in (True, 'peel')] +
+    [(name, {'stream_loop': 'peel', 'prefetch': 3})
+     for name in ('jacobi3d', 'jacobi3d_256')] +
+    [(name, {'dma_split': 2}) for name in ('heat3d', 'jacobi3d')] +
+    [(name, {'out_dma': True}) for name in ('blur', 'erosion')])
+
+
+# (name, shape, kernel options, MIN_CTAS, replicas): every path of the
+# mode kernels at small shapes. Rolling and not (the halo reaching the
+# tile), 'peel' with and without steady steps, the prefetch ring, split
+# fills, staged stores (16-byte and element), 2-byte pairs at phase 0
+# and 1, odd rows (element fills), 1-, 4- and 8-byte inputs, several
+# inputs, an output read by a stage, params, replicas, and runs cut by
+# the grid's end (a small MIN_CTAS gives the small grids runs of
+# several steps; ``mode_stencil`` builds the name).
+MODE_CASES = (
+    ('blur', (130, 64), {'stream_loop': True, 'block_rows': 16}, 1, 1),
+    ('blur', (130, 64), {'stream_loop': 'peel', 'block_rows': 8}, 3, 1),
+    ('blur', (130, 64), {'stream_loop': 'peel', 'block_rows': 8,
+                         'prefetch': 4, 'out_dma': True}, 2, 1),
+    ('blur', (64, 96), {'out_dma': True, 'block_rows': 16}, 1, 2),
+    ('blur', (40, 64), {'stream_loop': 'peel', 'block_rows': 16}, 1, 1),
+    ('erosion', (61, 45), {'stream_loop': 'peel', 'block_rows': 16}, 1, 1),
+    ('erosion', (80, 64), {'stream_loop': True, 'block_rows': 32,
+                           'out_dma': True}, 1, 1),
+    ('sobel2d', (50, 64), {'stream_loop': True, 'block_rows': 8}, 2, 1),
+    ('xcorr', (41, 70), {'stream_loop': 'peel', 'block_rows': 4,
+                         'prefetch': 3}, 1, 1),
+    ('jacobi2d', (48, 40), {'stream_loop': 'peel', 'block_rows': 4}, 1, 1),
+    ('jacobi3d', (40, 17, 24), {'stream_loop': 'peel', 'block_rows': 4,
+                                'prefetch': 3, 'dma_split': 3}, 1, 1),
+    ('jacobi3d', (24, 16, 16), {'stream_loop': True, 'block_rows': 8,
+                                'mid_tile': 8}, 1, 1),
+    ('heat3d', (30, 12, 20), {'stream_loop': True, 'block_rows': 3,
+                              'dma_split': 2}, 2, 1),
+    ('heat3d', (16, 12, 32), {'dma_split': 2, 'out_dma': True}, 1, 1),
+    ('denoise2d', (40, 48), {'stream_loop': 'peel', 'block_rows': 8,
+                             'out_dma': True}, 1, 1),
+    ('denoise3d', (20, 9, 16), {'stream_loop': 'peel', 'block_rows': 2,
+                                'prefetch': 4}, 1, 2),
+    ('seidel2d', (36, 40), {'stream_loop': True, 'block_rows': 8}, 1, 1),
+    ('multi_output', (29, 35), {'stream_loop': True, 'block_rows': 4,
+                                'out_dma': True}, 1, 1),
+    ('conv_param', (24, 64), {'stream_loop': 'peel', 'block_rows': 4}, 1, 1),
+    ('fuzz200', (8, 16), {'stream_loop': True, 'block_rows': 2}, 1, 1),
+    ('fuzz203', (8, 16), {'stream_loop': 'peel', 'block_rows': 1,
+                          'out_dma': True}, 1, 1),
+    ('fuzz213', (8, 16), {'stream_loop': True, 'block_rows': 2,
+                          'prefetch': 3}, 1, 1),
+)
+
+
+def mode_stencil(name: str):
+  """The stencil a ``MODE_CASES`` name stands for: a corpus kernel,
+  ``multi_output``, ``conv_param`` or ``fuzz<seed>``."""
+  texts = {'multi_output': MULTI_OUTPUT, 'conv_param': CONV_PARAM}
+  if name in texts:
+    return build_stencil(texts[name])
+  if name.startswith('fuzz'):
+    return build_stencil(gen_program(int(name[4:])))
+  return build_stencil(CORPUS[name])
+
+
+def mode_inputs(stencil, name: str, shape, replicas: int):
+  """One input dict per replica of a ``MODE_CASES`` case."""
+  if name.startswith('fuzz'):
+    return [make_inputs(stencil, shape, int(name[4:]))]
+  return replica_inputs(stencil, shape, replicas)
 
 
 def repeated_mesh(device, shape):

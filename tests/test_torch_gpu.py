@@ -15,8 +15,11 @@ width, half and double); then ``cluster: coarse`` (one kernel per stage
 group), replicated batches (one launch for R grids, and one per entry
 of a mesh's first axis), the whole-grid executor, and sharded execution
 on meshes that repeat the card (the fused kernel once per halo-extended
-shard; overlap 'on' equal to 'off'). Integers bit-exact,
-floats within the reference threshold (tests/checks.py).
+shard; overlap 'on' equal to 'off'); the kernel's modes (streaming
+loop, cp.async ring, split fills, staged stores) against their plain
+version and the oracle, compiled statistics read from the card, and the
+tuner end to end. Integers bit-exact, floats within the reference
+threshold (tests/checks.py).
 """
 
 import numpy as np
@@ -32,9 +35,10 @@ from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
 from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
-                                    GEOMETRY_CASES, MULTI_OUTPUT,
+                                    GEOMETRY_CASES, MODE_CASES, MULTI_OUTPUT,
                                     check_outputs, gen_program, make_inputs,
-                                    repeated_mesh, replica_inputs)
+                                    mode_inputs, mode_stencil, repeated_mesh,
+                                    replica_inputs)
 
 
 def _need_gpu():
@@ -252,3 +256,99 @@ def test_whole_grid_constants_cross_to_the_card_once():
   args = ex.prepare(reference.make_test_inputs(stencil, shape))
   ex.fn(*args)
   assert sync_count(lambda: ex.fn(*args)) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', MODE_CASES,
+                         ids=['%s-%s-%s' % (c[0], 'x'.join(map(str, c[1])),
+                                            '-'.join('%s=%s' % kv for kv in
+                                                     sorted(c[2].items())))
+                              for c in MODE_CASES])
+def test_mode_kernel_matches_its_plain_version(case, monkeypatch):
+  """Each mode kernel on the card: one launch, equal to its plain
+  version (``streamed_stencil_plain``, run on the card) and to the
+  NumPy oracle."""
+  _need_gpu()
+  from soda_tpu_torch.backend import tile_plan
+  from soda_tpu_torch.backend.fused import streamed_stencil_plain
+  name, shape, opts, min_ctas, reps = case
+  monkeypatch.setattr(tile_plan, 'MIN_CTAS', min_ctas)
+  stencil = mode_stencil(name)
+  ex = FusedExecutor(stencil, shape, device='cuda',
+                     replicas=None if reps == 1 else reps, **opts)
+  grids = mode_inputs(stencil, name, shape, reps)
+  params = reference.make_test_params(stencil)
+  batch = (grids[0] if reps == 1 else
+           {n: np.stack([g[n] for g in grids]) for n in stencil.input_names})
+  args = ex.prepare(batch, params)
+  outs = ex.fn(*args)
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  n_in = len(stencil.input_names)
+  for r, grid in enumerate(grids):
+    pick = (lambda t: t) if reps == 1 else (lambda t, r=r: t[r])
+    got = {o: pick(v) for o, v in zip(stencil.output_names, outs)}
+    plain = streamed_stencil_plain(stencil, [pick(a) for a in args[:n_in]],
+                                   args[n_in:], tile=ex.plan)
+    check_outputs(stencil, shape, got, dict(zip(stencil.output_names, plain)),
+                  '%s %s vs plain on gpu' % (name, opts))
+    with np.errstate(all='ignore'):
+      want = reference.run(stencil, grid, params)
+    check_outputs(stencil, shape, got, want, '%s %s on gpu' % (name, opts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,cluster,opts', [
+    ('blur', None, {}),
+    ('blur', None, {'stream_loop': 'peel'}),
+    ('denoise2d', 'coarse', {'out_dma': True}),
+])
+def test_compiled_stats_reads_the_card(name, cluster, opts):
+  _need_gpu()
+  from soda_tpu_torch.backend import get_executor
+  from soda_tpu_torch.model.compiled import CARD_FIELDS, compiled_stats
+  overrides = {'cluster': cluster} if cluster else {}
+  stencil = corpus.build(name, **overrides)
+  ex = get_executor(stencil, (1024, 2048), device='cuda', **opts)
+  stats = compiled_stats(ex)
+  assert stats['card'] == torch.cuda.get_device_name(0)
+  groups = len(ex.executors) if cluster else 1
+  assert len(stats['kernels']) == groups
+  for kernel in stats['kernels']:
+    assert all(kernel[field] is not None for field in CARD_FIELDS), kernel
+    assert kernel['registers'] == kernel['registers_ptxas'] > 0
+    assert kernel['ctas_per_sm'] >= 1
+    assert kernel['smem_dynamic'] == kernel['smem_plan_bytes']
+
+
+@pytest.mark.gpu
+def test_tune_on_the_card(tmp_path, monkeypatch):
+  """tune probes every candidate on the card, caches the fastest, and a
+  second call probes nothing; tuned_executor runs the winner."""
+  _need_gpu()
+  from soda_tpu_torch.backend import tile_plan
+  from soda_tpu_torch.tools import autotune
+  monkeypatch.setattr(tile_plan, 'MIN_CTAS', 4)  # streaming candidates
+  stencil = corpus.build('blur')
+  shape = (512, 256)
+  cache = str(tmp_path / 'tune.json')
+  cands = autotune.candidate_configs(stencil, shape)
+  assert any(c.get('stream_loop') == 'peel' for c in cands)
+  cfg = autotune.tune(stencil, shape, cache_path=cache)
+  assert cfg in cands
+  (entry,) = autotune._load(cache).values()
+  assert len(entry['probes']) == len(cands)
+  assert entry['ms'] == min(entry['probes'].values())
+
+  def no_probe(*args, **kwargs):
+    raise AssertionError('a cached tune probed again')
+
+  monkeypatch.setattr(autotune, '_time_config', no_probe)
+  assert autotune.tune(stencil, shape, cache_path=cache) == cfg
+  ex = autotune.tuned_executor(stencil, shape, cache_path=cache)
+  inputs = reference.make_test_inputs(stencil, shape)
+  got = ex(inputs)
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                'blur tuned on gpu')
