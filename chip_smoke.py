@@ -8,8 +8,9 @@ front half: parser, passes, fusion plan) -> soda_tpu_torch.get_executor
 -> one generated CUDA C++ kernel per stencil. Beside it, grouped
 execution (``cluster: coarse``: one kernel per stage group), replicated
 execution (R grids in one launch), the command line, the whole-grid
-executor and sharded execution over a device mesh (the fused kernel per
-halo-extended shard). Phases, each printing one line per step with its
+executor, sharded execution over a device mesh (the fused kernel per
+halo-extended shard), the kernel's modes and layout forms and the
+tools. Phases, each printing one line per step with its
 seconds:
 
 1. device: a CUDA device is required (no CPU fallback); prints the card,
@@ -91,6 +92,20 @@ seconds:
    (jacobi3d), ``--tune``, ``--compile-stats -`` and ``--backend sharded
    --kernel-opt stream_loop=peel`` (blur), each exiting 0 with ``INFO:
    PASS!`` and at least one kernel launch.
+15. layout forms: the JAX package's 24 bench seed configurations
+   (``testing.SEED_CONFIGS``; 17 carry a layout key: value stages in
+   registers (L1), transposed lane regions (L2)), its gate's only
+   ``narrow`` row (packed 16-bit stages, L3) and chunked stage loops
+   (L4) at the benchmark shapes, through ``get_executor(..., **seed)``,
+   each counter reset just before its run and read just after: one
+   launch per call; bit for bit equal to the cell's default kernel and
+   to the form's plain version (``layout_stencil_plain``) on the card
+   (a seed without layout keys: within the threshold of its own
+   whole-grid plain version), with the largest error measured; blur
+   bit-exact against the NumPy oracle; the cold-L2 median beside
+   the default kernel's, bound and share, the plain version's time,
+   back-to-back device microseconds, and the registers, spills and CTAs
+   per SM the card reports.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
@@ -162,6 +177,7 @@ def main() -> int:
   from soda_tpu_torch.backend import build, cuda_source, grouped
   from soda_tpu_torch.backend.fused import (FusedExecutor,
                                             fused_stencil_plain,
+                                            layout_stencil_plain,
                                             replicated_stencil_plain,
                                             streamed_stencil_plain)
   from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
@@ -237,6 +253,18 @@ def main() -> int:
                                                  shape_of[name], **cfg))
                 for cfg in autotune.candidate_configs(stencils[name],
                                                       shape_of[name])]
+  # the layout forms: the JAX package's seeds and the narrow row (their
+  # stencils are the cells' but for the extra rows' overrides), and the
+  # default kernels of the extra rows' stencils
+  layout_rows = []
+  for name, shape, overrides, opts in (testing.SEED_CONFIGS +
+                                       testing.LAYOUT_EXTRA):
+    stencil = (stencils[name] if overrides == overrides_of[name] else
+               testing.build_cell(name, overrides))
+    if stencil is not stencils[name]:
+      sources.append(cuda_source.generate(make_tile_plan(stencil, shape)))
+    layout_rows.append((name, shape, stencil, opts))
+    sources.append(cuda_source.generate(kernel_plan(stencil, shape, **opts)))
   # the validation gate's kernels (phase 14 runs it; it finds them built)
   gate_stencils = {}
   for _, name, variants, opts in gpu_validate.cases(True):
@@ -794,6 +822,112 @@ def main() -> int:
   for run in tool_runs:
     if timing(run[1]):
       cli([run], tag='tools-cli')
+
+  # 15. layout forms: the JAX package's 24 seed configurations (17 carry
+  # a layout key) and its gate's narrow row, and chunked stage loops, at
+  # the benchmark shapes, each through the user's entry point
+  t15 = time.time()
+  for index, (name, shape, stencil, opts) in enumerate(layout_rows):
+    t = time.time()
+    ex = soda_tpu_torch.get_executor(stencil, shape, **opts)
+    if not isinstance(ex, FusedExecutor):
+      raise RuntimeError('%s %s: not the fused kernel' % (name, opts))
+    plan = ex.plan
+    layout = plan.layout
+    form = (layout.name if layout is not None else
+            cuda_source.mode_name(ex.config))
+    inputs = testing.make_test_inputs(stencil, shape)
+    params = testing.make_test_params(stencil)
+    ex.launches = 0
+    got = ex(inputs, params)
+    torch.cuda.synchronize()
+    count = ex.launches
+    if count != 1:
+      raise RuntimeError('%s %s: %d launches for one call' % (name, opts,
+                                                              count))
+    label = '%s %s' % (name, form)
+    check_finite(stencil, shape, got, label)
+    args = ex.prepare(inputs, params)
+    n_in = len(stencil.input_names)
+    if stencil is stencils[name]:
+      default_out, default_ms = results[name], kernel_ms[name]
+    else:
+      default_ex = FusedExecutor(stencil, shape)
+      default_out = default_ex(inputs, params)
+      default_ms = statistics.median(profiling.cuda_times_ms(
+          lambda: default_ex.fn(*args), reps=KERNEL_REPS))
+    testing.check_exact(stencil, shape, got, default_out,
+                        label + ' vs the default kernel')
+    if layout is not None:
+      plain_out = []
+      p_ms = profiling.cuda_times_ms(
+          lambda: plain_out.append(layout_stencil_plain(
+              stencil, args[:n_in], args[n_in:], tile=plan)),
+          reps=1, warmup=0)[0]
+      want = dict(zip(stencil.output_names, plain_out[0]))
+      testing.check_exact(stencil, shape, got, want,
+                          label + ' vs layout_stencil_plain')
+      err = testing.check_outputs(stencil, shape, got, want, label)
+      del plain_out, want
+    else:  # a seed without layout keys: the kernel at another tile or in
+      # a mode, held against the seed's own whole-grid plain version
+      # (walking its tiles takes minutes in contrast)
+      if stencil is stencils[name]:
+        want, p_ms = plains[name], plain_ms_of[name]
+      else:
+        want = dict(zip(stencil.output_names, fused_stencil_plain(
+            stencil, args[:n_in], args[n_in:])))
+        p_ms = statistics.median(profiling.cuda_times_ms(
+            lambda: fused_stencil_plain(stencil, args[:n_in], args[n_in:]),
+            reps=PLAIN_REPS, warmup=1))
+      err = testing.check_outputs(stencil, shape, got, want,
+                                  label + ' vs whole-grid plain')
+      del want
+    exact = ''
+    if name == FLAGSHIP:
+      check_oracle(got, label)
+      exact = ', bit-exact vs the NumPy oracle'
+    del got
+    ms = statistics.median(profiling.cuda_times_ms(lambda: ex.fn(*args),
+                                                   reps=KERNEL_REPS))
+    _, device_us = profiling.back_to_back_us(lambda: ex.fn(*args),
+                                             calls=HOST_CALLS)
+    stats = compiled_stats(ex)['kernels'][0]
+    cfg = ex.config
+    lead = [k for k, on in (('prefetch', cfg.prefetch > 2),
+                            ('dma_split', cfg.dma_split > 1),
+                            ('out_dma', cfg.out_dma),
+                            ('stream_loop', bool(cfg.stream_loop))) if on]
+    replaces = (cuda_source.LAYOUT_REPLACES[layout.form] if layout else
+                cuda_source.MODE_REPLACES[lead[0]] if lead else
+                cuda_source.REPLACES)
+    seed = ('seed %d' % (index % 2) if index < len(testing.SEED_CONFIGS)
+            else 'extra')
+    kernels.append(record('fused_stencil_layout[%s %s: %s]' % (
+        name, seed, form), 'soda_tpu_torch/backend/cuda_source.py',
+                          replaces, count, err, ms, p_ms, stencil, shape))
+    bound = kernels[-1]['bound_ms']
+    warp = plan.warp
+    say('[layout] %-12s %-7s %-40s %s tile %s, %d CTAs%s: 1 launch, '
+        '== default kernel bit for bit, == %s%s  kernel %.4f ms (default '
+        'kernel %.4f ms, %.2fx), max |err| %.3g  bound %.4f ms (%.1f%%)  '
+        'plain %.1f ms  '
+        'back to back %.1f us/call  %d registers, spills %d/%d B, %d B '
+        'local, %d CTA(s)/SM (%.1fs) | %s' % (
+            name, seed, form, json.dumps(opts, sort_keys=True), plan.tile,
+            plan.n_ctas, (', warp blocks %s, frame %s, %d cell(s) a lane, '
+                          '~%d live values' % (warp.block, warp.window,
+                                               warp.cells, warp.regs)
+                          if warp else ''),
+            'layout_stencil_plain bit for bit' if layout else
+            'whole-grid plain', exact, ms, default_ms,
+            ms / default_ms, err, bound, 100 * bound / ms, p_ms, device_us,
+            stats['registers'], stats['spill_stores'], stats['spill_loads'],
+            stats['local_bytes'], stats['ctas_per_sm'], time.time() - t,
+            smi))
+    del args
+    torch.cuda.empty_cache()
+  say('[layout] %d rows (%.1fs)' % (len(layout_rows), time.time() - t15))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

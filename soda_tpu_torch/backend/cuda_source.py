@@ -23,7 +23,11 @@ Two parts:
 
 The kernel computes what soda_tpu/backend/pallas_kernel.py
 ``PallasExecutor._build`` computes; the source names that in its first
-comment. The generated text depends only on (stencil, shape, tile): the
+comment. A mode plan's kernel (``_mode_kernel``) walks runs of tiles
+with a ``cp.async`` ring; a layout plan's kernel evaluates its stages in
+per-warp register windows (``_value_blocks``, the layout forms L1-L3,
+with ``soda_pstage_<k>`` for packed 16-bit stages) or in chunked stage
+loops (L4). The generated text depends only on (stencil, shape, tile): the
 replica count is a launch argument, so one build serves every count.
 """
 
@@ -41,10 +45,11 @@ from soda_tpu_torch.backend.c_semantics import binary_type, promote
 from soda_tpu_torch.ir import nodes as ir
 from soda_tpu_torch.ir.types import Type
 
-from soda_tpu_torch.backend.tile_plan import TilePlan, copy_width
+from soda_tpu_torch.backend.tile_plan import (WARPS, TilePlan, copy_width,
+                                               last_readers)
 
 # Threads per CTA: every stage loop strides its tile extent by this.
-THREADS = 512
+THREADS = 32 * WARPS
 # What the kernel replaces, for the source note and the run's report.
 REPLACES = 'soda_tpu/backend/pallas_kernel.py:1543'
 # The most replicas one launch takes (CUDA's limit on gridDim.y).
@@ -486,19 +491,33 @@ def _io_args(plan: TilePlan, void: bool) -> Tuple[List[str], List[str]]:
   return decls, names
 
 
-def _cell_loop(plan: TilePlan, name: str, body: List[str]) -> List[str]:
+def _cell_loop(plan: TilePlan, name: str, body: List[str],
+               chunk: Optional[int] = None) -> List[str]:
   """A CTA's threads over the cells of ``name``'s extent around the tile
-  at ``o0, o1, ...``: local ``l<a>`` and global ``g<a>`` coordinates."""
+  at ``o0, o1, ...``: local ``l<a>`` and global ``g<a>`` coordinates;
+  with ``chunk``, one axis-0 chunk of that many planes after another
+  (the layout form L4)."""
   ext = plan.extent(name)
   neg = plan.spans[name][0]
   cells = int(np.prod(ext))
-  lines = ['  for (int i = threadIdx.x; i < %d; i += %d) {' %
-           (cells, THREADS)]
+  if chunk is None:
+    lines = ['  for (int i = threadIdx.x; i < %d; i += %d) {' %
+             (cells, THREADS)]
+  else:
+    plane = cells // ext[0]
+    lines = ['  for (int z = 0; z < %d; z += %d) {  // axis-0 chunks' % (
+        ext[0], chunk),
+             '  const int i_end = (z + %d < %d ? z + %d : %d) * %d;' % (
+                 chunk, ext[0], chunk, ext[0], plane),
+             '  for (int i = z * %d + threadIdx.x; i < i_end; i += %d) {' % (
+                 plane, THREADS)]
   lines += ['    ' + s for s in _coords(ext)]
   for a in range(plan.dim):
     lines.append('    const int g%d = o%d - %d + l%d;' % (a, a, neg[a], a))
   lines += ['    ' + s for s in body]
   lines.append('  }')
+  if chunk is not None:
+    lines.append('  }')
   return lines
 
 
@@ -512,7 +531,9 @@ def _smem_ptr(plan: TilePlan, name: str, const: bool) -> str:
 def _stage_blocks(plan: TilePlan, buf, valid, store) -> List[str]:
   """Every stage's block: the CTA's threads over the stage's extent, the
   stage function where the cell is valid, the value kept in its buffer
-  and, for an output, stored; a barrier between consecutive stages.
+  and, for an output, stored; a barrier between consecutive stages
+  (under ``compute_chunk``, each loop in axis-0 chunks). A value-mode
+  plan's stages are ``_value_blocks`` instead.
 
   ``buf(name, const)`` declares a buffer's pointer, ``valid(a, lo, hi)``
   is the validity test on axis ``a``, and ``store(name, own)`` gives
@@ -523,6 +544,9 @@ def _stage_blocks(plan: TilePlan, buf, valid, store) -> List[str]:
   shape, tile = plan.shape, plan.tile
   params = ', '.join('p_%s' % s.name for s in st.param_stmts)
   outputs = set(st.output_names)
+  if plan.warp is not None:
+    return _value_blocks(plan, buf, valid, store)
+  chunk = plan.layout.compute_chunk if plan.layout is not None else None
   out = []
   for k, stage in enumerate(plan.stages):
     name = stage.name
@@ -562,10 +586,369 @@ def _stage_blocks(plan: TilePlan, buf, valid, store) -> List[str]:
     if plan.buffered(name):
       out.append('    ' + buf(name, const=False))
     out += ['    ' + d for d in decls]
-    out += ['  ' + s for s in _cell_loop(plan, name, body)]
+    out += ['  ' + s for s in _cell_loop(plan, name, body, chunk)]
     out.append('  }')
     if k + 1 < len(plan.stages):
       out.append('  __syncthreads();')
+  return out
+
+
+# the TPU code each layout form replaces (for the source note and the
+# run's report)
+LAYOUT_REPLACES = {
+    'L1': 'soda_tpu/backend/pallas_kernel.py:656',
+    'L2': 'soda_tpu/backend/pallas_kernel.py:221',
+    'L3': 'soda_tpu/backend/pallas_kernel.py:724',
+    'L4': 'soda_tpu/backend/pallas_kernel.py:1359',
+}
+
+
+def _packed_stage_function(plan: TilePlan, k: int, stage) -> str:
+  """``soda_pstage_<k>``: a narrow stage (+ & | ^ over integer loads and
+  literals, optimization.ranges.narrow16_stages) on two cells per
+  32-bit word: ``__vadd2`` adds the halves apart, so each wraps mod
+  2^16 as the 16-bit evaluation does; casts of 16 bits or more keep the
+  16-bit representation; a literal is its low 16 bits in both halves.
+  Each loader returns the pair of its parent's cells packed."""
+  lines: List[str] = []
+  deltas = _delta_fn(stage)
+  counter = [0]
+
+  def tmp(code):
+    name = 'w%d' % counter[0]
+    counter[0] += 1
+    lines.append('const uint32_t %s = %s;' % (name, code))
+    return name
+
+  def emit(node):
+    if isinstance(node, ir.Num):
+      return '0x%08xu' % ((int(node.value) & 0xffff) * 0x10001)
+    if isinstance(node, ir.Ref):
+      return tmp('ld_%s(%s)' % (node.name, ', '.join(
+          str(d) for d in deltas(node))))
+    if isinstance(node, ir.Cast):
+      return emit(node.expr)
+    if isinstance(node, (ir.Expr, ir.LogicAnd)) and len(node.operand) == 1:
+      return emit(node.operand[0])
+    if not isinstance(node, (ir.AddSub, ir.BinaryAnd, ir.BinaryOr, ir.Xor)):
+      raise utils.InternalError('not a narrow expression: %r' % node)
+    acc = emit(node.operand[0])
+    for opd, op in zip(node.operand[1:], node.operator):
+      b = emit(opd)
+      acc = tmp('soda::vadd2(%s, %s)' % (acc, b) if op == '+' else
+                '(%s %s %s)' % (acc, op, b))
+    return acc
+
+  result = emit(stage.tensor.expr)
+  parents = _stage_parents(stage)
+  tparams = ', '.join('class L_%s' % p for p in parents)
+  args = ', '.join('const L_%s& ld_%s' % (p, p) for p in parents)
+  body = ''.join('  %s\n' % line for line in lines)
+  return ('// stage %s, packed 16-bit pairs\n%sstatic __device__ '
+          '__forceinline__ uint32_t soda_pstage_%d(%s) {\n%s  return %s;\n}\n'
+          % (stage.name, 'template <%s>\n' % tparams if tparams else '', k,
+             args, body, result))
+
+
+def _unrolled(loops, body: List[str]) -> List[str]:
+  """``body`` inside nested fully unrolled loops ``(var, start, stop)``
+  (their indices are compile-time constants, so register arrays indexed
+  by them stay in registers)."""
+  out = []
+  for var, start, stop in loops:
+    out += ['#pragma unroll',
+            'for (int %s = %d; %s < %d; ++%s) {' % (var, start, var, stop, var)]
+  out += ['  ' + line for line in body]
+  out.append('}' * len(loops))
+  return out
+
+
+def _value_blocks(plan: TilePlan, buf, valid, store) -> List[str]:
+  """The stages of a value-mode plan (layout forms L1-L3, tile_plan
+  ``WarpPlan``): each warp takes the tile's warp blocks in turn; per
+  block it loads each input's frame rows from the input window in
+  shared memory into registers (0 outside the window), evaluates every
+  stage in registers (no barrier between stages) and stores each
+  output's block cells that lie in the tile. ``buf``, ``valid`` and
+  ``store`` as ``_stage_blocks``'s.
+
+  A tensor's registers are ``r_<name>[rows...][cells]`` (``cells`` =
+  C a lane; a narrow stage ``uint32_t [rows...][C / 2]``; a transposed
+  region's stage ``t_<name>[width][lane_rows]``, frame columns by
+  register and frame rows by lane). Non-minor taps index rows (roll:
+  wrapped over the frame); minor taps rotate lanes (``soda::lane_get``)
+  or, under ``lane_shift='slice'``, read the parent's rows staged in
+  the warp's scratch after ``__syncwarp()``. Transposed regions enter
+  and leave through a padded (+1 column) tile in the same scratch."""
+  st = plan.stencil
+  dim = plan.dim
+  warp, layout = plan.warp, plan.layout
+  C, W, word = warp.cells, warp.width, warp.word
+  neg, block, window = warp.frame_neg, warp.block, warp.window
+  grid = warp.grid(plan.tile)
+  lane_rows = warp.lane_rows
+  pad = warp.pad
+  xw = W + 2 * pad
+  params = ', '.join('p_%s' % s.name for s in st.param_stmts)
+  readers = last_readers(plan.stages)
+  outputs = set(st.output_names)
+  rows = warp.rows
+  members = layout.transposed
+  narrow = layout.narrow16
+  ivars = ['i%d' % a for a in range(dim - 1)]
+
+  def ctype_of(name):
+    return storage_ctype(plan.dtype(name))
+
+  def counts(name):
+    return [c for _, c in rows[name]]
+
+  def decl(name):
+    if name in narrow:
+      return 'uint32_t r_%s%s[%d];' % (name, ''.join(
+          '[%d]' % c for c in counts(name)), C // 2)
+    return '%s r_%s%s[%d];' % (ctype_of(name), name, ''.join(
+        '[%d]' % c for c in counts(name)), C)
+
+  def row_loops(name, c_stop):
+    return [(v, 0, n) for v, n in zip(ivars, counts(name))] + [
+        ('c', 0, c_stop)]
+
+  def flat_row(name, index):
+    flat = index[0]
+    for a in range(1, dim - 1):
+      flat = '(%s) * %d + (%s)' % (flat, counts(name)[a], index[a])
+    return flat
+
+  def parent_rows(s_name, p_name):
+    """Row index of ``p_name``'s registers read by ``s_name``'s cell at
+    rows ``i<a>`` with deltas ``d<a>``."""
+    out = []
+    for a in range(dim - 1):
+      if layout.roll:
+        out.append('soda::wrap_index<%d>(i%d + d%d)' % (window[a], a, a))
+      else:
+        k = rows[s_name][a][0] - rows[p_name][a][0]
+        out.append('i%d + d%d + %d' % (a, a, k) if k else
+                   'i%d + d%d' % (a, a))
+    return out
+
+  lines: List[str] = []
+  decls: List[str] = []
+  for name in sorted(outputs):
+    if name in {s.name for s in plan.stages}:
+      decls += store(name, 'true')[0]
+  made = set()  # tensors whose registers (cells layout) exist
+  entered = set()  # tensors transposed in
+  first_reader = {}
+  for idx, stage in enumerate(plan.stages):
+    for p in stage.load_offsets:
+      first_reader.setdefault(p, idx)
+
+  def load_input(name):
+    ext = plan.extent(name)
+    pneg = plan.spans[name][0]
+    t = ctype_of(name)
+    body = []
+    conds = []
+    for a in range(dim - 1):
+      k = -neg[a] + pneg[a] + rows[name][a][0]
+      body.append('const int y%d = w%d + i%d + %d;' % (a, a, a, k))
+      conds.append('y%d >= 0 && y%d < %d' % (a, a, ext[a]))
+    last = dim - 1
+    body.append('const int y%d = w%d + lane * %d + c + %d;' % (
+        last, last, C, -neg[last] + pneg[last]))
+    conds.append('y%d >= 0 && y%d < %d' % (last, last, ext[last]))
+    flat = 'y0'
+    for a in range(1, dim):
+      flat = '(%s) * %d + y%d' % (flat, ext[a], a)
+    body.append('r_%s%s[c] = (%s) ? s_%s[%s] : (%s)0;' % (
+        name, ''.join('[i%d]' % a for a in range(dim - 1)),
+        ' && '.join(conds), name, flat, t))
+    lines.extend(['// input %s: frame rows %s' % (name, rows[name]),
+                  decl(name)] + _unrolled(row_loops(name, C), body))
+    made.add(name)
+
+  def cell_of(name, index, j):
+    """Code of cell j (this lane's block, no shuffle) of ``name``."""
+    r = 'r_%s%s' % (name, ''.join('[%s]' % i for i in index))
+    if name in narrow:
+      return 'soda::pcell_get<%d, %s>(%s, %s)' % (C, ctype_of(name), r, j)
+    return '%s[%s]' % (r, j)
+
+  def exchange(stage):
+    """slice: stage the parents ``stage`` reads across lanes in the
+    warp's scratch; returns parent -> word offset."""
+    offs = {}
+    at = 0
+    body = []
+    for p in sorted(stage.load_offsets):
+      if p in st.param_names or not any(
+          off[0] for off in stage.load_offsets[p]):
+        continue
+      offs[p] = at
+      index = ivars
+      body += _unrolled(row_loops(p, C), [
+          'soda::xput<%d>(x_buf, %d + (%s) * %d + %d + lane * %d + c, %s);' %
+          (word, at, flat_row(p, index), xw, pad, C,
+           cell_of(p, index, 'c'))])
+      at += int(np.prod(counts(p))) * xw
+    if offs:
+      lines.extend(['__syncwarp();  // the scratch is free'] + body +
+                   ['__syncwarp();  // and staged'])
+    return offs
+
+  def transpose_in(p):
+    """A region's entry: ``p``'s cells -> ``t_<p>``."""
+    start = rows[p][0][0]
+    t = ctype_of(p)
+    lines.extend(['// %s transposed in' % p, '__syncwarp();'] + _unrolled(
+        row_loops(p, C), ['soda::xput<%d>(x_buf, (i0 + %d) * %d + lane * %d '
+                          '+ c, %s);' % (word, start, W + 1, C,
+                                         cell_of(p, ['i0'], 'c'))]) +
+                 ['__syncwarp();', '%s t_%s[%d][%d];' % (t, p, W, lane_rows)]
+                 + _unrolled([('j', 0, W), ('c', 0, lane_rows)], [
+                     't_%s[j][c] = soda::xget<%d, %s>(x_buf, (lane * %d + c) '
+                     '* %d + j);' % (p, word, t, lane_rows, W + 1)]))
+    entered.add(p)
+
+  def transpose_out(name):
+    """A region's exit: ``t_<name>`` -> its cells ``r_<name>``."""
+    start = rows[name][0][0]
+    t = ctype_of(name)
+    lines.extend(['// %s transposed out' % name, '__syncwarp();'] +
+                 _unrolled([('j', 0, W), ('c', 0, lane_rows)], [
+                     'soda::xput<%d>(x_buf, (lane * %d + c) * %d + j, '
+                     't_%s[j][c]);' % (word, lane_rows, W + 1, name)]) +
+                 ['__syncwarp();', decl(name)] + _unrolled(
+                     row_loops(name, C), [
+                         'r_%s[i0][c] = soda::xget<%d, %s>(x_buf, (i0 + %d) '
+                         '* %d + lane * %d + c);' % (name, word, t, start,
+                                                     W + 1, C)]))
+    made.add(name)
+
+  for k, stage in enumerate(plan.stages):
+    name = stage.name
+    parents = [p for p in _stage_parents(stage) if p not in st.param_names]
+    for p in parents:
+      if p in st.input_names and p not in made:
+        load_input(p)
+    member = name in members
+    loaders = []
+    if member:
+      for p in parents:
+        if p not in members and p not in entered:
+          transpose_in(p)
+      body = []
+      for p in parents:
+        body.append('auto ld_%s = [&](int, int d1) -> %s { return t_%s['
+                    'soda::wrap_index<%d>(j + d1)][c]; };' % (
+                        p, ctype_of(p), p, W))
+      call = ', '.join(['ld_%s' % p for p in parents] +
+                       ([params] if params else []))
+      body.append('t_%s[j][c] = soda_stage_%d(%s);' % (name, k, call))
+      lines.extend(['// stage %s (transposed region)' % name,
+                    '%s t_%s[%d][%d];' % (ctype_of(name), name, W,
+                                         lane_rows)] +
+                   _unrolled([('j', 0, W), ('c', 0, lane_rows)], body))
+      if name in outputs or any(
+          name in s.load_offsets and s.name not in members
+          for s in plan.stages):
+        transpose_out(name)
+      continue
+    offs = {} if layout.rotate else exchange(stage)
+    packed = name in narrow
+    args = ', '.join('int d%d' % a for a in range(dim))
+    body = []
+    for p in parents:
+      index = parent_rows(name, p)
+      r = 'r_%s%s' % (p, ''.join('[%s]' % i for i in index))
+      j = '2 * c + d%d' % (dim - 1) if packed else 'c + d%d' % (dim - 1)
+      if p in offs:
+        at = '%d + (%s) * %d + %d + lane * %d + ' % (
+            offs[p], flat_row(p, index), xw, pad, C)
+        if packed:
+          code = ('soda::pack2((uint32_t)soda::xget<%d, %s>(x_buf, %s%s), '
+                  '(uint32_t)soda::xget<%d, %s>(x_buf, %s%s + 1))' % (
+                      word, ctype_of(p), at, j, word, ctype_of(p), at, j))
+        else:
+          code = 'soda::xget<%d, %s>(x_buf, %s%s)' % (word, ctype_of(p), at,
+                                                       j)
+      elif packed:
+        code = ('soda::ppair_get<%d>(%s, %s)' if p in narrow else
+                'soda::pair_get<%d>(%s, %s)') % (C, r, j)
+      elif p in narrow:
+        code = 'soda::pcell_get<%d, %s>(%s, %s)' % (C, ctype_of(p), r, j)
+      else:
+        code = 'soda::lane_get<%d>(%s, %s)' % (C, r, j)
+      body.append('auto ld_%s = [&](%s) -> %s { return %s; };' % (
+          p, args, 'uint32_t' if packed else ctype_of(p), code))
+    if packed:
+      call = ', '.join('ld_%s' % p for p in parents)
+      fn = 'soda_pstage_%d' % k
+    else:
+      call = ', '.join(['ld_%s' % p for p in parents] +
+                       ([params] if params else []))
+      fn = 'soda_stage_%d' % k
+    body.append('r_%s%s[c] = %s(%s);' % (
+        name, ''.join('[i%d]' % a for a in range(dim - 1)), fn, call))
+    lines.extend(['// stage %s: rows %s%s' % (name, rows[name],
+                                              ', packed' if packed else ''),
+                  decl(name)] + _unrolled(row_loops(name, C // 2 if packed
+                                                    else C), body))
+    made.add(name)
+
+  # stores: each output's block cells
+  for name in st.output_names:
+    if name not in made:
+      continue
+    lo, hi = plan.margins[name]
+    oneg = plan.spans[name][0]
+    own = ' && '.join('l%d >= %d && l%d < %d' % (
+        a, oneg[a], a, oneg[a] + plan.tile[a]) for a in range(dim))
+    body = []
+    for a in range(dim - 1):
+      body.append('const int t%d = w%d + i%d + %d;' % (
+          a, a, a, rows[name][a][0] - neg[a]))
+    last = dim - 1
+    body.append('const int j = lane * %d + c;' % C)
+    body.append('const int t%d = w%d + j - %d;' % (last, last, neg[last]))
+    for a in range(dim):
+      body.append('const int l%d = t%d + %d;' % (a, a, oneg[a]))
+      body.append('const int g%d = o%d + t%d;' % (a, a, a))
+    body.append('const bool ok = %s;' % ' && '.join(
+        valid(a, lo[a], plan.shape[a] - hi[a]) for a in range(dim)))
+    body.append('const %s v = %s;' % (ctype_of(name), cell_of(name, ivars,
+                                                              'c')))
+    body.append('if (j >= %d && j < %d) {' % (neg[last], neg[last] +
+                                              block[last]))
+    body += ['  ' + line for line in store(name, own)[1]]
+    body.append('}')
+    loops = [(v, neg[a] - rows[name][a][0], neg[a] - rows[name][a][0] +
+              block[a]) for a, v in enumerate(ivars)] + [('c', 0, C)]
+    lines.extend(['// store %s' % name] + _unrolled(loops, body))
+
+  out = ['  {  // %s: warp blocks of %s outputs, frame %s, %d cell(s) a '
+         'lane' % (layout.name, block, window, C)]
+  for name in st.input_names:
+    if plan.buffered(name):
+      out.append('    ' + buf(name, const=True))
+  out += ['    ' + d for d in decls]
+  out.append('    const int lane = threadIdx.x & 31;')
+  if warp.scratch:
+    out.append('    unsigned char* x_buf = soda_smem + %d + (threadIdx.x >> 5)'
+               ' * %d;' % (warp.scratch_offset, warp.scratch))
+  out += ['    #pragma unroll 1',
+          '    for (int wb = threadIdx.x >> 5; wb < %d; wb += %d) {' % (
+              warp.n_blocks(plan.tile), WARPS),
+          '      int q = wb;']
+  for a in range(dim - 1, 0, -1):
+    out.append('      const int w%d = (q %% %d) * %d;' % (a, grid[a],
+                                                         block[a]))
+    out.append('      q /= %d;' % grid[a])
+  out.append('      const int w0 = q * %d;' % block[0])
+  out += ['      ' + line for line in lines]
+  out += ['    }', '  }']
   return out
 
 
@@ -963,8 +1346,9 @@ def _host_loop(plan: TilePlan) -> str:
   bases = {name: 'g_%s' % name for name in st.input_names}
   params = ', '.join('p_%s' % s.name for s in st.param_stmts)
   outputs = set(st.output_names)
+  readers = last_readers(plan.stages)
   for stage in plan.stages:
-    if plan.buffered(stage.name):
+    if stage.name in readers:
       out.append('  std::vector<%s> h_%s(%d);' % (
           storage_ctype(stage.dtype), stage.name, cells))
       bases[stage.name] = 'h_%s.data()' % stage.name
@@ -992,7 +1376,7 @@ def _host_loop(plan: TilePlan) -> str:
     out.append('%sconst %s v = soda_stage_%d(%s);' % (
         indent, storage_ctype(stage.dtype), k, call_args))
     flat = _flat(gvars, strides)
-    if plan.buffered(name):
+    if name in readers:
       out.append('%sh_%s[%s] = v;' % (indent, name, flat))
     if name in outputs:
       out.append('%so_%s[%s] = v;' % (indent, name, flat))
@@ -1094,6 +1478,8 @@ def _mode_note(plan: TilePlan) -> str:
       '// nothing. %d bytes of shared memory per CTA, %d window slot(s) per' % (
           plan.smem_bytes, plan.slots),
       '// input.']
+  if plan.layout is not None:
+    lines += _layout_note(plan)
   return '\n'.join(lines)
 
 
@@ -1121,14 +1507,71 @@ def mode_name(config) -> str:
   return '+'.join(parts) or 'default'
 
 
+def _layout_note(plan: TilePlan) -> List[str]:
+  """Source note lines of a layout form (plan.layout)."""
+  layout = plan.layout
+  lines = ['// Layout form %s (%s), the H100 form of the TPU kernel\'s '
+           'layout keys' % (layout.form, layout.name),
+           '// (%s):' % LAYOUT_REPLACES[layout.form]]
+  if layout.compute_chunk is not None:
+    return lines + [
+        '// compute_chunk=%d: every stage buffer in shared memory as in the'
+        % layout.compute_chunk,
+        '// default kernel, each stage loop walking the tile in axis-0 chunks',
+        '// of %d planes.' % layout.compute_chunk]
+  warp = plan.warp
+  lines += [
+      '// stage_mode=\'value\': each of the %d warps takes warp blocks of %s'
+      % (WARPS, warp.block,),
+      '// outputs in turn and evaluates every stage over a frame of %s cells' %
+      (warp.window,),
+      '// in registers (%d cell(s) a lane), with no barrier between stages;' %
+      warp.cells,
+      '// an axis-0 tap is a register index, a minor-axis tap %s.' % (
+          'a lane rotate (__shfl_sync)' if layout.rotate else
+          'a read of the parent\'s rows staged in a per-warp shared-memory '
+          'row after __syncwarp()'),
+      '// shift_mode=\'%s\': %s' % (layout.shift_mode,
+                                    'each stage over the whole frame, with '
+                                    'wrap-around' if layout.roll else
+                                    'each stage over its own span'),
+      '// (the wrapped cells feed no stored output). About %d live register'
+      % warp.regs,
+      '// values a thread (the plan\'s estimate).']
+  if layout.transposed:
+    lines += ['// transpose_lanes: stages %s hold their values transposed'
+              % ', '.join(sorted(layout.transposed)),
+              '// (frame columns by register), so their minor-axis taps are '
+              'register',
+              '// indices; entries and exits pass a padded shared-memory '
+              'transpose.']
+  if layout.narrow16:
+    lines += ['// narrow: stages %s run on two cells per 32-bit word'
+              % ', '.join(sorted(layout.narrow16)),
+              '// (__vadd2, & | ^; odd offsets realigned by __byte_perm).']
+  return lines
+
+
 def generate(plan: TilePlan) -> KernelSource:
   """CUDA C++ source of the fused kernel for ``plan`` (a mode plan's
-  kernel where ``plan.config`` sets a mode)."""
+  kernel where ``plan.config`` sets a mode, a layout form where it sets
+  a layout)."""
   funcs = [_stage_function(plan, k, stage)
            for k, stage in enumerate(plan.stages)]
-  default = plan.config.is_default
+  config = plan.config
+  if config.is_default:
+    note = _note(plan)
+  elif config.one_tile:
+    note = '\n'.join(_note(plan).split('\n')[:4] + _layout_note(plan))
+  else:
+    note = _mode_note(plan)
+  packed = []
+  if plan.layout is not None:
+    packed = [_packed_stage_function(plan, k, stage)
+              for k, stage in enumerate(plan.stages)
+              if stage.name in plan.layout.narrow16]
   text = '\n'.join([
-      _note(plan) if default else _mode_note(plan),
+      note,
       '#include "soda_stencil.cuh"',
       '',
       '#ifdef __CUDACC__',
@@ -1140,7 +1583,8 @@ def generate(plan: TilePlan) -> KernelSource:
       '',
       '\n'.join(funcs),
       '#ifdef __CUDACC__',
-      _kernel(plan) if default else _mode_kernel(plan),
+      ''.join(p + '\n' for p in packed) +
+      (_kernel(plan) if config.one_tile else _mode_kernel(plan)),
       '',
       _launcher(plan),
       '#else',

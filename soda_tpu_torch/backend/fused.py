@@ -10,8 +10,11 @@ each output's valid region (cells outside it are unspecified),
 the kernel's tiles (or, with ``tile=None``, treats the whole grid as one
 tile), evaluates each stage with the torch Evaluator over shifted
 slices in the kernel's stage order, and stores the same valid regions.
-``FusedExecutor`` takes it only for tensors on the CPU; on a CUDA
-device it launches the kernel or raises.
+``streamed_stencil_plain`` is the mode kernels' (the streaming walk),
+``layout_stencil_plain`` the layout forms' (warp windows, rolls,
+transposes, narrow stages, chunks). ``FusedExecutor`` takes them only
+for tensors on the CPU; on a CUDA device it launches the kernel or
+raises.
 
 With ``replicas=R`` the executor runs R independent grids per call,
 stacked on a leading axis, in one launch (the kernel's second grid
@@ -21,7 +24,7 @@ Params are shared by all replicas.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +79,19 @@ def _window(plan: TilePlan, name: str, origin: Sequence[int],
   return buf
 
 
+def _chunks(box: Tuple[slice, ...], chunk: Optional[int]
+            ) -> List[Tuple[slice, ...]]:
+  """``box`` cut on axis 0 at the multiples of ``chunk`` (the layout
+  form L4's stage loops), or ``[box]``."""
+  if chunk is None:
+    return [box]
+  out = []
+  for z in range(box[0].start - box[0].start % chunk, box[0].stop, chunk):
+    rows = slice(max(z, box[0].start), min(z + chunk, box[0].stop))
+    out.append((rows,) + tuple(box[1:]))
+  return out
+
+
 def _run_tile(plan: TilePlan, origin: Sequence[int],
               inputs: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
               outs: Dict[str, torch.Tensor], readers: Dict[str, int],
@@ -83,7 +99,9 @@ def _run_tile(plan: TilePlan, origin: Sequence[int],
               windows: Optional[Dict[str, torch.Tensor]] = None) -> None:
   """Evaluate every stage over the tile at ``origin`` and store its
   outputs; input windows are loaded here unless ``windows`` gives
-  them."""
+  them. Under ``compute_chunk`` each stage is evaluated chunk by
+  chunk, as the kernel's stage loops walk it."""
+  chunk = plan.layout.compute_chunk if plan.layout is not None else None
   stencil = plan.stencil
   dim = plan.dim
 
@@ -100,10 +118,10 @@ def _run_tile(plan: TilePlan, origin: Sequence[int],
     value = torch.zeros(plan.extent(name),
                         dtype=semantics.repr_dtype(stage.dtype),
                         device=device)
-    if box is not None:
+    for part in (_chunks(box, chunk) if box is not None else ()):
       st_idx = stage.tensor.st_idx
 
-      def load(ref: ir.Ref, _box=box, _neg=neg, _st=st_idx):
+      def load(ref: ir.Ref, _box=part, _neg=neg, _st=st_idx):
         if ref.name in stencil.param_names:
           return params[ref.name][tuple(ref.idx)]
         pneg = plan.spans[ref.name][0]
@@ -119,7 +137,7 @@ def _run_tile(plan: TilePlan, origin: Sequence[int],
       ev = semantics.Evaluator(load, param=param, device=device)
       v, vt = ev.eval_stmt(stage.tensor)
       v = semantics.wrap(v, stage.dtype, vt, device)
-      value[box] = v
+      value[part] = v
     if name in readers:
       bufs[name] = value
     if name in outs and box is not None:
@@ -188,36 +206,20 @@ def _check_steady(plan: TilePlan, origin: Sequence[int]) -> None:
                                 % (origin, stage.name))
 
 
-def streamed_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
-                           params: Sequence[torch.Tensor] = (),
-                           tile: Optional[TilePlan] = None
-                           ) -> Tuple[torch.Tensor, ...]:
-  """The mode kernels' function in plain PyTorch, walked as they walk
-  it: per CTA (a tile column on the axes after the first, and a run of
-  ``tile.steps`` consecutive axis-0 tiles), one input window per input
-  kept from step to step. With ``tile.rolling`` a run's first step
+def _stream_walk(plan: TilePlan, ins: Dict[str, torch.Tensor],
+                 device: torch.device
+                 ) -> Iterator[Tuple[Tuple[int, ...], Dict[str, torch.Tensor]]]:
+  """(origin, input windows) of every step of the mode kernels' walk:
+  per CTA (a tile column on the axes after the first, and a run of
+  ``plan.steps`` consecutive axis-0 tiles), one input window per input
+  kept from step to step. With ``plan.rolling`` a run's first step
   loads the whole window ('full') and every later step keeps the
   ``halo0`` rows it shares with the previous window and loads only the
   ``tile[0]`` new rows ('mid', or 'tail' where they run past the
   array's end: TilePlan.fill_class). Under 'peel' the steps the kernel
-  runs without axis-0 bounds checks are checked here to need none.
-
-  Args and result as fused_stencil_plain's; ``tile`` is a mode plan
-  (make_tile_plan with a KernelConfig).
-  """
-  plan = tile
-  if plan is None:
-    raise ValueError('streamed_stencil_plain walks a tile plan; pass one')
-  shape = plan.shape
-  device = inputs[0].device
-  ins = {name: semantics.to_repr(t, stencil.symbol_table[name])
-         for name, t in zip(stencil.input_names, inputs)}
-  pars = {stmt.name: semantics.to_repr(t, stmt.dtype)
-          for stmt, t in zip(stencil.param_stmts, params)}
-  outs = {name: torch.zeros(shape, device=device, dtype=semantics.repr_dtype(
-      stencil.symbol_table[name])) for name in stencil.output_names}
+  runs without axis-0 bounds checks are checked here to need none."""
   readers = last_readers(plan.stages)
-  buffered = [n for n in stencil.input_names if n in readers]
+  buffered = [n for n in plan.stencil.input_names if n in readers]
   t0 = plan.tile[0]
   k_lo, k_hi = plan.steady
   for column in np.ndindex(*plan.grid[1:]):
@@ -238,9 +240,309 @@ def streamed_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
           windows[name] = torch.cat([windows[name][t0:t0 + halo], new])
         if plan.peel and first < k < last - 1 and k_lo <= k <= k_hi:
           _check_steady(plan, origin)
-        _run_tile(plan, origin, ins, pars, outs, readers, device, windows)
+        yield origin, windows
+
+
+def _repr_args(stencil, inputs, params):
+  ins = {name: semantics.to_repr(t, stencil.symbol_table[name])
+         for name, t in zip(stencil.input_names, inputs)}
+  pars = {stmt.name: semantics.to_repr(t, stmt.dtype)
+          for stmt, t in zip(stencil.param_stmts, params)}
+  return ins, pars
+
+
+def _zero_outputs(stencil, shape, device) -> Dict[str, torch.Tensor]:
+  return {name: torch.zeros(shape, device=device, dtype=semantics.repr_dtype(
+      stencil.symbol_table[name])) for name in stencil.output_names}
+
+
+def streamed_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
+                           params: Sequence[torch.Tensor] = (),
+                           tile: Optional[TilePlan] = None
+                           ) -> Tuple[torch.Tensor, ...]:
+  """The mode kernels' function in plain PyTorch, walked as they walk
+  it (``_stream_walk``: runs of axis-0 tiles per CTA, rolling windows,
+  the steady steps checked).
+
+  Args and result as fused_stencil_plain's; ``tile`` is a mode plan
+  (make_tile_plan with a KernelConfig).
+  """
+  plan = tile
+  if plan is None:
+    raise ValueError('streamed_stencil_plain walks a tile plan; pass one')
+  device = inputs[0].device
+  ins, pars = _repr_args(stencil, inputs, params)
+  outs = _zero_outputs(stencil, plan.shape, device)
+  readers = last_readers(plan.stages)
+  for origin, windows in _stream_walk(plan, ins, device):
+    _run_tile(plan, origin, ins, pars, outs, readers, device, windows)
   return tuple(semantics.to_storage(outs[n], stencil.symbol_table[n])
                for n in stencil.output_names)
+
+
+# warp-window cells a batch of the value forms' plain version holds per
+# tensor (bounds its memory at the benchmark shapes)
+_BATCH_CELLS = 1 << 24
+
+
+def _tile_windows(plan: TilePlan, ins: Dict[str, torch.Tensor],
+                  device: torch.device
+                  ) -> Iterator[Tuple[Tuple[int, ...], Dict[str, torch.Tensor]]]:
+  """(origin, input windows) of every tile as the kernel fills it: the
+  mode kernels' walk under ``stream_loop``, else one window per tile."""
+  if plan.config.stream_loop:
+    for origin, windows in _stream_walk(plan, ins, device):
+      yield origin, dict(windows)
+    return
+  readers = last_readers(plan.stages)
+  for index in np.ndindex(*plan.grid):
+    origin = tuple(int(i) * t for i, t in zip(index, plan.tile))
+    yield origin, {name: _window(plan, name, origin, ins, device)
+                   for name in plan.stencil.input_names if name in readers}
+
+
+def _frame_index(plan: TilePlan, name: str, device: torch.device):
+  """Per axis, the local index into ``name``'s tile window of each warp
+  block's register cells (blocks x cells), and whether it lies inside
+  the window (the kernel loads 0 elsewhere)."""
+  warp = plan.warp
+  ext = plan.extent(name)
+  neg = plan.spans[name][0]
+  out = []
+  for a in range(plan.dim):
+    blocks = torch.arange(warp.grid(plan.tile)[a], device=device)
+    if a < plan.dim - 1:
+      start, count = warp.rows[name][a]
+    else:
+      start, count = 0, warp.width
+    cells = torch.arange(start, start + count, device=device)
+    idx = (blocks[:, None] * warp.block[a] - warp.frame_neg[a] + neg[a] +
+           cells[None, :])
+    out.append((idx.clamp(0, ext[a] - 1), (idx >= 0) & (idx < ext[a])))
+  return out
+
+
+def _gather_blocks(plan: TilePlan, name: str, windows: torch.Tensor):
+  """Stacked tile windows ``[T, *ext]`` -> the warp blocks' register
+  windows ``[T * blocks, *rows, width]`` (zero outside the window)."""
+  dim = plan.dim
+  index = _frame_index(plan, name, windows.device)
+  idx, ok = [], None
+  for a, (ia, va) in enumerate(index):
+    shape = [1] * (2 * dim)
+    shape[2 * a], shape[2 * a + 1] = ia.shape
+    idx.append(ia.reshape(shape))
+    va = va.reshape(shape)
+    ok = va if ok is None else ok & va
+  got = windows[(slice(None),) + tuple(idx)]
+  got = got * ok.to(got.dtype)
+  # [T, G0, R0, G1, R1, ...] -> [T, G0, G1, ..., R0, R1, ...]
+  perm = [0] + [1 + 2 * a for a in range(dim)] + [2 + 2 * a
+                                                  for a in range(dim)]
+  got = got.permute(perm)
+  return got.reshape((-1,) + tuple(got.shape[1 + dim:]))
+
+
+def _shift(value: torch.Tensor, axis: int, delta: int, wrap: bool):
+  """value[.., i, ..] = src[.., i + delta, ..] along ``axis``: a roll
+  (wrap-around) or a slice with zeros past the end."""
+  if delta == 0:
+    return value
+  if wrap:
+    return torch.roll(value, -delta, dims=axis)
+  out = torch.zeros_like(value)
+  n = value.shape[axis]
+  if abs(delta) < n:
+    src = value.narrow(axis, max(delta, 0), n - abs(delta))
+    out.narrow(axis, max(-delta, 0), n - abs(delta)).copy_(src)
+  return out
+
+
+def _warp_stages(plan: TilePlan, nb: int, blocks: Dict[str, torch.Tensor],
+                 pars: Dict[str, torch.Tensor], device: torch.device
+                 ) -> Dict[str, torch.Tensor]:
+  """Every stage over a batch of warp windows, as the value form
+  evaluates it: a tensor's registers are ``[blocks, *rows, width]``
+  (rows per ``warp.rows``); an axis-0 (or axis-1) tap is a slice of the
+  parent's rows (window) or a roll of the full frame (roll); a minor
+  tap a roll of the width (rotate) or a slice with the frame's far side
+  past its end (slice). A transposed region's stages hold
+  ``[blocks, width, 32 x lane_rows]`` (entries transposed in, members'
+  minor taps rolls of the register axis, exits transposed back); narrow
+  stages are evaluated at 16-bit width. ``nb`` is the batch's number of
+  warp windows. Returns the outputs' blocks."""
+  stencil, warp, layout = plan.stencil, plan.warp, plan.layout
+  dim = plan.dim
+  readers = last_readers(plan.stages)
+  cells: Dict[str, torch.Tensor] = dict(blocks)  # cells layout
+  trans: Dict[str, torch.Tensor] = {}  # transposed layout
+  lane_rows = 32 * warp.lane_rows if layout.transposed else 0
+
+  def transpose_in(name):
+    if name not in trans:
+      start, count = warp.rows[name][0]
+      value = cells[name]
+      frame = torch.zeros((value.shape[0], lane_rows, value.shape[-1]),
+                          dtype=value.dtype, device=device)
+      frame[:, start:start + count] = value
+      trans[name] = frame.transpose(1, 2)
+    return trans[name]
+
+  for idx, stage in enumerate(plan.stages):
+    name = stage.name
+    st_idx = stage.tensor.st_idx
+    member = name in layout.transposed
+
+    def load(ref: ir.Ref, _name=name, _st=st_idx, _member=member):
+      if ref.name in stencil.param_names:
+        return pars[ref.name][tuple(ref.idx)]
+      delta = tuple(reversed([i - s for i, s in zip(ref.idx, _st)]))
+      if _member:
+        return _shift(transpose_in(ref.name), 1, delta[-1], True)
+      value = cells[ref.name]
+      for a in range(dim - 1):
+        if layout.roll:
+          value = _shift(value, 1 + a, delta[a], True)
+        else:
+          k = delta[a] + warp.rows[_name][a][0] - warp.rows[ref.name][a][0]
+          value = value.narrow(1 + a, k, warp.rows[_name][a][1])
+      return _shift(value, dim, delta[-1], layout.rotate)
+
+    def param(pname, pidx):
+      return pars[pname][pidx]
+
+    ev = semantics.Evaluator(load, param=param, device=device,
+                             narrow=name in layout.narrow16)
+    v, vt = ev.eval_stmt(stage.tensor)
+    v = semantics.wrap(v, stage.dtype, vt, device)
+    if v.dim() == 0:  # a constant stage: the same value in every cell
+      shape = ((nb, warp.width, lane_rows) if member else
+               (nb,) + tuple(c for _, c in warp.rows[name]) + (warp.width,))
+      v = v.expand(shape).clone()
+    if member:
+      trans[name] = v
+      start, count = warp.rows[name][0]
+      cells[name] = v.transpose(1, 2)[:, start:start + count].contiguous()
+    else:
+      cells[name] = v
+    for parent in stage.load_offsets:
+      if readers.get(parent) == idx and parent not in stencil.output_names:
+        cells.pop(parent, None)
+        trans.pop(parent, None)
+  return {n: cells[n] for n in stencil.output_names}
+
+
+def _store_blocks(plan: TilePlan, origins: Sequence[Tuple[int, ...]],
+                  values: Dict[str, torch.Tensor],
+                  outs: Dict[str, torch.Tensor]) -> None:
+  """Each warp block's own cells of every output, clipped to the tile,
+  the array and the output's valid region, into ``outs``."""
+  warp = plan.warp
+  dim = plan.dim
+  device = next(iter(outs.values())).device
+  grid = warp.grid(plan.tile)
+  for name, value in values.items():
+    lo, hi = plan.margins[name]
+    sel = [slice(None)]
+    for a in range(dim - 1):
+      start = warp.frame_neg[a] - warp.rows[name][a][0]
+      sel.append(slice(start, start + warp.block[a]))
+    sel.append(slice(warp.frame_neg[-1], warp.frame_neg[-1] + warp.block[-1]))
+    own = value[tuple(sel)].reshape((len(origins),) + tuple(grid) +
+                                    tuple(warp.block))
+    coords, ok = [], None
+    for a in range(dim):
+      tile_local = (torch.arange(grid[a], device=device)[:, None] *
+                    warp.block[a] +
+                    torch.arange(warp.block[a], device=device)[None, :])
+      origin = torch.tensor([o[a] for o in origins], device=device)
+      g = origin[:, None, None] + tile_local[None]
+      good = (tile_local[None] < plan.tile[a]) & (g >= lo[a]) & \
+          (g < plan.shape[a] - hi[a])
+      shape = [len(origins)] + [1] * (2 * dim)
+      shape[1 + a], shape[1 + dim + a] = grid[a], warp.block[a]
+      coords.append(g.reshape(shape))
+      good = good.reshape(shape)
+      ok = good if ok is None else ok & good
+    flat = coords[0]
+    for a in range(1, dim):
+      flat = flat * plan.shape[a] + coords[a]
+    flat = flat.expand(own.shape)
+    ok = ok.expand(own.shape)
+    outs[name].view(-1)[flat[ok]] = own[ok].to(outs[name].dtype)
+
+
+def layout_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
+                         params: Sequence[torch.Tensor] = (),
+                         tile: Optional[TilePlan] = None
+                         ) -> Tuple[torch.Tensor, ...]:
+  """The layout forms' function in plain PyTorch, walked as they are.
+
+  Value forms (L1-L3, ``tile.warp``): every tile's input windows (the
+  mode kernels' walk under ``stream_loop``), cut into the warp blocks'
+  register windows, every stage evaluated per window as the kernel
+  does (``_warp_stages``: rolls under roll, transposed regions through
+  ``.transpose``, narrow stages at 16-bit width), each block's own
+  cells stored. Chunked (L4): the tiles' stages evaluated chunk by
+  chunk (``_run_tile``). A margin that is one cell short lets a roll's
+  wrap-around reach a stored cell, which the tests see.
+
+  Args and result as fused_stencil_plain's; ``tile`` is a plan with a
+  layout (kernel_plan with layout keys).
+  """
+  plan = tile
+  if plan is None or plan.layout is None:
+    raise ValueError('layout_stencil_plain walks a layout plan; pass one')
+  device = inputs[0].device
+  ins, pars = _repr_args(stencil, inputs, params)
+  outs = _zero_outputs(stencil, plan.shape, device)
+  readers = last_readers(plan.stages)
+  if plan.warp is None:
+    for origin, windows in _tile_windows(plan, ins, device):
+      _run_tile(plan, origin, ins, pars, outs, readers, device, windows)
+  else:
+    per_tile = plan.warp.n_blocks(plan.tile) * _prod_rows(plan)
+    batch = max(1, _BATCH_CELLS // per_tile)
+    origins, stacks = [], {}
+
+    def flush():
+      blocks = {name: _gather_blocks(plan, name, torch.stack(ws))
+                for name, ws in stacks.items()}
+      nb = len(origins) * plan.warp.n_blocks(plan.tile)
+      _store_blocks(plan, origins,
+                    _warp_stages(plan, nb, blocks, pars, device), outs)
+      del origins[:]
+      stacks.clear()
+
+    for origin, windows in _tile_windows(plan, ins, device):
+      origins.append(origin)
+      for name, w in windows.items():
+        stacks.setdefault(name, []).append(w)
+      if len(origins) == batch:
+        flush()
+    if origins:
+      flush()
+  return tuple(semantics.to_storage(outs[n], stencil.symbol_table[n])
+               for n in stencil.output_names)
+
+
+def _prod_rows(plan: TilePlan) -> int:
+  """Register cells of the largest tensor of one warp window."""
+  n = plan.warp.width
+  for e in plan.warp.window[:-1]:
+    n *= e
+  return n
+
+
+def plain_version(plan: Optional[TilePlan]):
+  """The plain version of ``plan``'s kernel: ``layout_stencil_plain``
+  for a layout form, ``streamed_stencil_plain`` for a mode kernel,
+  ``fused_stencil_plain`` for the default kernel."""
+  if plan is not None and plan.layout is not None:
+    return layout_stencil_plain
+  if plan is not None and plan.config.stream_loop:
+    return streamed_stencil_plain
+  return fused_stencil_plain
 
 
 def replicated_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
@@ -250,8 +552,7 @@ def replicated_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
   """The replicated kernel's function in plain PyTorch:
   ``fused_stencil_plain`` mapped over the leading replica axis of
   ``inputs``; params are shared by all replicas."""
-  plain = (streamed_stencil_plain if tile is not None and
-           tile.config.stream_loop else fused_stencil_plain)
+  plain = plain_version(tile)
   per = [plain(stencil, [a[r] for a in inputs], params, tile)
          for r in range(inputs[0].shape[0])]
   return tuple(torch.stack(outs) for outs in zip(*per))
@@ -380,11 +681,15 @@ class FusedExecutor:
     block_rows, mid_tile: the tile's axis-0 and axis-1 extents, by the
       JAX kernel's names (instead of ``tile``).
 
-  The JAX kernel's VPU-layout keys (``lane_shift``, ``shift_mode``,
-  ``transpose_lanes``, ``narrow``, ``stage_mode``, ``compute_chunk``,
-  ``interpret``) raise utils.InputError (ROADMAP B item 9). On the CPU
-  the executor runs ``streamed_stencil_plain`` whenever ``stream_loop``
-  is set, else ``fused_stencil_plain`` over the plan's tiles.
+  The JAX kernel's layout keys (``stage_mode``, ``shift_mode``,
+  ``lane_shift``, ``transpose_lanes``, ``narrow``, ``compute_chunk``)
+  select the kernel's layout forms (backend/layout.py), checked and
+  resolved by the JAX rules; with none of them the kernel is the
+  default one. ``interpret`` raises utils.InputError (``device='cpu'``
+  is its counterpart). On the CPU the executor runs
+  ``layout_stencil_plain`` whenever a layout key is set,
+  ``streamed_stencil_plain`` whenever ``stream_loop`` is, else
+  ``fused_stencil_plain`` over the plan's tiles.
 
   ``launches`` counts kernel launches made by ``fn``.
   """
@@ -432,8 +737,7 @@ class FusedExecutor:
     ins, pars = args[:n_in], args[n_in:]
     if self.device.type == 'cpu':
       plain = (replicated_stencil_plain if self.replicas is not None else
-               streamed_stencil_plain if self.config.stream_loop else
-               fused_stencil_plain)
+               plain_version(self.plan))
       outs = plain(stencil, ins, pars, tile=self.plan)
     else:
       outs = tuple(

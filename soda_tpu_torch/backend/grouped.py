@@ -155,8 +155,9 @@ class GroupedExecutor:
     device: 'cuda' (default; raises without a usable GPU) or 'cpu'.
     replicas: as FusedExecutor's: None, or R grids per call.
     apply_preserve_border: as FusedExecutor's.
-    **opts: every group kernel's options (FusedExecutor's ``tile`` and
-      modes), as GroupedPallasExecutor forwards its ``**kwargs``
+    **opts: every group kernel's options (FusedExecutor's ``tile``, modes
+      and layout keys, each group resolving the layout keys for its own
+      sub-stencil), as GroupedPallasExecutor forwards its ``**kwargs``
       (soda_tpu/backend/grouped.py:95,110).
 
   ``launches`` is the sum of the groups' kernel launches.

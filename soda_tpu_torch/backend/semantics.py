@@ -19,8 +19,10 @@ What torch forces:
   so ``c_int_div``/``c_int_mod`` reproduce what the oracle computes
   (numpy gives ``a // 0 == 0``; the C-truncation fix-up then makes it 1
   for negative signed ``a``; ``a % 0 == a``).
-- the TPU-only rewrites (``fast_int_div``, ``fast_rsqrt``, ``narrow``)
-  are not carried over: this Evaluator computes the oracle's form.
+- the TPU-only rewrites ``fast_int_div`` and ``fast_rsqrt`` are not
+  carried over: this Evaluator computes the oracle's form. ``narrow``
+  is (c_semantics.Evaluator's): the packed 16-bit stages of the fused
+  kernel's layout form L3 evaluate at 16-bit width.
 """
 
 from __future__ import annotations
@@ -296,15 +298,19 @@ class Evaluator:
     env: name -> (value, dtype) for ``let`` bindings and scalar vars.
     param: ``param(name, idx) -> tensor`` for parameter elements.
     device: where Python constants are materialized.
+    narrow: evaluate integer arithmetic at 16-bit width (only sound for
+      the expressions optimization.ranges.narrow16_stages admits: + & |
+      ^ over integer loads and literals, needed mod 2^16 at most).
   """
 
   def __init__(self, load: Callable[[ir.Ref], Any],
                env: Optional[Dict[str, Tuple[Any, Optional[Type]]]] = None,
                param: Optional[Callable[[str, Tuple[int, ...]], Any]] = None,
-               device='cpu'):
+               device='cpu', narrow: bool = False):
     self.load = load
     self.env = dict(env or {})
     self.param = param
+    self.narrow = narrow
     self._ctx = _Ctx(device)
 
   def _as(self, value, dtype: Type, src: Optional[Type] = None):
@@ -346,6 +352,13 @@ class Evaluator:
       return self.env[node.name]
     if isinstance(node, ir.Cast):
       value, src = self.eval(node.expr)
+      if self.narrow and not node.dtype.is_float and \
+          node.dtype.width_in_bits >= 16:
+        # an int wrap of width >= 16 keeps the 16-bit representation (a
+        # 16-bit target fixes its signedness)
+        if node.dtype.width_in_bits == 16:
+          value = self._as(value, node.dtype, src)
+        return value, node.dtype
       return wrap(value, node.dtype, src, self._ctx.device), node.dtype
     if isinstance(node, ir.Unary):
       return self._eval_unary(node)
@@ -383,7 +396,13 @@ class Evaluator:
     return value, dtype
 
   def _coerce_pair(self, av, at, bv, bt):
-    out = binary_type(at, bt)
+    if self.narrow and (at is None or not at.is_float) and \
+        (bt is None or not bt.is_float):
+      # 16-bit rank rules: unsigned wins at equal rank
+      unsigned = any(t is not None and not t.is_signed for t in (at, bt))
+      out = Type('uint16' if unsigned else 'int16')
+    else:
+      out = binary_type(at, bt)
     return self._as(av, out, at), self._as(bv, out, bt), out
 
   def _eval_chain(self, node) -> Tuple[Any, Optional[Type]]:

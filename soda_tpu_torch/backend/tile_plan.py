@@ -28,8 +28,11 @@ pallas_kernel.py:298-381): with ``stream_loop`` one CTA walks a run of
 ``steps`` consecutive axis-0 tiles of one tile column, and its input
 windows live apart from the stage buffers, in ``slots`` copies each
 (the ``prefetch`` ring); ``out_dma`` adds one tile-sized staging buffer
-per output. A plan for the default config is laid out exactly as
-before.
+per output. The layout keys (``KernelConfig.layout``, layout.py) either
+keep the stage buffers (``compute_chunk``) or, in value mode, replace
+them by a warp window (``WarpPlan``): shared memory holds the input
+windows and each warp's scratch, the stages live in registers. A plan
+for the default config is laid out exactly as before.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from soda_tpu_torch import utils
-from soda_tpu_torch.backend.plan import (Stage, make_plan,
+from soda_tpu_torch.backend.layout import (LAYOUT_KEYS, LayoutConfig,
+                                           layout_config, split_layout_keys)
+from soda_tpu_torch.backend.plan import (FusionPlan, Stage, make_plan,
                                          materialized_margins, validate_grid)
 
 # Shared memory a block may use on the H100 (dynamic, opt-in above 48 KB).
@@ -58,15 +63,21 @@ MIN_CTAS = 264
 
 Span = Tuple[Tuple[int, ...], Tuple[int, ...]]  # (neg, pos) per axis
 
-# the JAX kernel's VPU-layout keys (pallas_kernel.py:221-284, :321-340,
-# :382-457): no Hopper form yet
-LAYOUT_KEYS = ('lane_shift', 'shift_mode', 'transpose_lanes', 'narrow',
-               'stage_mode', 'compute_chunk', 'interpret')
 # the keys a caller may set on the fused kernel (FusedExecutor, the
 # CLI's --kernel-opt); block_rows and mid_tile are the JAX names of the
-# tile's axis-0 and axis-1 extents
+# tile's axis-0 and axis-1 extents; the layout keys are layout.py's
 CONFIG_KEYS = ('tile', 'block_rows', 'mid_tile', 'stream_loop', 'prefetch',
-               'dma_split', 'out_dma')
+               'dma_split', 'out_dma') + LAYOUT_KEYS
+# Warps per CTA (cuda_source.THREADS / 32): a value-mode CTA's warps
+# share its warp blocks.
+WARPS = 16
+# Live register values per thread that a warp window should keep
+# (launch bounds of 512 threads leave 128 registers a thread); the
+# smallest window above it is taken when none is below, and spills.
+REG_BUDGET = 64
+# Live register values per thread beyond which a window is not held at
+# all (4 KB of values a thread).
+REG_LIMIT = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,21 +87,17 @@ class KernelConfig:
   prefetch: int = 2
   dma_split: int = 1
   out_dma: bool = False
+  layout: Optional[LayoutConfig] = None  # None: the default stage form
 
   @property
   def is_default(self) -> bool:
     return self == KernelConfig()
 
-
-def reject_layout_keys(keys) -> None:
-  """Raise utils.InputError naming ROADMAP B item 9 if ``keys`` holds a
-  VPU-layout key of the JAX kernel."""
-  found = sorted(k for k in keys if k in LAYOUT_KEYS)
-  if found:
-    raise utils.InputError(
-        '%s: VPU register-layout key%s of the TPU kernel, not ported to the '
-        'H100 kernel (still to be ported: ROADMAP B item 9)' %
-        (', '.join(found), 's' if len(found) > 1 else ''))
+  @property
+  def one_tile(self) -> bool:
+    """No structural mode: one CTA computes one tile, its input windows
+    loaded by plain loads (the default kernel's frame)."""
+    return dataclasses.replace(self, layout=None) == KernelConfig()
 
 
 def kernel_config(dim: int, stream_loop=False, prefetch: int = 2,
@@ -162,6 +169,8 @@ class TilePlan:
     slot_bytes: input name -> bytes of one window slot (mode plans).
     staging: output name -> byte offset of its tile-sized staging
       buffer (``out_dma``).
+    warp: a value-mode plan's warp window (WarpPlan); its stages live
+      in registers, so ``offsets`` names the inputs only.
   """
   stencil: object
   shape: Tuple[int, ...]
@@ -177,10 +186,15 @@ class TilePlan:
   rolling: bool = False
   slot_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
   staging: Dict[str, int] = dataclasses.field(default_factory=dict)
+  warp: Optional['WarpPlan'] = None
 
   @property
   def dim(self) -> int:
     return len(self.shape)
+
+  @property
+  def layout(self) -> Optional[LayoutConfig]:
+    return self.config.layout
 
   @property
   def grid(self) -> Tuple[int, ...]:
@@ -358,7 +372,7 @@ def last_readers(order: Sequence[Stage]) -> Dict[str, int]:
 
 
 def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
-              tile: Sequence[int], inputs: bool = True
+              tile: Sequence[int], inputs: bool = True, stages: bool = True
               ) -> Tuple[Dict[str, int], int]:
   """First-fit shared-memory offsets with liveness reuse.
 
@@ -367,7 +381,8 @@ def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
   after its last reader (never during its own reads: a barrier
   separates consecutive stages, so the next stage may reuse it).
   ``inputs=False`` places the stage buffers only (a mode plan keeps its
-  input windows apart).
+  input windows apart); ``stages=False`` the input windows only (a
+  value-mode plan keeps its stages in registers).
   """
   readers = last_readers(order)
 
@@ -400,7 +415,7 @@ def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
     if name in readers and inputs:
       alloc(name)
   for idx, stage in enumerate(order):
-    if stage.name in readers:
+    if stage.name in readers and stages:
       alloc(stage.name)
     for parent in sorted(stage.load_offsets):
       if readers.get(parent) == idx:
@@ -410,12 +425,20 @@ def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
 
 def _plan_for_tile(stencil, shape, tile, order, spans, margins,
                    config: KernelConfig = KernelConfig()) -> TilePlan:
-  if not config.is_default:
+  if not config.one_tile:
     return _mode_plan(stencil, shape, tile, order, spans, margins, config)
+  layout = config.layout
+  if layout is not None and layout.value:
+    offsets, peak = _allocate(stencil, order, spans, tile, stages=False)
+    warp = _warp_plan(stencil, shape, tile, order, spans, layout, peak)
+    return TilePlan(stencil=stencil, shape=tuple(shape), tile=tuple(tile),
+                    stages=tuple(order), spans=spans, offsets=offsets,
+                    smem_bytes=warp.smem_end, margins=margins, config=config,
+                    warp=warp)
   offsets, peak = _allocate(stencil, order, spans, tile)
   return TilePlan(stencil=stencil, shape=tuple(shape), tile=tuple(tile),
                   stages=tuple(order), spans=spans, offsets=offsets,
-                  smem_bytes=peak, margins=margins)
+                  smem_bytes=peak, margins=margins, config=config)
 
 
 def steps_per_cta(grid: Sequence[int]) -> int:
@@ -465,7 +488,9 @@ def _mode_plan(stencil, shape, tile, order, spans, margins,
   """Stage buffers reused by liveness, then each input's window slots
   (each window ``copy_width``'s phase into its slot), then the output
   staging buffers."""
-  offsets, peak = _allocate(stencil, order, spans, tile, inputs=False)
+  value = config.layout is not None and config.layout.value
+  offsets, peak = _allocate(stencil, order, spans, tile, inputs=False,
+                            stages=not value)
   readers = last_readers(order)
   grid = [-(-s // t) for s, t in zip(shape, tile)]
   steps = steps_per_cta(grid) if config.stream_loop else 1
@@ -496,11 +521,223 @@ def _mode_plan(stencil, shape, tile, order, spans, margins,
       staging[name] = base
       base += _round_up(cells * stencil.tensors[name].dtype.np_dtype.itemsize,
                         ALIGN)
+  warp = None
+  if value:
+    warp = _warp_plan(stencil, shape, tile, order, spans, config.layout, base)
+    base = warp.smem_end
   return TilePlan(stencil=stencil, shape=tuple(shape), tile=tuple(tile),
                   stages=tuple(order), spans=spans, offsets=offsets,
                   smem_bytes=base, margins=margins, config=config,
                   steps=steps, slots=slots, rolling=rolling,
-                  slot_bytes=slot_bytes, staging=staging)
+                  slot_bytes=slot_bytes, staging=staging, warp=warp)
+
+
+@dataclasses.dataclass(frozen=True)
+class WarpPlan:
+  """The warp window of a value-mode plan (layout forms L1-L3).
+
+  A CTA's tile is covered by warp blocks of ``block`` output cells
+  (the last on each axis may reach past the tile: those cells are not
+  stored); the CTA's warps take the blocks in turn. A warp evaluates
+  every stage of its block in registers over a window whose frame is
+  the block widened by ``frame_neg``/``frame_pos`` on each axis but the
+  minor one, where the frame is ``width`` = 32 x ``cells`` columns:
+  lane ``l`` holds columns ``l * cells .. l * cells + cells - 1``, and
+  frame column ``frame_neg[-1]`` is the block's first. A tensor's
+  registers cover ``rows[name]`` (start, count) on each axis but the
+  minor one: the whole frame under roll, its own span under window.
+
+  Attributes:
+    cells: cells per lane along the minor axis.
+    block: output cells per warp block, per axis.
+    frame_neg, frame_pos: the frame around the block, per axis (the
+      largest span of any tensor).
+    rows: tensor name -> ((start, count), ...) on the non-minor axes.
+    regs: estimated peak of live register values a thread holds (32-bit
+      words), from stage liveness in the plan's order.
+    word: bytes per cell in the per-warp scratch (4, or 8 where a tensor
+      is 64-bit).
+    pad: cells the slice exchange rows reach past the frame on each
+      side.
+    scratch: bytes of one warp's scratch (transposes, slice rows).
+    scratch_offset: byte offset of warp 0's scratch.
+  """
+  cells: int
+  block: Tuple[int, ...]
+  frame_neg: Tuple[int, ...]
+  frame_pos: Tuple[int, ...]
+  rows: Dict[str, Tuple[Tuple[int, int], ...]]
+  regs: int
+  word: int
+  pad: int
+  scratch: int
+  scratch_offset: int
+
+  @property
+  def width(self) -> int:
+    return 32 * self.cells
+
+  @property
+  def window(self) -> Tuple[int, ...]:
+    """The frame's extent on each axis (the minor one: ``width``)."""
+    return tuple(b + n + p for b, n, p in zip(
+        self.block[:-1], self.frame_neg[:-1], self.frame_pos[:-1])) + (
+            self.width,)
+
+  @property
+  def lane_rows(self) -> int:
+    """Frame rows one lane holds in transposed layout (2-D)."""
+    return -(-self.window[0] // 32)
+
+  @property
+  def smem_end(self) -> int:
+    return self.scratch_offset + WARPS * self.scratch
+
+  def grid(self, tile: Sequence[int]) -> Tuple[int, ...]:
+    """Warp blocks per axis of a tile."""
+    return tuple(-(-t // b) for t, b in zip(tile, self.block))
+
+  def n_blocks(self, tile: Sequence[int]) -> int:
+    return _prod(self.grid(tile))
+
+  def row_count(self, name: str) -> int:
+    return _prod(c for _, c in self.rows[name])
+
+
+def _window_values(stencil, order, spans, layout, cells, block, neg, pos,
+                   word, pad):
+  """(rows, regs, cost, scratch) of one warp window: each tensor's
+  rows, the peak of live register values (inputs from their first to
+  their last reader, a stage from itself to its last reader, a
+  transposed region's entry and exit copies as extra values), the
+  cells evaluated per output cell, and one warp's scratch bytes."""
+  dim = len(block)
+  width = 32 * cells
+  window = [b + n + p for b, n, p in zip(block[:-1], neg[:-1], pos[:-1])]
+  readers = last_readers(order)
+  rows = {}
+  for name, (n, p) in spans.items():
+    if layout.roll:
+      rows[name] = tuple((0, e) for e in window)
+    else:
+      rows[name] = tuple((neg[a] - n[a], block[a] + n[a] + p[a])
+                         for a in range(dim - 1))
+  lane_rows = -(-window[0] // 32)
+
+  def words(name):
+    return 2 if stencil.tensors[name].dtype.np_dtype.itemsize == 8 else 1
+
+  def count(name):
+    return _prod(c for _, c in rows[name])
+
+  def size(name, form):
+    if form == 'transposed':
+      return width * lane_rows * words(name)
+    if form == 'packed':
+      return count(name) * cells // 2
+    return count(name) * cells * words(name)
+
+  index = {s.name: i for i, s in enumerate(order)}
+  live = []  # (first, last, registers)
+  for name in stencil.input_names:
+    if name in readers:
+      first = min(i for i, s in enumerate(order) if name in s.load_offsets)
+      live.append((first, readers[name], size(name, 'cells')))
+  for i, stage in enumerate(order):
+    name = stage.name
+    last = readers.get(name, i)
+    if name in layout.transposed:
+      live.append((i, last, size(name, 'transposed')))
+      live.append((i, last, size(name, 'cells')))  # exit copy
+      for parent in stage.load_offsets:
+        if parent not in layout.transposed and parent in spans:
+          live.append((i, readers[parent], size(parent, 'transposed')))
+    else:
+      form = 'packed' if name in layout.narrow16 else 'cells'
+      live.append((i, last, size(name, form)))
+  regs = max(sum(r for f, l, r in live if f <= k <= l)
+             for k in range(len(order)))
+  evaluated = sum(count(n) * width for n in spans if n in readers or
+                  n in index)
+  cost = evaluated / _prod(block)
+  scratch = 0
+  if layout.transposed:
+    scratch = 32 * lane_rows * (width + 1) * word
+  if not layout.rotate:
+    for stage in order:
+      if stage.name in layout.transposed:
+        continue
+      need = sum(count(p) * (width + 2 * pad) * word
+                 for p, offs in stage.load_offsets.items()
+                 if p in spans and any(off[0] for off in offs))
+      scratch = max(scratch, need)
+  return rows, regs, cost, _round_up(scratch, ALIGN)
+
+
+def _warp_plan(stencil, shape, tile, order, spans, layout: LayoutConfig,
+               base: int) -> WarpPlan:
+  """Choose the warp window of a value-mode plan: among the lane widths
+  (1-8 cells a lane; even under ``narrow``) and blocks (powers of two
+  on the non-minor axes, the minor block as wide as the frame allows,
+  up to the tile) whose scratch fits shared memory after ``base``
+  bytes, the least evaluated cells per output cell whose live registers
+  stay within REG_BUDGET; else the fewest live registers. Raises
+  utils.InputError when even that window exceeds REG_LIMIT. A window
+  whose scratch fits nowhere yields a plan past SMEM_LIMIT (the caller
+  then takes a smaller tile)."""
+  dim = len(shape)
+  neg = tuple(max(n[a] for n, _ in spans.values()) for a in range(dim))
+  pos = tuple(max(p[a] for _, p in spans.values()) for a in range(dim))
+  halo = neg[-1] + pos[-1]
+  word = 8 if any(stencil.tensors[n].dtype.np_dtype.itemsize == 8
+                  for n in spans) else 4
+  pad = max([abs(off[0]) for s in order for offs in s.load_offsets.values()
+             for off in offs] or [0])
+
+  def sizes(extent):
+    out = []
+    b = 1
+    while b < extent:
+      out.append(b)
+      b *= 2
+    return out + [extent]
+
+  scratch_offset = _round_up(base, ALIGN)
+  cands = []
+  for cells in range(1, 9):
+    width = 32 * cells
+    if width <= halo or (layout.narrow16 and cells % 2):
+      continue
+    minor = min(width - halo, tile[-1])
+    axes = [sizes(t) for t in tile[:-1]]
+    if dim == 3:
+      axes[1] = [b for b in axes[1] if b <= 4]
+    for lead in ([()] if dim == 1 else [(b,) for b in axes[0]]):
+      for mid in ([()] if dim < 3 else [(b,) for b in axes[1]]):
+        block = lead + mid + (minor,)
+        rows, regs, cost, scratch = _window_values(
+            stencil, order, spans, layout, cells, block, neg, pos, word, pad)
+        fits = scratch_offset + WARPS * scratch <= SMEM_LIMIT
+        cands.append((fits, regs <= REG_BUDGET, cost, regs, cells, block,
+                      rows, scratch))
+    if width - halo >= tile[-1]:
+      break  # a wider frame covers no more of the tile
+  fitting = [c for c in cands if c[0]] or sorted(
+      cands, key=lambda c: c[7])[:1]
+  within = [c for c in fitting if c[1]]
+  if within:
+    pick = min(within, key=lambda c: (c[2], c[3]))
+  else:
+    pick = min(fitting, key=lambda c: (c[3], c[2]))
+  _, _, _, regs, cells, block, rows, scratch = pick
+  if regs > REG_LIMIT:
+    raise utils.InputError(
+        'the value-mode warp window needs %d live register values a thread '
+        'even at its smallest (%s, %d cells a lane), more than %d; use '
+        "stage_mode='vmem'" % (regs, block, cells, REG_LIMIT))
+  return WarpPlan(cells=cells, block=block, frame_neg=neg, frame_pos=pos,
+                  rows=rows, regs=regs, word=word, pad=pad, scratch=scratch,
+                  scratch_offset=scratch_offset)
 
 
 def candidate_tiles(shape: Sequence[int],
@@ -555,11 +792,13 @@ def make_tile_plan(stencil, shape: Sequence[int],
                    tile: Optional[Sequence[int]] = None,
                    config: Optional[KernelConfig] = None,
                    block_rows: Optional[int] = None,
-                   mid_tile: Optional[int] = None) -> TilePlan:
+                   mid_tile: Optional[int] = None,
+                   fusion: Optional[FusionPlan] = None) -> TilePlan:
   """Plan the fused kernel for ``shape``; ``tile=None`` picks the
   largest candidate tile whose buffers (with ``config``'s window slots
   and staging) fit SMEM_LIMIT. ``block_rows`` and ``mid_tile`` fix the
-  tile's axis-0 and axis-1 extents (the JAX kernel's names).
+  tile's axis-0 and axis-1 extents (the JAX kernel's names). ``fusion``
+  is the stencil's ``make_plan(stencil, 'full')``, built when None.
 
   Raises utils.InputError when the grid is too small for the stencil
   window, or when even a one-cell tile needs more shared memory than a
@@ -570,8 +809,8 @@ def make_tile_plan(stencil, shape: Sequence[int],
   if len(shape) < 1:
     raise utils.InputError('the fused kernel needs a grid of at least 1-D')
   config = config or KernelConfig()
-  plan = make_plan(stencil, 'full')
-  stages = _live_stages(stencil, plan.stages)
+  stages = _live_stages(stencil, (fusion or make_plan(stencil,
+                                                      'full')).stages)
   spans = _spans(stencil, stages)
   order = _dfs_order(stencil, stages)
   margins = _array_margins(stencil)
@@ -619,13 +858,19 @@ def kernel_plan(stencil, shape: Sequence[int],
                 prefetch: int = 2, dma_split: int = 1, out_dma: bool = False,
                 **layout) -> TilePlan:
   """The plan of the fused kernel that ``FusedExecutor(stencil, shape,
-  **opts)`` builds: the keys of ``CONFIG_KEYS`` validated
-  (kernel_config), a VPU-layout key of the JAX kernel rejected, any
-  other key a TypeError."""
-  reject_layout_keys(layout)
+  **opts)`` builds: the structural keys validated (kernel_config), the
+  layout keys checked and resolved with the JAX package's rules
+  (layout.layout_config; none given: the default stage form),
+  ``interpret`` an InputError, any other key a TypeError."""
+  keys = split_layout_keys(layout)
   if layout:
     raise TypeError('unexpected kernel options: %s' %
                     ', '.join(sorted(layout)))
   config = kernel_config(len(shape), stream_loop, prefetch, dma_split,
                          out_dma)
-  return make_tile_plan(stencil, shape, tile, config, block_rows, mid_tile)
+  fusion = make_plan(stencil, 'full')
+  if keys:
+    config = dataclasses.replace(config, layout=layout_config(
+        fusion, shape, mid_tile=mid_tile, **keys))
+  return make_tile_plan(stencil, shape, tile, config, block_rows, mid_tile,
+                        fusion)

@@ -255,4 +255,120 @@ __device__ __forceinline__ void store16(void* dst, const void* src) {
 }
 #endif
 
+#if defined(__CUDACC__) || defined(SODA_EMULATE)
+// ---- the layout forms' warp windows (cuda_source.py _value_blocks) --------
+// A warp window's row holds C cells per lane, lane l the cells
+// l * C .. l * C + C - 1 of a 32 * C-cell frame row. Every index below
+// is a compile-time constant once the caller's loops are unrolled, so
+// the row stays in registers and the source lane and slot are fixed.
+// A shuffle needs all 32 lanes: callers run these unconditionally.
+#ifdef __CUDACC__
+#define SODA_LAYOUT __device__ __forceinline__
+#else
+#define SODA_LAYOUT inline
+#endif
+
+// ``v`` of the lane ``k`` lanes further on (wrapping around the warp)
+template <class T>
+SODA_LAYOUT T shfl(T v, int k) {
+  const int src = (int)((threadIdx.x + (unsigned)k) & 31u);
+  if constexpr (sizeof(T) == 8) {
+    unsigned long long u;
+    memcpy(&u, &v, 8);
+    u = __shfl_sync(0xffffffffu, u, src);
+    memcpy(&v, &u, 8);
+  } else {
+    unsigned u = 0;
+    memcpy(&u, &v, sizeof(T));
+    u = __shfl_sync(0xffffffffu, u, src);
+    memcpy(&v, &u, sizeof(T));
+  }
+  return v;
+}
+
+// index i of a frame of E cells, wrapped (roll)
+template <int E>
+SODA_LAYOUT int wrap_index(int i) {
+  return ((i % E) + E) % E;
+}
+
+// (lanes further on, slot) of cell j of this lane's block of C
+template <int C>
+SODA_LAYOUT int lane_of(int j) {
+  return j >= 0 ? j / C : -((C - 1 - j) / C);
+}
+
+// cell j (relative to this lane's first; any integer) of a frame row:
+// a register of this lane or a lane rotate, wrapping around the frame
+template <int C, class T>
+SODA_LAYOUT T lane_get(const T (&row)[C], int j) {
+  const int k = lane_of<C>(j);
+  const int s = j - k * C;
+  return k == 0 ? row[s] : shfl(row[s], k);
+}
+
+// ---- packed 16-bit pairs (narrow stages): cells 2q, 2q + 1 of a lane's
+// block in word q, the first in the low half; C is even
+SODA_LAYOUT uint32_t pack2(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x5410);
+}
+SODA_LAYOUT uint32_t vadd2(uint32_t a, uint32_t b) { return __vadd2(a, b); }
+
+// a 16-bit half as a value of T (sign- or zero-extended by T's sign)
+template <class T>
+SODA_LAYOUT T unpack16(uint32_t h) {
+  if constexpr (std::is_signed<T>::value) {
+    return (T)(int16_t)(uint16_t)(h & 0xffffu);
+  } else {
+    return (T)(uint16_t)(h & 0xffffu);
+  }
+}
+
+// word w of this lane's packed block, or of a lane k lanes on
+template <int C>
+SODA_LAYOUT uint32_t word_at(const uint32_t (&row)[C / 2], int k, int w) {
+  return k == 0 ? row[w] : shfl(row[w], k);
+}
+
+// cell j of a packed frame row, as T
+template <int C, class T>
+SODA_LAYOUT T pcell_get(const uint32_t (&row)[C / 2], int j) {
+  const int k = lane_of<C>(j);
+  const int s = j - k * C;
+  const uint32_t w = word_at<C>(row, k, s >> 1);
+  return unpack16<T>((s & 1) ? (w >> 16) : w);
+}
+
+// cells j, j + 1 of a frame row of cells, packed
+template <int C, class T>
+SODA_LAYOUT uint32_t pair_get(const T (&row)[C], int j) {
+  return pack2((uint32_t)lane_get<C>(row, j), (uint32_t)lane_get<C>(row, j + 1));
+}
+
+// cells j, j + 1 of a packed frame row: one word at an even cell; at an
+// odd one the pair straddles two words (of this lane, or the last of
+// this lane's and the first of the next), realigned on the word
+template <int C>
+SODA_LAYOUT uint32_t ppair_get(const uint32_t (&row)[C / 2], int j) {
+  const int k = lane_of<C>(j);
+  const int s = j - k * C;
+  if ((s & 1) == 0) return word_at<C>(row, k, s >> 1);
+  const uint32_t a = word_at<C>(row, k, s >> 1);
+  const uint32_t b = s + 1 < C ? word_at<C>(row, k, (s + 1) >> 1)
+                               : word_at<C>(row, k + 1, 0);
+  return __byte_perm(a, b, 0x5432);
+}
+
+// ---- per-warp scratch: slice rows and the padded transpose tile ------
+// cell i of a buffer of Word-byte cells
+template <int Word, class T>
+SODA_LAYOUT void xput(unsigned char* buf, int i, T v) {
+  *reinterpret_cast<T*>(buf + i * Word) = v;
+}
+template <int Word, class T>
+SODA_LAYOUT T xget(const unsigned char* buf, int i) {
+  return *reinterpret_cast<const T*>(buf + i * Word);
+}
+#endif
+
 }  // namespace soda

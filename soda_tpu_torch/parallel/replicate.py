@@ -53,9 +53,9 @@ class ReplicatedExecutor:
       over the batch axis and ``Replicated`` params, and ``fn`` takes
       and returns those.
     backend: 'auto' (default), 'fused' or 'xla'.
-    **kwargs: the inner executor's options (the fused kernel's ``tile``
-      and modes, FusedExecutor), as the JAX package forwards them
-      (soda_tpu/parallel/replicate.py:36,48).
+    **kwargs: the inner executor's options (the fused kernel's ``tile``,
+      modes and layout keys, FusedExecutor), as the JAX package forwards
+      them (soda_tpu/parallel/replicate.py:36,48).
   """
 
   def __init__(self, stencil, shape: Sequence[int],

@@ -153,8 +153,9 @@ class ShardedExecutor:
       a tuple of names sharding one array axis over their flattened
       ring, outer axis major (``mesh.axis_groups``).
     inner_opts: keyword arguments of the inner executor (the fused
-      kernel's ``tile=``); ``apply_preserve_border`` belongs to this
-      layer and is dropped.
+      kernel's ``tile=``, modes and layout keys, as the JAX package's
+      per-shard Pallas options); ``apply_preserve_border`` belongs to
+      this layer and is dropped.
     overlap: 'off' (default) or 'on' (single sharded axis, 'xla' inner,
       as the JAX package checks; the same exchange as 'off').
 

@@ -137,7 +137,10 @@ def _build_parser() -> argparse.ArgumentParser:
                        metavar='KEY=VALUE',
                        help='fused-kernel config (repeatable): tile=64,128 '
                             'block_rows=64 mid_tile=8 stream_loop=peel '
-                            'prefetch=3 dma_split=2 out_dma=true; applies '
+                            'prefetch=3 dma_split=2 out_dma=true, and the '
+                            'layout keys stage_mode=value shift_mode=roll '
+                            'transpose_lanes=on lane_shift=rotate '
+                            'narrow=on compute_chunk=8; applies '
                             'to the auto/fused/replicated backends and, '
                             'with --backend sharded, to the per-shard '
                             'kernel; mutually exclusive with --tune')
@@ -158,8 +161,9 @@ def _parse_kernel_opts(pairs):
   """KEY=VALUE list -> FusedExecutor keyword arguments, validated once,
   up front, against its config keys (tile_plan.CONFIG_KEYS): true/false
   and integers convert, ``tile`` takes comma-separated integers, other
-  values (``peel``) pass as text. The JAX kernel's VPU-layout keys raise
-  naming ROADMAP B item 9; other unknown keys list the valid ones."""
+  values (``peel``, ``roll``, ``on``) pass as text; unknown keys
+  (``interpret`` among them: ``--device cpu`` is its counterpart) list
+  the valid ones."""
   from soda_tpu_torch.backend import tile_plan
   opts = {}
   for pair in pairs:
@@ -167,7 +171,6 @@ def _parse_kernel_opts(pairs):
     if not sep or not key:
       raise utils.InputError('--kernel-opt expects KEY=VALUE, got %r' % pair)
     key = key.replace('-', '_')
-    tile_plan.reject_layout_keys([key])
     if key not in tile_plan.CONFIG_KEYS:
       raise utils.InputError('unknown --kernel-opt key %r (valid: %s)' %
                              (key, ', '.join(tile_plan.CONFIG_KEYS)))

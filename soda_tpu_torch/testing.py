@@ -13,8 +13,12 @@
   where its error exceeds the threshold both absolutely and relative to
   the reference value; NaNs in the same cells.
 - ``MODE_CELLS``: the fused kernel's modes at the benchmark shapes.
-- Test cases: tile geometries, the kernel modes at small shapes
-  (``MODE_CASES``), an output read by a stage, a program with params, a
+- ``SEED_CONFIGS``: the JAX package's 24 bench seed configurations at
+  the benchmark shapes (``seed_small``: the CPU tests' shapes), and
+  ``LAYOUT_EXTRA``, the layout forms its bench seeds do not reach;
+  ``check_exact``, bit-for-bit equality on the valid regions.
+- Test cases: tile geometries, the kernel modes and layout forms at
+  small shapes (``MODE_CASES``, ``LAYOUT_CASES``), an output read by a stage, a program with params, a
   seeded generator of random DSL programs over every integer width and
   sign, half, float and double, and distinct inputs per replica of a
   replicated batch.
@@ -39,11 +43,12 @@ from soda_tpu_torch.parallel.mesh import Mesh
 from soda_tpu_torch.utils import threshold_for
 
 __all__ = ['CELLS', 'CONV_PARAM', 'SHARDED', 'repeated_mesh', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
-           'GEOMETRY_CASES', 'MODE_CASES', 'MODE_CELLS', 'MULTI_OUTPUT',
-           'build_cell', 'check_outputs', 'gen_program', 'make_inputs',
-           'make_test_inputs', 'make_test_params', 'mode_inputs',
-           'mode_stencil', 'oracle_run', 'output_valid_slices',
-           'replica_inputs', 'threshold_for']
+           'GEOMETRY_CASES', 'LAYOUT_CASES', 'LAYOUT_EXTRA', 'MODE_CASES',
+           'MODE_CELLS', 'MULTI_OUTPUT', 'NARROW_PAIRS', 'SEED_CONFIGS',
+           'build_cell', 'check_exact', 'check_outputs', 'gen_program',
+           'make_inputs', 'make_test_inputs', 'make_test_params',
+           'mode_inputs', 'mode_stencil', 'oracle_run', 'output_valid_slices',
+           'replica_inputs', 'seed_small', 'threshold_for']
 
 # (name, shape, stencil overrides): the benchmark's 12 cells
 CELLS = (
@@ -68,6 +73,78 @@ CELLS = (
     ('denoise2d', (8192, 2048), {'tile_size': (2048, 0)}),
     ('denoise3d', (2048, 32, 128), {'tile_size': (128, 32, 0)}),
     ('jacobi3d_256', (256, 256, 256), {'tile_size': (256, 256, 0)}),
+)
+
+
+# The JAX package's tuned configurations: the two seed executor configs
+# of each benchmark cell (bench.py:51-163, primary first), copied as
+# data. 17 of the 24 carry a layout key.
+_SEEDS = {
+    'blur': ({'block_rows': 640, 'stage_mode': 'value', 'shift_mode': 'roll'},
+             {'block_rows': 512}),
+    'jacobi2d': ({'stream_loop': 'peel'},
+                 {'block_rows': 256, 'stage_mode': 'value',
+                  'shift_mode': 'roll'}),
+    'jacobi3d': ({'block_rows': 128}, {'block_rows': 64}),
+    'heat3d': ({'block_rows': 128, 'stage_mode': 'value',
+                'shift_mode': 'roll'}, {'block_rows': 128}),
+    'seidel2d': ({'block_rows': 128, 'stage_mode': 'value',
+                  'shift_mode': 'roll', 'stream_loop': 'peel'},
+                 {'block_rows': 256, 'stage_mode': 'value',
+                  'shift_mode': 'roll'}),
+    'erosion': ({'stage_mode': 'value', 'shift_mode': 'roll',
+                 'transpose_lanes': 'on', 'block_rows': 512,
+                 'lane_shift': 'rotate', 'prefetch': 2},
+                {'stage_mode': 'value', 'shift_mode': 'roll',
+                 'transpose_lanes': 'on', 'block_rows': 256}),
+    'sobel2d': ({'lane_shift': 'slice', 'block_rows': 256, 'prefetch': 2},
+                {'lane_shift': 'slice', 'block_rows': 256}),
+    'xcorr': ({'block_rows': 352, 'stage_mode': 'value', 'shift_mode': 'roll',
+               'transpose_lanes': 'on', 'lane_shift': 'rotate'},
+              {'block_rows': 256, 'stage_mode': 'value', 'shift_mode': 'roll',
+               'transpose_lanes': 'on', 'lane_shift': 'rotate'}),
+    'contrast': ({}, {'block_rows': 64}),
+    'denoise2d': ({'block_rows': 64, 'stage_mode': 'value',
+                   'shift_mode': 'roll', 'stream_loop': 'peel'},
+                  {'block_rows': 128, 'stage_mode': 'value',
+                   'shift_mode': 'roll'}),
+    'denoise3d': ({'block_rows': 16, 'stage_mode': 'value',
+                   'shift_mode': 'roll', 'stream_loop': 'peel'},
+                  {'block_rows': 64, 'stage_mode': 'value',
+                   'shift_mode': 'roll'}),
+    'jacobi3d_256': ({'mid_tile': 64, 'block_rows': 16, 'stream_loop': 'peel',
+                      'stage_mode': 'value', 'shift_mode': 'roll'},
+                     {'mid_tile': 64, 'stream_loop': 'peel',
+                      'stage_mode': 'value', 'shift_mode': 'roll',
+                      'prefetch': 2}),
+}
+# (cell, shape, stencil overrides, kernel options): the 24 seeds at the
+# benchmark shapes, with the cells' overrides (tile_size, computation
+# reuse, cr-cost, distribute)
+SEED_CONFIGS = tuple((name, shape, overrides, opts)
+                     for name, shape, overrides in CELLS
+                     for opts in _SEEDS[name])
+def seed_small(name: str, shape, overrides):
+  """A seed's small shape for the CPU tests and its overrides with a
+  tile_size that matches it (jacobi3d_256's mid tile of 64 splits its
+  small axis 1 in two)."""
+  small = ((24, 72, 24) if name == 'jacobi3d_256' else
+           {2: (64, 160), 3: (24, 12, 40)}[len(shape)])
+  tile_size = tuple(reversed(small[1:])) + (0,)
+  return small, dict(overrides, tile_size=tile_size)
+
+
+# the layout forms' seeds beside the JAX package's gate row that is its
+# only configured use of ``narrow`` (tools/tpu_validate.py:216-218), at
+# the benchmark shape; and chunked stage loops, which only the JAX
+# tuner offers (tools/autotune.py:81-96), on the 256^3 cell
+LAYOUT_EXTRA = (
+    ('xcorr', (8192, 2048), {'tile_size': (2048, 0),
+                             'optimizations': {'computation-reuse':
+                                               'greedy'}},
+     {'stage_mode': 'value', 'shift_mode': 'roll', 'narrow': 'on'}),
+    ('jacobi3d_256', (256, 256, 256), {'tile_size': (256, 256, 0)},
+     {'mid_tile': 64, 'compute_chunk': 8}),
 )
 
 
@@ -147,14 +224,87 @@ MODE_CASES = (
 )
 
 
+# (name, shape, kernel options, MIN_CTAS, replicas): the fused kernel's
+# layout forms at small shapes, each form on the paths that differ. L1
+# under roll and window, its minor taps rotated and sliced (a row wider
+# than 256 takes 'slice' under 'auto'), on 2-D and 3-D grids, ragged
+# tiles, with the streaming loop (rolling and peeled), the cp.async
+# ring and staged stores, replicas, params, an output read by a stage,
+# and random programs over every type; L2 (transposed regions) under
+# roll and slice; L3 (packed 16-bit pairs) with odd minor offsets
+# between packed stages, rotated and sliced; L4 (chunked stage loops)
+# alone and streaming. ``+cr``: greedy computation reuse.
+LAYOUT_CASES = (
+    ('blur', (37, 70), {'stage_mode': 'value', 'shift_mode': 'roll',
+                        'block_rows': 16}, 1, 1),
+    ('blur', (40, 300), {'stage_mode': 'value', 'block_rows': 8}, 1, 1),
+    ('sobel2d', (50, 64), {'lane_shift': 'rotate', 'block_rows': 8}, 1, 1),
+    ('sobel2d', (23, 280), {'lane_shift': 'slice', 'block_rows': 4}, 1, 1),
+    ('erosion+cr', (61, 45), {'stage_mode': 'value', 'shift_mode': 'roll',
+                              'transpose_lanes': 'on', 'block_rows': 16},
+     1, 1),
+    ('xcorr+cr', (41, 70), {'lane_shift': 'slice', 'transpose_lanes': 'on',
+                            'block_rows': 8}, 1, 1),
+    ('xcorr+cr', (48, 70), {'stage_mode': 'value', 'shift_mode': 'roll',
+                            'narrow': 'on'}, 1, 1),
+    ('narrow_pairs', (40, 64), {'stage_mode': 'value', 'narrow': 'on',
+                                'lane_shift': 'rotate'}, 1, 1),
+    ('narrow_pairs', (40, 300), {'stage_mode': 'value', 'narrow': 'on',
+                                 'block_rows': 8}, 1, 1),
+    ('heat3d', (20, 12, 40), {'stage_mode': 'value', 'shift_mode': 'roll',
+                              'block_rows': 4}, 1, 1),
+    ('denoise3d', (20, 9, 16), {'stage_mode': 'value', 'block_rows': 2,
+                                'stream_loop': 'peel'}, 1, 1),
+    ('jacobi3d', (24, 16, 16), {'compute_chunk': 3, 'block_rows': 8}, 1, 1),
+    ('jacobi3d', (40, 17, 24), {'compute_chunk': 2, 'stream_loop': 'peel',
+                                'block_rows': 4, 'prefetch': 3}, 1, 1),
+    ('denoise2d', (40, 48), {'stage_mode': 'value', 'shift_mode': 'roll',
+                             'block_rows': 8, 'stream_loop': 'peel',
+                             'out_dma': True}, 1, 1),
+    ('seidel2d', (36, 40), {'stage_mode': 'value', 'shift_mode': 'roll',
+                            'stream_loop': True, 'block_rows': 8}, 2, 1),
+    ('blur', (64, 96), {'stage_mode': 'value', 'shift_mode': 'roll',
+                        'block_rows': 16, 'out_dma': True}, 1, 2),
+    ('multi_output', (29, 35), {'stage_mode': 'value', 'block_rows': 4},
+     1, 1),
+    ('conv_param', (24, 64), {'stage_mode': 'value', 'shift_mode': 'roll',
+                              'block_rows': 4}, 1, 1),
+    ('fuzz204', (8, 16), {'stage_mode': 'value', 'shift_mode': 'roll'},
+     1, 1),
+    ('fuzz207', (8, 16), {'stage_mode': 'value', 'block_rows': 2}, 1, 1),
+    ('fuzz211', (8, 16), {'stage_mode': 'value', 'shift_mode': 'roll',
+                          'block_rows': 4}, 1, 1),
+)
+
+# packed 16-bit stages reading a packed stage at odd minor offsets (the
+# JAX package's tests/test_narrow.py roll case)
+NARROW_PAIRS = '''
+kernel: nrw
+burst width: 64
+unroll factor: 1
+iterate: 1
+border: ignore
+cluster: none
+input int16: a(64, *)
+local int16: t(0, 0) = a(0, 0) + a(0, 3) + a(3, 0)
+output int16: y(0, 0) = int16(t(0, 0) + t(1, 1) + t(2, 2))
+'''
+
+
 def mode_stencil(name: str):
-  """The stencil a ``MODE_CASES`` name stands for: a corpus kernel,
-  ``multi_output``, ``conv_param`` or ``fuzz<seed>``."""
-  texts = {'multi_output': MULTI_OUTPUT, 'conv_param': CONV_PARAM}
+  """The stencil a ``MODE_CASES`` or ``LAYOUT_CASES`` name stands for: a
+  corpus kernel (``+cr``: with greedy computation reuse),
+  ``multi_output``, ``conv_param``, ``narrow_pairs`` or
+  ``fuzz<seed>``."""
+  texts = {'multi_output': MULTI_OUTPUT, 'conv_param': CONV_PARAM,
+           'narrow_pairs': NARROW_PAIRS}
   if name in texts:
     return build_stencil(texts[name])
   if name.startswith('fuzz'):
     return build_stencil(gen_program(int(name[4:])))
+  if name.endswith('+cr'):
+    return build_stencil(CORPUS[name[:-3]],
+                         optimizations={'computation-reuse': 'greedy'})
   return build_stencil(CORPUS[name])
 
 
@@ -220,6 +370,26 @@ def check_outputs(stencil, shape, got, want, context: str,
     if err.size:
       worst = max(worst, float(err.max()))
   return worst
+
+
+def check_exact(stencil, shape, got, want, context: str) -> None:
+  """Bit-for-bit equality of ``got`` and ``want`` on each output's valid
+  region (floats compared as their bits, so equal NaNs match). Raises
+  AssertionError naming the first differing index."""
+  for out in stencil.output_names:
+    region = output_valid_slices(stencil, shape, out)
+    g, w = _numpy(got[out])[region], _numpy(want[out])[region]
+    where = '%s:%s' % (context, out)
+    assert g.dtype == w.dtype and g.shape == w.shape, (where, g.dtype,
+                                                       w.dtype)
+    bits = 'u%d' % g.dtype.itemsize
+    diff = g.view(bits) != w.view(bits)
+    if diff.any():
+      first = tuple(int(i) for i in np.argwhere(diff)[0])
+      raise AssertionError('%s: %d/%d cells differ; first at %s (of the '
+                           'valid region): got %r want %r' % (
+                               where, int(diff.sum()), diff.size, first,
+                               g[first], w[first]))
 
 
 # (name, shape, tile): tile plans that exercise the kernel's geometry

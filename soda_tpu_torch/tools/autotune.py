@@ -103,10 +103,16 @@ def _build_candidates(stencil, shape, candidates) -> None:
 def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
   """The configurations ``tune`` probes: the plan's tile, its axis-0
   extent doubled and quadrupled (where the tile stays within the grid
-  and shared memory); and, at the tile each mode's plan picks, the
-  streaming loop (True and 'peel', each with prefetch 2 and 3) where a
-  CTA would walk more than one tile, split fills on 3-D grids and staged
-  stores. A candidate whose plan does not fit is left out."""
+  and shared memory); at the tile each mode's plan picks, the streaming
+  loop (True and 'peel', each with prefetch 2 and 3) where a CTA would
+  walk more than one tile, split fills on 3-D grids and staged stores;
+  and the JAX tuner's layout candidates (soda_tpu/tools/autotune.py:
+  81-130) at the plan's axis-0 extent and twice it: lane rotates on 2-D
+  rows wider than 256, roll, and roll with transposed lane regions on
+  2-D grids; chunked stage loops (``compute_chunk=8``) at the largest
+  mid tiles where a 3-D grid's cross-section is wider than a tile holds
+  (where the JAX tuner offers them, its oversized cross-sections). A
+  candidate whose plan does not fit is left out."""
   from soda_tpu_torch.backend import tile_plan
 
   base = tile_plan.make_tile_plan(stencil, shape)
@@ -123,6 +129,17 @@ def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
   if len(shape) >= 3:
     cands.append({'dma_split': 2})
   cands.append({'out_dma': True})
+  rows = base.tile[0]
+  roll = {'stage_mode': 'value', 'shift_mode': 'roll'}
+  if len(shape) == 2 and shape[-1] > 256:
+    cands += [{'block_rows': r, 'lane_shift': 'rotate'}
+              for r in (rows, 2 * rows)]
+  cands += [dict(roll, block_rows=r) for r in (rows, 2 * rows)]
+  if len(shape) == 2:
+    cands.append(dict(roll, block_rows=rows, transpose_lanes='on'))
+  if len(shape) == 3 and shape[1] * shape[2] > tile_plan.MAX_TILE_CELLS:
+    mids = [m for m in (8, 16, 32, 64, 128) if m < shape[1]]
+    cands += [{'mid_tile': m, 'compute_chunk': 8} for m in mids[-3:]]
   out = []
   for cfg in cands:
     try:

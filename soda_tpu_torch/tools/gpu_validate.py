@@ -12,8 +12,8 @@ any FAIL or ERROR. All the sweep's kernels are built at once
 
 ``--variants`` adds the optimization variants (``VARIANTS``, as the JAX
 package's) and the kernel-config variants (``EX_VARIANTS``: the JAX
-package's rows in the port's keys), then the contrast float64-truth
-check. ``--cpu`` runs the same matrix through the kernels' plain
+package's rows with their full keys, the layout keys among them), then
+the contrast float64-truth check. ``--cpu`` runs the same matrix through the kernels' plain
 PyTorch versions, as ``--interpret`` runs the JAX gate without a TPU.
 ``--only`` runs the named rows. At these shapes a grid has fewer than
 2 x ``tile_plan.MIN_CTAS`` tiles, so a ``stream_loop`` row walks one
@@ -87,52 +87,63 @@ VARIANTS = (
 
 _GREEDY = {'optimizations': {'computation-reuse': 'greedy'}}
 _DISTRIBUTE = {'optimizations': {'distribute': True}}
-# kernel-config variants: one row per row of the JAX package's
-# EX_VARIANTS (tpu_validate.py:159-241; the line of each is cited), with
-# its tag and stencil overrides. Its structural keys are kept
-# (block_rows, stream_loop, prefetch, dma_split); its VPU-layout keys
-# (stage_mode, shift_mode, transpose_lanes, lane_shift, narrow) map
-# TPU register layouts and have no Hopper form (ROADMAP B item 9), so
-# this table leaves them out.
+# the round-3 roll-shift seeds (value stages, every shifted read a roll)
+ROLL = {'stage_mode': 'value', 'shift_mode': 'roll'}
+# kernel-config variants: the rows of the JAX package's EX_VARIANTS
+# (tpu_validate.py:159-241; the line of each is cited), with their tags,
+# stencil overrides and full keys: the structural ones (block_rows,
+# stream_loop, prefetch, dma_split) and the layout ones (stage_mode,
+# shift_mode, transpose_lanes, lane_shift, narrow), which select the
+# fused kernel's layout forms.
 EX_VARIANTS = (
-    ('jacobi3d+roll', 'jacobi3d', {}, {}),  # :160
-    ('heat3d+roll', 'heat3d', _DISTRIBUTE, {}),  # :161
-    ('seidel2d+roll', 'seidel2d', _GREEDY, {}),  # :163
-    ('xcorr+roll', 'xcorr', _GREEDY, {}),  # :165
-    ('denoise2d+roll', 'denoise2d', {}, {}),  # :167
-    ('denoise3d+roll', 'denoise3d', {}, {'block_rows': 64}),  # :168
-    ('erosion+hybrid', 'erosion', _GREEDY, {'block_rows': 256}),  # :170
-    ('xcorr+hybrid', 'xcorr', _GREEDY, {'block_rows': 256}),  # :173
+    ('jacobi3d+roll', 'jacobi3d', {}, ROLL),  # :160
+    ('heat3d+roll', 'heat3d', _DISTRIBUTE, ROLL),  # :161
+    ('seidel2d+roll', 'seidel2d', _GREEDY, ROLL),  # :163
+    ('xcorr+roll', 'xcorr', _GREEDY, ROLL),  # :165
+    ('denoise2d+roll', 'denoise2d', {}, ROLL),  # :167
+    ('denoise3d+roll', 'denoise3d', {}, dict(ROLL, block_rows=64)),  # :168
+    ('erosion+hybrid', 'erosion', _GREEDY,
+     dict(ROLL, transpose_lanes='on', block_rows=256)),  # :170
+    ('xcorr+hybrid', 'xcorr', _GREEDY,
+     dict(ROLL, transpose_lanes='on', block_rows=256)),  # :173
     # a ragged last tile (512 = 320 + 192)
-    ('xcorr+hybrid320', 'xcorr', _GREEDY, {'block_rows': 320}),  # :178
-    ('blur+roll', 'blur', {}, {'block_rows': 512}),  # :182
-    ('blur+stream_loop', 'blur', {},
-     {'block_rows': 512, 'stream_loop': True}),  # :187
+    ('xcorr+hybrid320', 'xcorr', _GREEDY,
+     dict(ROLL, transpose_lanes='on', block_rows=320,
+          lane_shift='rotate')),  # :178
+    ('blur+roll', 'blur', {}, dict(ROLL, block_rows=512)),  # :182
+    ('blur+stream_loop', 'blur', {}, dict(ROLL, block_rows=512,
+                                          stream_loop=True)),  # :187
     ('jacobi3d+peel', 'jacobi3d', {}, {'stream_loop': 'peel'}),  # :189
     ('jacobi2d+peel', 'jacobi2d', {}, {'stream_loop': 'peel'}),  # :192
     ('seidel2d+roll+peel', 'seidel2d', _GREEDY,
-     {'block_rows': 128, 'stream_loop': 'peel'}),  # :193
+     dict(ROLL, block_rows=128, stream_loop='peel')),  # :193
     ('denoise2d+roll+peel', 'denoise2d', {},
-     {'block_rows': 64, 'stream_loop': 'peel'}),  # :196
+     dict(ROLL, block_rows=64, stream_loop='peel')),  # :196
     ('erosion+hybrid+peel', 'erosion', _GREEDY,
-     {'block_rows': 256, 'stream_loop': 'peel'}),  # :198
+     dict(ROLL, transpose_lanes='on', block_rows=256,
+          stream_loop='peel')),  # :198
     ('jacobi3d+prefetch3', 'jacobi3d', {},
      {'stream_loop': 'peel', 'prefetch': 3}),  # :204
     ('jacobi3d+peel+split', 'jacobi3d', {},
      {'stream_loop': 'peel', 'dma_split': 2}),  # :208
-    ('heat3d+roll+split', 'heat3d', _DISTRIBUTE, {'dma_split': 2}),  # :210
-    ('xcorr+narrow+roll', 'xcorr', _GREEDY, {}),  # :216
+    ('heat3d+roll+split', 'heat3d', _DISTRIBUTE,
+     dict(ROLL, dma_split=2)),  # :210
+    ('xcorr+narrow+roll', 'xcorr', _GREEDY, dict(ROLL, narrow='on')),  # :216
     # a ragged last tile (512 = 352 + 160)
-    ('xcorr+hybrid352', 'xcorr', _GREEDY, {'block_rows': 352}),  # :223
+    ('xcorr+hybrid352', 'xcorr', _GREEDY,
+     dict(ROLL, transpose_lanes='on', block_rows=352,
+          lane_shift='rotate')),  # :223
     ('erosion+hybrid+pf2', 'erosion', _GREEDY,
-     {'block_rows': 512, 'prefetch': 2}),  # :227
-    ('sobel2d+slice+pf2', 'sobel2d', {}, {'prefetch': 2}),  # :231
+     dict(ROLL, transpose_lanes='on', block_rows=512,
+          lane_shift='rotate', prefetch=2)),  # :227
+    ('sobel2d+slice+pf2', 'sobel2d', {},
+     {'lane_shift': 'slice', 'prefetch': 2}),  # :231
     ('denoise3d+roll+pf2', 'denoise3d', {},
-     {'block_rows': 64, 'prefetch': 2}),  # :233
+     dict(ROLL, block_rows=64, prefetch=2)),  # :233
     ('jacobi3d+peel+pf2', 'jacobi3d', {},
      {'stream_loop': 'peel', 'prefetch': 2}),  # :235
     ('denoise3d+peel16', 'denoise3d', {},
-     {'block_rows': 16, 'stream_loop': 'peel'}),  # :239
+     dict(ROLL, block_rows=16, stream_loop='peel')),  # :239
 )
 
 

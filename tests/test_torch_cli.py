@@ -5,8 +5,9 @@ and self-tests against the NumPy oracle, printing the JAX CLI's
 ``INFO: PASS!`` verdict; without it, on a machine with no GPU, it fails
 rather than falling back. ``--backend xla`` (the whole-grid executor)
 and ``--backend sharded`` (``--mesh`` over distinct visible devices)
-pass there too, and so do runs with the fused kernel's modes
-(``--kernel-opt``) and ``--compile-stats`` (the plan's fields; the
+pass there too, and so do runs with the fused kernel's modes and layout
+keys (``--kernel-opt``, the JAX CLI's own example among them) and
+``--compile-stats`` (the plan's fields; the
 card's are null there). ``--tune`` needs the card. Flags of the JAX CLI
 that the port does not have yet exit nonzero naming their ROADMAP item.
 """
@@ -51,12 +52,21 @@ def _run(module, args, tmp_path, name='blur'):
     ('jacobi2d', ['--backend', 'replicated', '--replication-factor', '2',
                   '--kernel-opt', 'out_dma=true']),
     ('denoise2d', ['--cluster', 'coarse', '--kernel-opt', 'tile=8,32']),
+    # the JAX CLI's own --kernel-opt example (soda_tpu/sodac.py:112-113)
+    ('erosion', ['--computation-reuse', 'greedy', '--kernel-opt',
+                 'stage_mode=value', '--kernel-opt', 'shift_mode=roll',
+                 '--kernel-opt', 'transpose_lanes=on']),
+    ('jacobi3d', ['--kernel-opt', 'compute_chunk=2', '--kernel-opt',
+                  'block_rows=4']),
+    ('blur', ['--backend', 'sharded', '--kernel-opt', 'stage_mode=value',
+              '--kernel-opt', 'lane_shift=slice']),
 ], ids=['blur', 'erosion-cr-greedy', 'denoise2d-coarse', 'jacobi2d-replicated',
         'jacobi2d-xla', 'blur-sharded', 'blur-sharded-mesh-1',
         'denoise2d-sharded-preserve', 'blur-kernel-opt-peel',
         'jacobi3d-kernel-opt-peel-prefetch3', 'heat3d-kernel-opt-split-out-dma',
         'blur-sharded-kernel-opt-peel', 'jacobi2d-replicated-kernel-opt',
-        'denoise2d-coarse-kernel-opt-tile'])
+        'denoise2d-coarse-kernel-opt-tile', 'erosion-kernel-opt-jax-example',
+        'jacobi3d-kernel-opt-chunk', 'blur-sharded-kernel-opt-slice'])
 def test_run_passes_on_the_cpu(name, flags, tmp_path):
   shape = ','.join(map(str, corpus.TEST_DIMS[name]))
   r = _run('soda_tpu_torch', ['--run', '--device', 'cpu', '--shape', shape,
@@ -138,8 +148,9 @@ def test_mesh_and_backend_errors_exit_1(flags, message, tmp_path, capsys):
 
 @pytest.mark.parametrize('flags,message', [
     (['--kernel-opt', 'bogus=1'], "unknown --kernel-opt key 'bogus'"),
-    (['--kernel-opt', 'shift_mode=roll'], 'ROADMAP B item 9'),
-    (['--kernel-opt', 'narrow=on'], 'ROADMAP B item 9'),
+    (['--kernel-opt', 'shift_mode=roll', '--kernel-opt', 'stage_mode=vmem'],
+     'shift_mode=roll requires stage_mode=value'),
+    (['--kernel-opt', 'narrow=sometimes'], 'narrow must be auto|on|off'),
     (['--kernel-opt', 'stream_loop'], 'expects KEY=VALUE'),
     (['--kernel-opt', 'stream_loop=peel', '--tune'],
      '--kernel-opt and --tune are mutually exclusive'),

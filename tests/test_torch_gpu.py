@@ -17,8 +17,10 @@ of a mesh's first axis), the whole-grid executor, and sharded execution
 on meshes that repeat the card (the fused kernel once per halo-extended
 shard; overlap 'on' equal to 'off'); the kernel's modes (streaming
 loop, cp.async ring, split fills, staged stores) against their plain
-version and the oracle, compiled statistics read from the card, and the
-tuner end to end. Integers bit-exact, floats within the reference
+version and the oracle, the layout forms (value stages in registers,
+transposed regions, packed 16-bit stages, chunked stage loops) and the
+JAX package's 24 seed configurations against theirs and the oracle,
+compiled statistics read from the card, and the tuner end to end. Integers bit-exact, floats within the reference
 threshold (tests/checks.py).
 """
 
@@ -35,10 +37,11 @@ from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
 from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
-                                    GEOMETRY_CASES, MODE_CASES, MULTI_OUTPUT,
+                                    GEOMETRY_CASES, LAYOUT_CASES, MODE_CASES,
+                                    MULTI_OUTPUT, SEED_CONFIGS, build_cell,
                                     check_outputs, gen_program, make_inputs,
                                     mode_inputs, mode_stencil, repeated_mesh,
-                                    replica_inputs)
+                                    replica_inputs, seed_small)
 
 
 def _need_gpu():
@@ -295,6 +298,79 @@ def test_mode_kernel_matches_its_plain_version(case, monkeypatch):
     with np.errstate(all='ignore'):
       want = reference.run(stencil, grid, params)
     check_outputs(stencil, shape, got, want, '%s %s on gpu' % (name, opts))
+
+
+def _check_layout_on_card(stencil, shape, ex, grids, params, context):
+  """One launch, equal to ``layout_stencil_plain`` run on the card and
+  to the NumPy oracle, per grid."""
+  from soda_tpu_torch.backend.fused import layout_stencil_plain
+  reps = len(grids)
+  batch = (grids[0] if ex.replicas is None else
+           {n: np.stack([g[n] for g in grids]) for n in stencil.input_names})
+  args = ex.prepare(batch, params)
+  outs = ex.fn(*args)
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  n_in = len(stencil.input_names)
+  for r, grid in enumerate(grids):
+    pick = (lambda t: t) if ex.replicas is None else (lambda t, r=r: t[r])
+    got = {o: pick(v) for o, v in zip(stencil.output_names, outs)}
+    plain = layout_stencil_plain(stencil, [pick(a) for a in args[:n_in]],
+                                 args[n_in:], tile=ex.plan)
+    check_outputs(stencil, shape, got, dict(zip(stencil.output_names, plain)),
+                  '%s vs plain on gpu' % context)
+    with np.errstate(all='ignore'):
+      want = reference.run(stencil, grid, params)
+    check_outputs(stencil, shape, got, want, '%s on gpu' % context)
+  assert reps == len(grids)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('case', LAYOUT_CASES,
+                         ids=['%s-%s-%s' % (c[0], 'x'.join(map(str, c[1])),
+                                            '-'.join('%s=%s' % kv for kv in
+                                                     sorted(c[2].items())))
+                              for c in LAYOUT_CASES])
+def test_layout_kernel_matches_its_plain_version(case, monkeypatch):
+  """Each layout form's kernel on the card (L1-L4 on the paths of
+  ``testing.LAYOUT_CASES``): one launch, equal to its plain version and
+  to the NumPy oracle."""
+  _need_gpu()
+  from soda_tpu_torch.backend import tile_plan
+  name, shape, opts, min_ctas, reps = case
+  monkeypatch.setattr(tile_plan, 'MIN_CTAS', min_ctas)
+  stencil = mode_stencil(name)
+  ex = FusedExecutor(stencil, shape, device='cuda',
+                     replicas=None if reps == 1 else reps, **opts)
+  grids = mode_inputs(stencil, name, shape, reps)
+  _check_layout_on_card(stencil, shape, ex, grids,
+                        reference.make_test_params(stencil),
+                        '%s %s' % (name, opts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('index', range(len(SEED_CONFIGS)),
+                         ids=['%s-%d' % (c[0], i % 2)
+                              for i, c in enumerate(SEED_CONFIGS)])
+def test_seed_config_on_the_card(index):
+  """The JAX package's bench seeds (bench.py:51-163) at small shapes: a
+  layout seed against ``layout_stencil_plain``, every seed against the
+  NumPy oracle."""
+  _need_gpu()
+  name, shape, overrides, opts = SEED_CONFIGS[index]
+  small, overrides = seed_small(name, shape, overrides)
+  stencil = build_cell(name, overrides)
+  ex = FusedExecutor(stencil, small, device='cuda', **opts)
+  inputs = reference.make_test_inputs(stencil, small)
+  if ex.plan.layout is not None:
+    _check_layout_on_card(stencil, small, ex, [inputs], {}, '%s %s' % (
+        name, opts))
+    return
+  got = ex(inputs)
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  check_outputs(stencil, small, got, reference.run(stencil, inputs),
+                '%s %s on gpu' % (name, opts))
 
 
 @pytest.mark.gpu

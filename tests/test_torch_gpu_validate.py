@@ -23,14 +23,14 @@ def test_variants_are_the_jax_gates():
 
 
 def test_ex_variants_are_the_jax_rows_in_the_ports_keys():
-  """One row per JAX row, the same tag, kernel and overrides; the
-  structural keys kept, the VPU-layout keys left out."""
+  """One row per JAX row, the same tag, kernel and overrides, and the
+  same keys: the structural ones and the layout ones, which the port's
+  kernel takes as they are."""
   assert len(gpu_validate.EX_VARIANTS) == len(tpu_validate.EX_VARIANTS)
   for port, jax in zip(gpu_validate.EX_VARIANTS, tpu_validate.EX_VARIANTS):
     assert port[:3] == jax[:3]
-    kept = {k: v for k, v in jax[3].items()
-            if k not in tile_plan.LAYOUT_KEYS}
-    assert port[3] == kept, port[0]
+    assert port[3] == jax[3], port[0]
+    assert set(port[3]) <= set(tile_plan.CONFIG_KEYS), port[0]
 
 
 def test_every_row_plans_and_generates():
@@ -44,6 +44,7 @@ def test_every_row_plans_and_generates():
     'blur,contrast,jacobi3d',
     'erosion+cr,blur+coarse,blur+preserve',
     'jacobi3d+peel+split,blur+stream_loop,denoise3d+peel16,xcorr+hybrid320',
+    'erosion+hybrid,xcorr+narrow+roll,sobel2d+slice+pf2,heat3d+roll+split',
 ])
 def test_gate_passes_on_the_cpu(rows, monkeypatch, capsys):
   small = {name: (min(shape[0], 96),) + shape[1:]

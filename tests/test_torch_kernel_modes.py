@@ -7,10 +7,11 @@ takes it on the CPU whenever ``stream_loop`` is set. Each case runs
 the JAX ``PallasExecutor`` / ``MidTiledPallasExecutor`` in interpret
 mode with the same mode, on the cases of tests/test_pallas.py (out_dma,
 stream_loop, prefetch, dma_split), with ``block_rows`` the port's
-``tile[0]`` and ``mid_tile`` its ``tile[1]``; the JAX cases' VPU-layout
-keys (stage_mode, shift_mode, transpose_lanes) have no Hopper form and
-are left out on the port's side. Integers bit-exact, floats within
-tests/checks.py's threshold (1e-4, contrast 1e-3).
+``tile[0]`` and ``mid_tile`` its ``tile[1]``; the JAX cases' layout
+keys (stage_mode, shift_mode, transpose_lanes) go to the port as they
+are and select its layout forms (tests/test_torch_layout.py). Integers
+bit-exact, floats within tests/checks.py's threshold (1e-4, contrast
+1e-3).
 
 ``tile_plan.MIN_CTAS`` is set to 1 for these grids, so one CTA walks a
 whole tile column, as the JAX kernel's ``stream_loop`` walks the whole
@@ -39,7 +40,6 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 TILES = {'jacobi3d': (64, 32, 0), 'blur': (64, 0), 'heat3d': (64, 32, 0),
          'erosion': (64, 0), 'denoise2d': (64, 0)}
-LAYOUT = ('stage_mode', 'shift_mode', 'transpose_lanes')
 
 
 def _jax(name, shape, kw):
@@ -53,9 +53,9 @@ def _jax(name, shape, kw):
 
 
 def _port(name, shape, kw, inputs, min_ctas=1):
-  """The port's executor on the CPU with the same mode (the layout keys
-  left out), and its plan."""
-  opts = {k: v for k, v in kw.items() if k not in LAYOUT}
+  """The port's executor on the CPU with the same mode and keys, and its
+  plan."""
+  opts = dict(kw)
   stencil = build_stencil(corpus.CORPUS[name], tile_size=TILES[name])
   saved = tile_plan.MIN_CTAS
   tile_plan.MIN_CTAS = min_ctas
@@ -275,14 +275,23 @@ def test_validation_errors_match_jax(kw, exc, match):
     ('compute_chunk', 8), ('interpret', True),
 ])
 def test_layout_keys_name_roadmap_b9(key, value):
-  """The JAX kernel's VPU-layout keys exist there and raise here,
-  naming the ROADMAP item where they stay listed."""
+  """The JAX kernel's layout keys (once listed as ROADMAP B item 9) run
+  here as they run there, each on its own, and match the JAX executor;
+  ``interpret`` has no counterpart and raises naming the CPU device."""
   st_jax = jax_api.build_stencil(corpus.CORPUS['jacobi3d'],
                                  tile_size=(64, 32, 0))
-  PallasExecutor(st_jax, (64, 32, 64), **{key: value})
   stencil = build_stencil(corpus.CORPUS['jacobi3d'], tile_size=(64, 32, 0))
-  with pytest.raises(utils.InputError, match='ROADMAP B item 9'):
-    FusedExecutor(stencil, (64, 32, 64), device='cpu', **{key: value})
+  shape = (64, 32, 64)
+  inputs = reference.make_test_inputs(stencil, shape)
+  want = PallasExecutor(st_jax, shape, **{key: value})(inputs)
+  if key == 'interpret':
+    with pytest.raises(utils.InputError, match="device='cpu'"):
+      FusedExecutor(stencil, shape, device='cpu', **{key: value})
+    return
+  got = FusedExecutor(stencil, shape, device='cpu', **{key: value})(inputs)
+  check_outputs(stencil, shape, {k: v.numpy() for k, v in got.items()},
+                {k: np.asarray(v) for k, v in want.items()},
+                'jacobi3d %s=%s' % (key, value))
 
 
 def test_unknown_key_is_a_type_error():
