@@ -106,6 +106,23 @@ seconds:
    the default kernel's, bound and share, the plain version's time,
    back-to-back device microseconds, and the registers, spills and CTAs
    per SM the card reports.
+16. experiments: the H100 counterparts of the JAX package's experiment
+   probes (exp27, exp30: the streaming probe; exp24, exp45: the chain
+   probe; both sources built in phase 2's nvcc batch). Their entry
+   points (``soda_tpu_torch.experiments.<name>.run``) with every probe
+   counter reset just before and read just after: each of the 13
+   streaming cases at 256^3 float32 (held against x + 1; cold-L2 ms,
+   share of the byte bound, microseconds per step per CTA and back to
+   back) and each of the 37 chain bodies (kernel against its plain
+   version at 1, 2, 5 and CHAIN_N_SMALL iterations, microseconds per
+   iteration as the slope from CHAIN_N_SMALL to CHAIN_N_BIG, grid
+   barriers, the operation bound); each entry point is one run, so a
+   case's launches are its own. Then each streaming case against
+   ``stream_probe_plain`` (walking the card's schedule) bit for bit
+   beside ``torch.add``'s time, and each chain body against
+   ``chain_probe_plain`` at 1, 2, 5 and CHAIN_N_SMALL iterations (int32
+   bit-exact, float32 within ``probes.CHAIN_RTOL`` relative; the largest
+   error is the record's).
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
@@ -150,6 +167,10 @@ TOOL_CLI_RUNS = (
 )
 TUNED = ('blur', 'jacobi3d')
 COMPILED = ('blur', 'contrast')
+# the chain probes' iterations: timed from N_SMALL (checked there too,
+# and at probes.CHECK_ITERS), slope to N_BIG (the scripts' 16384 would
+# take minutes here)
+CHAIN_N_SMALL, CHAIN_N_BIG = 64, 2048
 
 
 def say(*parts):
@@ -181,6 +202,10 @@ def main() -> int:
                                             replicated_stencil_plain,
                                             streamed_stencil_plain)
   from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
+  from soda_tpu_torch.experiments import (exp24_stage_tax, exp27_gridloop,
+                                          exp30_dma_granularity,
+                                          exp45_transcendental_tax)
+  from soda_tpu_torch.experiments import probes as exp_probes
   from soda_tpu_torch.model.compiled import compiled_stats
   from soda_tpu_torch.parallel import replicate, spmd
   from soda_tpu_torch.tools import autotune, gpu_validate
@@ -271,6 +296,8 @@ def main() -> int:
     sources += gpu_validate.sources(name, variants, opts, gate_stencils)
   sources += gpu_validate.sources('contrast', gpu_validate.F64_VARIANTS,
                                   cache=gate_stencils)
+  # the experiment probes' two hand-written sources (phase 16)
+  sources += [build.csrc_source(name) for name in exp_probes.SOURCES]
   sources = list({src.digest: src for src in sources}.values())
   t = time.time()
   build.build_all(sources)
@@ -928,6 +955,122 @@ def main() -> int:
     del args
     torch.cuda.empty_cache()
   say('[layout] %d rows (%.1fs)' % (len(layout_rows), time.time() - t15))
+
+  # 16. experiments: the streaming and chain probes through the
+  # experiment entry points, every probe counter reset just before
+  t16 = time.time()
+
+  def log16(line):
+    say('[experiments] ' + line)
+
+  for name in exp_probes.SOURCES:
+    report = build.ptxas_report(build.csrc_source(name))
+    spills = sorted(entry for entry, r in report.items()
+                    if r['spill_stores'] or r['spill_loads'])
+    log16('%s: %d entries, registers %d-%d, spills in %s' % (
+        name, len(report), min(r['registers'] for r in report.values()),
+        max(r['registers'] for r in report.values()), spills or 'none'))
+
+  def drive(run, *args):
+    """One entry point's run, every probe counter reset just before and
+    read just after: its rows and the launches of each configuration."""
+    exp_probes.LAUNCHES.clear()
+    rows = run('cuda', *args, log=log16)
+    torch.cuda.synchronize()
+    return rows, dict(exp_probes.LAUNCHES)
+
+  stream_rows = {}
+  for module, cases, line in ((exp27_gridloop, exp_probes.EXP27_CASES, 122),
+                              (exp30_dma_granularity, exp_probes.EXP30_CASES,
+                               110)):
+    script = module.__name__.split('.')[-1]
+    rows, launched = drive(module.run)
+    for case, row in zip(cases, rows):
+      stream_rows[case] = (row, launched.get(case.key, 0), script,
+                           'experiments/%s.py:%d' % (script, line))
+  chain_rows = {}
+  for module, flag in ((exp24_stage_tax, False), (exp24_stage_tax, True),
+                       (exp45_transcendental_tax, False),
+                       (exp45_transcendental_tax, True)):
+    rows, launched = drive(module.run, flag, CHAIN_N_SMALL, CHAIN_N_BIG)
+    for row in rows:
+      chain_rows.setdefault(row['body'], (
+          row, launched.get(('probe_chain', row['body']), 0)))
+  log16('main path: %d launches (%.1fs)' % (
+      sum(n for _, n, _, _ in stream_rows.values()) +
+      sum(n for _, n in chain_rows.values()), time.time() - t16))
+  for name, n in ([(case.name, n) for case, (_, n, _, _) in
+                   stream_rows.items()] +
+                  [(name, n) for name, (_, n) in chain_rows.items()]):
+    if n < 1:
+      raise RuntimeError('%s: the experiments launched no kernel' % name)
+  bad = [row['case'] for row, _, _, _ in stream_rows.values()
+         if not row['ok']] + [b for b, (row, _) in chain_rows.items()
+                              if not row['ok']]
+  if bad or len(chain_rows) != len(exp_probes.CHAIN_BODIES):
+    raise RuntimeError('experiments: wrong results in %s' % bad)
+
+  x = exp_probes.stream_input(256, 'cuda')
+  lib_out = torch.empty_like(x)
+  lib_ms = statistics.median(profiling.cuda_times_ms(
+      lambda: torch.add(x, 1.0, out=lib_out), reps=KERNEL_REPS))
+  for case, (row, launches, script, replaces) in stream_rows.items():
+    t = time.time()
+    args = (case.kind, case.blk, case.split, case.depth)
+    got = exp_probes.stream_probe(x, *args)
+    plain = lambda: exp_probes.stream_probe_plain(x, *args, ctas=row['ctas'])
+    want = plain()
+    err, _ = exp_probes.max_error(got, want)
+    if err != 0 or not torch.equal(got, want):
+      raise RuntimeError('%s: stream probe differs from its plain version'
+                         % case.name)
+    p_ms = profiling.cuda_times_ms(plain, reps=1, warmup=0)[0]
+    kernels.append({
+        'name': 'probe_stream[%s %s]' % (script.split('_')[0], case.name),
+        'route': 'cuda', 'source': 'soda_tpu_torch/csrc/probe_stream.cu',
+        'replaces': replaces, 'launches': launches,
+        'max_abs_err': err, 'ms': row['ms'], 'plain_ms': p_ms,
+        'bound_ms': row['bound_ms'], 'bound_by': 'bytes',
+        'library_ms': lib_ms})
+    log16('%-18s == stream_probe_plain bit for bit; %.4f ms, bound %.4f ms '
+          '(share %.3f), %.3f us/step (%d CTAs x %d), back to back %.2f us, '
+          'plain %.1f ms, torch.add %.4f ms (%.1fs) | %s' % (
+              case.name, row['ms'], row['bound_ms'],
+              row['bound_ms'] / row['ms'], row['step_us'], row['ctas'],
+              row['steps'], row['b2b_us'], p_ms, lib_ms, time.time() - t,
+              smi))
+  del x, lib_out, got, want
+  torch.cuda.empty_cache()
+  for name, body in exp_probes.CHAIN_BODIES.items():
+    row, launches = chain_rows[name]
+    x = exp_probes.chain_input(body.dtype, 'cuda')
+    abs_err, rel_err = exp_probes.chain_check(
+        x, body, exp_probes.CHECK_ITERS + (CHAIN_N_SMALL,))
+    plain = lambda: exp_probes.chain_probe_plain(x, body, CHAIN_N_SMALL)
+    if not exp_probes.chain_ok(body, abs_err, rel_err):
+      raise RuntimeError('%s: chain probe differs from its plain version '
+                         '(%g, relative %g)' % (name, abs_err, rel_err))
+    p_ms = profiling.cuda_times_ms(plain, reps=1, warmup=0)[0]
+    line = 75 if body.experiment == 'exp24' else 71
+    script = ('exp24_stage_tax' if body.experiment == 'exp24' else
+              'exp45_transcendental_tax')
+    kernels.append({
+        'name': 'probe_chain[%s %s]' % (body.experiment, name),
+        'route': 'cuda', 'source': 'soda_tpu_torch/csrc/probe_chain.cu',
+        'replaces': 'experiments/%s.py:%d' % (script, line),
+        'launches': launches, 'max_abs_err': abs_err,
+        'ms': row['us'] / 1e3, 'plain_ms': p_ms / CHAIN_N_SMALL,
+        'bound_ms': row['bound_ms'], 'bound_by': 'operations',
+        'library_ms': None})
+    log16('%-14s == chain_probe_plain (n=%s, max |err| %.3g, relative %.3g);'
+          ' per iteration %.3f us, bound %.3f us (%s), plain %.1f us, %d '
+          'barriers, %d CTAs | %s' % (
+              name, ','.join(map(str, exp_probes.CHECK_ITERS +
+                                 (CHAIN_N_SMALL,))), abs_err, rel_err,
+              row['us'], row['bound_ms'] * 1e3, row['bound_by'],
+              p_ms * 1e3 / CHAIN_N_SMALL, body.barriers, row['ctas'], smi))
+  log16('%d streaming cases, %d chain bodies (%.1fs)' % (
+      len(stream_rows), len(exp_probes.CHAIN_BODIES), time.time() - t16))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

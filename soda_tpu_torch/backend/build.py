@@ -1,4 +1,4 @@
-"""Build a generated kernel with ``nvcc`` and bind it with ctypes.
+"""Build a kernel with ``nvcc`` and bind it with ctypes.
 
 The counterpart of the compile-cache role of soda_tpu/cache.py: a
 kernel's shared library lives in ``build/soda_tpu_torch/<key>/`` under
@@ -6,7 +6,10 @@ the repository root, where ``key`` hashes the source, the shared header
 and the compiler's version, so a library is built once and reused by
 every later process. A file lock serialises builds of one key (test
 workers and repeated runs share the directory); ``build_all`` runs one
-``nvcc`` per source, all at once.
+``nvcc`` per source, all at once. A generated kernel binds through
+``CompiledKernel``; a source written by hand in ``csrc/``
+(``csrc_source``) through ``load_library`` and ``bind``, with every
+argument type given.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``--fmad=false`` so every float
 operation rounds on its own, as the NumPy oracle's do. No
@@ -147,23 +150,45 @@ def build_all(kernels: Sequence[KernelSource]) -> List[pathlib.Path]:
     return list(pool.map(build, kernels))
 
 
+def csrc_source(name: str) -> KernelSource:
+  """The hand-written source ``csrc/<name>`` as a KernelSource (its
+  digest hashes the text), for ``build``, ``build_all`` and
+  ``load_library``."""
+  text = (CSRC_DIR / name).read_text()
+  return KernelSource(text, hashlib.sha256(text.encode()).hexdigest()[:16])
+
+
+def load_library(kernel: KernelSource) -> ctypes.CDLL:
+  """``kernel``'s shared library, built if need be, loaded once per
+  process."""
+  key = str(build(kernel))
+  if key not in _LOADED:
+    _LOADED[key] = ctypes.CDLL(key)
+  return _LOADED[key]
+
+
+def bind(lib: ctypes.CDLL, symbol: str, argtypes: Sequence[object],
+         restype: object = ctypes.c_int):
+  """``lib``'s C function ``symbol`` with its argument and result types
+  set. Every argument type must be given: ctypes passes an untyped
+  Python int as a 32-bit int, which cuts a pointer."""
+  fn = getattr(lib, symbol)
+  fn.argtypes = list(argtypes)
+  fn.restype = restype
+  return fn
+
+
 class CompiledKernel:
   """A built kernel's launch entry point, bound with ctypes."""
 
   def __init__(self, kernel: KernelSource, n_pointers: int):
-    path = build(kernel)
-    key = str(path)
-    if key not in _LOADED:
-      _LOADED[key] = ctypes.CDLL(key)
-    lib = _LOADED[key]
+    lib = load_library(kernel)
     self.source = kernel
-    self._launch = getattr(lib, kernel.launch_symbol)
-    self._launch.argtypes = ([ctypes.c_void_p] * n_pointers +
-                             [ctypes.c_longlong, ctypes.c_void_p])
-    self._launch.restype = ctypes.c_int
-    self._error = getattr(lib, kernel.error_symbol)
-    self._error.argtypes = [ctypes.c_int]
-    self._error.restype = ctypes.c_char_p
+    self._launch = bind(lib, kernel.launch_symbol,
+                        [ctypes.c_void_p] * n_pointers +
+                        [ctypes.c_longlong, ctypes.c_void_p])
+    self._error = bind(lib, kernel.error_symbol, [ctypes.c_int],
+                       ctypes.c_char_p)
 
   def launch(self, pointers: Sequence[int], replicas: int,
              stream: int) -> None:

@@ -14,7 +14,9 @@ slices in the kernel's stage order, and stores the same valid regions.
 ``layout_stencil_plain`` the layout forms' (warp windows, rolls,
 transposes, narrow stages, chunks). ``FusedExecutor`` takes them only
 for tensors on the CPU; on a CUDA device it launches the kernel or
-raises.
+raises. The default and streamed walks build every window, stage value
+and output out of place, so they compose with ``torch.func.vmap`` (the
+whole-grid executor runs ``fused_stencil_plain``).
 
 With ``replicas=R`` the executor runs R independent grids per call,
 stacked on a leading axis, in one launch (the kernel's second grid
@@ -58,8 +60,17 @@ def _box(plan: TilePlan, name: str, origin: Sequence[int]
   return tuple(box)
 
 
+def _pad(value: torch.Tensor, pads: Sequence[Tuple[int, int]]
+         ) -> torch.Tensor:
+  """``value`` with ``pads[a]`` zero cells before and after it on each
+  axis ``a``: a new tensor, built out of place (composes with
+  ``torch.func.vmap``)."""
+  return torch.constant_pad_nd(
+      value, [n for before_after in reversed(pads) for n in before_after])
+
+
 def _window(plan: TilePlan, name: str, origin: Sequence[int],
-            inputs: Dict[str, torch.Tensor], device: torch.device,
+            inputs: Dict[str, torch.Tensor],
             rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
   """Rows ``rows`` (axis-0 window rows; default all) of ``name``'s
   window around the tile at ``origin``, zero outside the array."""
@@ -68,15 +79,15 @@ def _window(plan: TilePlan, name: str, origin: Sequence[int],
   first = 0
   if rows is not None:
     first, ext[0] = rows[0], rows[1] - rows[0]
-  buf = torch.zeros(ext, dtype=inputs[name].dtype, device=device)
-  src, dst = [], []
+  src, pads = [], []
   for a in range(plan.dim):
     base = origin[a] - neg[a] + (first if a == 0 else 0)
-    g0, g1 = max(base, 0), min(base + ext[a], plan.shape[a])
-    src.append(slice(g0, max(g0, g1)))
-    dst.append(slice(g0 - base, max(g0, g1) - base))
-  buf[tuple(dst)] = inputs[name][tuple(src)]
-  return buf
+    g0 = max(base, 0)
+    g1 = max(g0, min(base + ext[a], plan.shape[a]))
+    before = min(g0 - base, ext[a])
+    src.append(slice(g0, g1))
+    pads.append((before, ext[a] - before - (g1 - g0)))
+  return _pad(inputs[name][tuple(src)], pads)
 
 
 def _chunks(box: Tuple[slice, ...], chunk: Optional[int]
@@ -94,30 +105,34 @@ def _chunks(box: Tuple[slice, ...], chunk: Optional[int]
 
 def _run_tile(plan: TilePlan, origin: Sequence[int],
               inputs: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
-              outs: Dict[str, torch.Tensor], readers: Dict[str, int],
-              device: torch.device,
-              windows: Optional[Dict[str, torch.Tensor]] = None) -> None:
-  """Evaluate every stage over the tile at ``origin`` and store its
-  outputs; input windows are loaded here unless ``windows`` gives
-  them. Under ``compute_chunk`` each stage is evaluated chunk by
-  chunk, as the kernel's stage loops walk it."""
+              readers: Dict[str, int], device: torch.device,
+              windows: Optional[Dict[str, torch.Tensor]] = None
+              ) -> Dict[str, torch.Tensor]:
+  """Evaluate every stage over the tile at ``origin``; returns each
+  output's block: the tile's cells inside the array, zero outside the
+  output's valid region. Input windows are loaded here unless
+  ``windows`` gives them. Under ``compute_chunk`` each stage is
+  evaluated chunk by chunk, as the kernel's stage loops walk it. Every
+  value is built out of place (``_pad``, ``torch.cat``)."""
   chunk = plan.layout.compute_chunk if plan.layout is not None else None
   stencil = plan.stencil
   dim = plan.dim
+  tile_ext = [min(t, n - o) for t, n, o in zip(plan.tile, plan.shape, origin)]
 
   bufs: Dict[str, torch.Tensor] = {}
   for name in stencil.input_names:
     if name in readers:
       bufs[name] = (windows[name] if windows is not None else
-                    _window(plan, name, origin, inputs, device))
+                    _window(plan, name, origin, inputs))
 
+  blocks: Dict[str, torch.Tensor] = {}
   for idx, stage in enumerate(plan.stages):
     name = stage.name
     neg = plan.spans[name][0]
+    ext = plan.extent(name)
+    dtype = semantics.repr_dtype(stage.dtype)
     box = _box(plan, name, origin)
-    value = torch.zeros(plan.extent(name),
-                        dtype=semantics.repr_dtype(stage.dtype),
-                        device=device)
+    parts = []
     for part in (_chunks(box, chunk) if box is not None else ()):
       st_idx = stage.tensor.st_idx
 
@@ -136,24 +151,55 @@ def _run_tile(plan: TilePlan, origin: Sequence[int],
 
       ev = semantics.Evaluator(load, param=param, device=device)
       v, vt = ev.eval_stmt(stage.tensor)
-      v = semantics.wrap(v, stage.dtype, vt, device)
-      value[part] = v
+      v = semantics.wrap(v, stage.dtype, vt, device).to(dtype)
+      shape = [s.stop - s.start for s in part]
+      parts.append(v if list(v.shape) == shape else v.expand(shape))
+    if box is None:
+      value = torch.zeros(ext, dtype=dtype, device=device)
+    else:
+      value = parts[0] if len(parts) == 1 else torch.cat(parts)
+      pads = [(s.start, e - s.stop) for s, e in zip(box, ext)]
+      if any(n for before_after in pads for n in before_after):
+        value = _pad(value, pads)
     if name in readers:
       bufs[name] = value
-    if name in outs and box is not None:
-      tile_box = []
-      for a in range(dim):
-        start = max(box[a].start, neg[a])
-        stop = min(box[a].stop, neg[a] + plan.tile[a])
-        tile_box.append(slice(start, stop))
-      if all(s.start < s.stop for s in tile_box):
-        glob = tuple(slice(origin[a] - neg[a] + s.start,
-                           origin[a] - neg[a] + s.stop)
-                     for a, s in enumerate(tile_box))
-        outs[name][glob] = value[tuple(tile_box)]
+    if name in stencil.output_names:
+      blocks[name] = value[tuple(slice(n, n + t)
+                                 for n, t in zip(neg, tile_ext))]
     for parent in stage.load_offsets:
       if readers.get(parent) == idx:
         bufs.pop(parent, None)
+  return blocks
+
+
+def _join(plan: TilePlan, tiles: Dict[Tuple[int, ...], Dict[str, torch.Tensor]],
+          name: str, prefix: Tuple[int, ...] = ()) -> torch.Tensor:
+  """Output ``name`` over the tiles whose grid index starts with
+  ``prefix``: their blocks concatenated along the next axis."""
+  axis = len(prefix)
+  return torch.cat([tiles[prefix + (i,)][name] if axis == plan.dim - 1
+                    else _join(plan, tiles, name, prefix + (i,))
+                    for i in range(plan.grid[axis])], dim=axis)
+
+
+def _assemble(plan: TilePlan, tiles: Dict[Tuple[int, ...],
+                                          Dict[str, torch.Tensor]]
+              ) -> Dict[str, torch.Tensor]:
+  """Each output over the whole grid from its tiles' blocks (``tiles``
+  maps a tile's grid index to ``_run_tile``'s result): a ``torch.cat``
+  of the blocks along each axis, or a contiguous copy of a lone tile's
+  block; a new tensor either way. (No nested function: a recursive
+  closure is a reference cycle that would hold every block until the
+  garbage collector runs.)"""
+  outs = {}
+  for name in plan.stencil.output_names:
+    if len(tiles) == 1:
+      (blocks,) = tiles.values()
+      whole = blocks[name].clone(memory_format=torch.contiguous_format)
+    else:
+      whole = _join(plan, tiles, name)
+    outs[name] = whole.to(semantics.repr_dtype(plan.stencil.symbol_table[name]))
+  return outs
 
 
 def fused_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
@@ -174,16 +220,13 @@ def fused_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
   shape = tuple(inputs[0].shape)
   plan = tile if tile is not None else make_tile_plan(stencil, shape, shape)
   device = inputs[0].device
-  ins = {name: semantics.to_repr(t, stencil.symbol_table[name])
-         for name, t in zip(stencil.input_names, inputs)}
-  pars = {stmt.name: semantics.to_repr(t, stmt.dtype)
-          for stmt, t in zip(stencil.param_stmts, params)}
-  outs = {name: torch.zeros(shape, device=device, dtype=semantics.repr_dtype(
-      stencil.symbol_table[name])) for name in stencil.output_names}
+  ins, pars = _repr_args(stencil, inputs, params)
   readers = last_readers(plan.stages)
+  tiles = {}
   for index in np.ndindex(*plan.grid):
     origin = tuple(int(i) * t for i, t in zip(index, plan.tile))
-    _run_tile(plan, origin, ins, pars, outs, readers, device)
+    tiles[index] = _run_tile(plan, origin, ins, pars, readers, device)
+  outs = _assemble(plan, tiles)
   return tuple(semantics.to_storage(outs[n], stencil.symbol_table[n])
                for n in stencil.output_names)
 
@@ -206,8 +249,7 @@ def _check_steady(plan: TilePlan, origin: Sequence[int]) -> None:
                                 % (origin, stage.name))
 
 
-def _stream_walk(plan: TilePlan, ins: Dict[str, torch.Tensor],
-                 device: torch.device
+def _stream_walk(plan: TilePlan, ins: Dict[str, torch.Tensor]
                  ) -> Iterator[Tuple[Tuple[int, ...], Dict[str, torch.Tensor]]]:
   """(origin, input windows) of every step of the mode kernels' walk:
   per CTA (a tile column on the axes after the first, and a run of
@@ -232,15 +274,19 @@ def _stream_walk(plan: TilePlan, ins: Dict[str, torch.Tensor],
         origin = (k * t0,) + rest
         for name in buffered:
           if plan.fill_class(name, k, first) == 'full':
-            windows[name] = _window(plan, name, origin, ins, device)
+            windows[name] = _window(plan, name, origin, ins)
             continue
           halo = plan.halo0(name)
-          new = _window(plan, name, origin, ins, device,
+          new = _window(plan, name, origin, ins,
                         rows=(halo, plan.extent(name)[0]))
           windows[name] = torch.cat([windows[name][t0:t0 + halo], new])
         if plan.peel and first < k < last - 1 and k_lo <= k <= k_hi:
           _check_steady(plan, origin)
         yield origin, windows
+
+
+def _grid_index(plan: TilePlan, origin: Sequence[int]) -> Tuple[int, ...]:
+  return tuple(o // t for o, t in zip(origin, plan.tile))
 
 
 def _repr_args(stencil, inputs, params):
@@ -272,10 +318,11 @@ def streamed_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
     raise ValueError('streamed_stencil_plain walks a tile plan; pass one')
   device = inputs[0].device
   ins, pars = _repr_args(stencil, inputs, params)
-  outs = _zero_outputs(stencil, plan.shape, device)
   readers = last_readers(plan.stages)
-  for origin, windows in _stream_walk(plan, ins, device):
-    _run_tile(plan, origin, ins, pars, outs, readers, device, windows)
+  tiles = {_grid_index(plan, origin): _run_tile(plan, origin, ins, pars,
+                                                readers, device, windows)
+           for origin, windows in _stream_walk(plan, ins)}
+  outs = _assemble(plan, tiles)
   return tuple(semantics.to_storage(outs[n], stencil.symbol_table[n])
                for n in stencil.output_names)
 
@@ -285,19 +332,18 @@ def streamed_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
 _BATCH_CELLS = 1 << 24
 
 
-def _tile_windows(plan: TilePlan, ins: Dict[str, torch.Tensor],
-                  device: torch.device
+def _tile_windows(plan: TilePlan, ins: Dict[str, torch.Tensor]
                   ) -> Iterator[Tuple[Tuple[int, ...], Dict[str, torch.Tensor]]]:
   """(origin, input windows) of every tile as the kernel fills it: the
   mode kernels' walk under ``stream_loop``, else one window per tile."""
   if plan.config.stream_loop:
-    for origin, windows in _stream_walk(plan, ins, device):
+    for origin, windows in _stream_walk(plan, ins):
       yield origin, dict(windows)
     return
   readers = last_readers(plan.stages)
   for index in np.ndindex(*plan.grid):
     origin = tuple(int(i) * t for i, t in zip(index, plan.tile))
-    yield origin, {name: _window(plan, name, origin, ins, device)
+    yield origin, {name: _window(plan, name, origin, ins)
                    for name in plan.stencil.input_names if name in readers}
 
 
@@ -495,12 +541,14 @@ def layout_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
     raise ValueError('layout_stencil_plain walks a layout plan; pass one')
   device = inputs[0].device
   ins, pars = _repr_args(stencil, inputs, params)
-  outs = _zero_outputs(stencil, plan.shape, device)
   readers = last_readers(plan.stages)
   if plan.warp is None:
-    for origin, windows in _tile_windows(plan, ins, device):
-      _run_tile(plan, origin, ins, pars, outs, readers, device, windows)
+    outs = _assemble(plan, {
+        _grid_index(plan, origin): _run_tile(plan, origin, ins, pars, readers,
+                                             device, windows)
+        for origin, windows in _tile_windows(plan, ins)})
   else:
+    outs = _zero_outputs(stencil, plan.shape, device)
     per_tile = plan.warp.n_blocks(plan.tile) * _prod_rows(plan)
     batch = max(1, _BATCH_CELLS // per_tile)
     origins, stacks = [], {}
@@ -514,7 +562,7 @@ def layout_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
       del origins[:]
       stacks.clear()
 
-    for origin, windows in _tile_windows(plan, ins, device):
+    for origin, windows in _tile_windows(plan, ins):
       origins.append(origin)
       for name, w in windows.items():
         stacks.setdefault(name, []).append(w)

@@ -1,0 +1,14 @@
+"""The H100 counterparts of the JAX package's experiment probes.
+
+Each module here is named after the script in ``experiments/`` whose
+Pallas probe it ports, runs the same cases and prints one line per case:
+
+    python -m soda_tpu_torch.experiments.exp27_gridloop [--device cpu]
+    python -m soda_tpu_torch.experiments.exp30_dma_granularity
+    python -m soda_tpu_torch.experiments.exp24_stage_tax [--dists]
+    python -m soda_tpu_torch.experiments.exp45_transcendental_tax [--decompose]
+
+``--device cuda`` (the default) launches the kernels of ``probes.py``
+and exits 1 without a card; ``--device cpu`` runs their plain versions
+and prints their check.
+"""

@@ -25,8 +25,8 @@ import torch
 from soda_tpu_torch.ir import nodes as ir
 
 __all__ = ['back_to_back_us', 'bound_ms', 'cuda_times_ms', 'device_report',
-           'nvidia_smi_line', 'op_count', 'stream_bytes', 'sync_count',
-           'trace']
+           'max_sm_clock_hz', 'nvidia_smi_line', 'op_count', 'stream_bytes',
+           'sync_count', 'trace']
 
 # bytes written between timed calls: four times the H100's 50 MB L2
 _FLUSH_BYTES = 200 * 2**20
@@ -191,6 +191,18 @@ def nvidia_smi_line() -> str:
       [smi, '--query-gpu=name,power.limit', '--format=csv,noheader'],
       stdout=subprocess.PIPE, text=True, check=True, timeout=60).stdout
   return out.strip().splitlines()[0]
+
+
+def max_sm_clock_hz() -> float:
+  """The card's maximum SM clock in Hz, as
+  ``nvidia-smi --query-gpu=clocks.max.sm`` reports it (first card)."""
+  smi = shutil.which('nvidia-smi')
+  if smi is None:
+    raise RuntimeError('nvidia-smi not found: the SM clock cannot be read')
+  out = subprocess.run(
+      [smi, '--query-gpu=clocks.max.sm', '--format=csv,noheader,nounits'],
+      stdout=subprocess.PIPE, text=True, check=True, timeout=60).stdout
+  return float(out.strip().splitlines()[0]) * 1e6
 
 
 def device_report() -> Dict[str, str]:

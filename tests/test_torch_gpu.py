@@ -21,7 +21,9 @@ version and the oracle, the layout forms (value stages in registers,
 transposed regions, packed 16-bit stages, chunked stage loops) and the
 JAX package's 24 seed configurations against theirs and the oracle,
 compiled statistics read from the card, and the tuner end to end. Integers bit-exact, floats within the reference
-threshold (tests/checks.py).
+threshold (tests/checks.py). Last, the experiment probes' two kernels
+(streaming and chain) against their plain versions, every launch
+counted.
 """
 
 import numpy as np
@@ -34,6 +36,7 @@ from soda_tpu_torch.backend import reference
 from soda_tpu_torch.backend.fused import FusedExecutor
 from soda_tpu_torch.backend.grouped import GroupedExecutor
 from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
+from soda_tpu_torch.experiments import probes
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
 from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
@@ -428,3 +431,54 @@ def test_tune_on_the_card(tmp_path, monkeypatch):
   assert ex.launches == 1
   check_outputs(stencil, shape, got, reference.run(stencil, inputs),
                 'blur tuned on gpu')
+
+
+# -- the experiment probes (soda_tpu_torch/experiments/probes.py) ----------
+
+_STREAM_CASES = probes.EXP27_CASES + probes.EXP30_CASES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('tiles', [None, 13])
+@pytest.mark.parametrize('case', _STREAM_CASES,
+                         ids=[c.name for c in _STREAM_CASES])
+def test_stream_probe_on_the_card(case, tiles):
+  """Each exp27/exp30 case: one launch, bit for bit equal to its plain
+  version walking the card's schedule and to x + 1, on the scripts'
+  64^3 input and on 13 tiles (ragged runs)."""
+  _need_gpu()
+  args = (case.kind, case.blk, case.split, case.depth)
+  if tiles is None:
+    x = probes.stream_input(64, 'cuda')
+  else:
+    x = torch.randn(tiles * case.blk * 1024, device='cuda')
+  before = probes.LAUNCHES[case.key]
+  got = probes.stream_probe(x, *args)
+  torch.cuda.synchronize()
+  assert probes.LAUNCHES[case.key] == before + 1
+  ctas = probes.stream_ctas(*args[:2], case.split, case.depth,
+                            x.numel() // (case.blk * 1024), x.device)
+  assert torch.equal(got, probes.stream_probe_plain(x, *args, ctas=ctas))
+  assert torch.equal(got, x + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', sorted(probes.CHAIN_BODIES))
+def test_chain_probe_on_the_card(name):
+  """Each exp24/exp45 body at 1, 2 and 5 iterations (both ping-pong
+  parities): one launch each, int32 bit for bit and float32 within
+  CHAIN_RTOL of the plain version on the card."""
+  _need_gpu()
+  body = probes.CHAIN_BODIES[name]
+  x = probes.chain_input(body.dtype, 'cuda')
+  for n in probes.CHECK_ITERS:
+    before = probes.LAUNCHES[('probe_chain', name)]
+    got = probes.chain_probe(x, body, n)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[('probe_chain', name)] == before + 1
+    abs_err, rel_err = probes.max_error(got, probes.chain_probe_plain(
+        x, body, n))
+    if body.dtype == torch.int32:
+      assert abs_err == 0, (name, n, abs_err)
+    else:
+      assert rel_err <= probes.CHAIN_RTOL, (name, n, rel_err)
