@@ -20,8 +20,10 @@ seconds:
    kernels plus jacobi3d at 256^3, with the benchmark's shapes and
    stencil overrides), the grouped cells' per-group kernels, the small
    replicated grid's kernel and the sharded cells' kernels at their
-   halo-extended shard shapes: one nvcc per source, all at once. Each
-   cell must dispatch to the fused kernel under 'auto'.
+   halo-extended shard shapes, the mode, tuner, layout and gate kernels,
+   the three hand-written probe sources (``probes.SOURCES``) and the fused
+   kernels phase 17 runs: one nvcc per source, all at once. Each cell
+   must dispatch to the fused kernel under 'auto'.
 3. main path: every cell once through ``executor(inputs)``, with every
    launch counter reset just before and read just after.
 4. kernel vs plain: each kernel against its plain PyTorch version
@@ -108,7 +110,7 @@ seconds:
    per SM the card reports.
 16. experiments: the H100 counterparts of the JAX package's experiment
    probes (exp27, exp30: the streaming probe; exp24, exp45: the chain
-   probe; both sources built in phase 2's nvcc batch). Their entry
+   probe; built in phase 2's nvcc batch). Their entry
    points (``soda_tpu_torch.experiments.<name>.run``) with every probe
    counter reset just before and read just after: each of the 13
    streaming cases at 256^3 float32 (held against x + 1; cold-L2 ms,
@@ -116,17 +118,41 @@ seconds:
    back) and each of the 37 chain bodies (kernel against its plain
    version at 1, 2, 5 and CHAIN_N_SMALL iterations, microseconds per
    iteration as the slope from CHAIN_N_SMALL to CHAIN_N_BIG, grid
-   barriers, the operation bound); each entry point is one run, so a
-   case's launches are its own. Then each streaming case against
+   barriers, the operation bound; exp24's shift chains run in the narrow
+   probe's strip kernel); each entry point is one run, so a case's
+   launches are its own. Then each streaming case against
    ``stream_probe_plain`` (walking the card's schedule) bit for bit
    beside ``torch.add``'s time, and each chain body against
    ``chain_probe_plain`` at 1, 2, 5 and CHAIN_N_SMALL iterations (int32
    bit-exact, float32 within ``probes.CHAIN_RTOL`` relative; the largest
    error is the record's).
+17. narrow: the 16-bit and op-rate probes (exp13, exp29, exp16, exp12,
+   exp2, exp1: the narrow probe, ``csrc/probe_narrow.cu``). Each entry
+   point's ``run`` with every probe counter reset just before and read
+   just after: its 67 bodies on the scripts' inputs, each kernel against
+   its plain version (a chain at 1, 2, 5 and the script's n_small
+   iterations), a one-shot body's cold-L2 ms and host and device µs a
+   call back to back, a chain's µs per iteration (the slope between the
+   script's n_small and n_big; exp2's n_big raised), ps per element-op,
+   the bound (the least operations each body's function needs, or the
+   bytes its taps read) and share, which may not exceed
+   ``narrow.MAX_SHARE``, the plain version's and the library call's
+   time, the SASS (registers, spills, instructions, a register chain's
+   main loop); exp16's packed
+   kernels equal to its wide one; exp2's copy stencil and exp1's four
+   cases in both stage modes through ``get_executor`` (value bit for
+   bit against vmem on the valid regions), each launched. Every body
+   launched, no kernel spills, every register chain's main loop holding
+   the instructions of each of its iterations (none folded). Then each
+   body's kernel against
+   ``NarrowBody.plain`` again (integers bit for bit, float32 within
+   ``probes.CHAIN_RTOL``; the record's error).
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
-...}``), and ``{"ok": true, "device": ...}``. Any failure raises and
+...}``: the fused kernel's per cell, mode and layout row, and each
+probe case and body, ``probe_stream``, ``probe_chain`` and
+``probe_narrow``), and ``{"ok": true, "device": ...}``. Any failure raises and
 exits nonzero. Inputs are made from seeded numpy (make_test_inputs).
 """
 
@@ -202,9 +228,14 @@ def main() -> int:
                                             replicated_stencil_plain,
                                             streamed_stencil_plain)
   from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
-  from soda_tpu_torch.experiments import (exp24_stage_tax, exp27_gridloop,
+  from soda_tpu_torch.experiments import (exp1_value_mode, exp2_diag,
+                                          exp12_mosaic_reprobe,
+                                          exp13_narrow_i16,
+                                          exp16_swar_erosion,
+                                          exp24_stage_tax, exp27_gridloop,
+                                          exp29_pack_i16,
                                           exp30_dma_granularity,
-                                          exp45_transcendental_tax)
+                                          exp45_transcendental_tax, narrow)
   from soda_tpu_torch.experiments import probes as exp_probes
   from soda_tpu_torch.model.compiled import compiled_stats
   from soda_tpu_torch.parallel import replicate, spmd
@@ -296,8 +327,17 @@ def main() -> int:
     sources += gpu_validate.sources(name, variants, opts, gate_stencils)
   sources += gpu_validate.sources('contrast', gpu_validate.F64_VARIANTS,
                                   cache=gate_stencils)
-  # the experiment probes' two hand-written sources (phase 16)
+  # the experiment probes' hand-written sources (phases 16-17), and the
+  # fused kernels exp1 and exp2 run (phase 17): the four CASES in value
+  # mode (their vmem mode is the cells' default kernel), the copy stencil
   sources += [build.csrc_source(name) for name in exp_probes.SOURCES]
+  for name, shape, overrides in exp1_value_mode.CASES:
+    sources.append(cuda_source.generate(kernel_plan(
+        testing.build_cell(name, overrides), shape, stage_mode='value')))
+  for dtype in exp2_diag.COPY_TYPES:
+    sources.append(cuda_source.generate(kernel_plan(
+        exp2_diag.copy_stencil(dtype, exp2_diag.COPY_SHAPE),
+        exp2_diag.COPY_SHAPE, block_rows=exp2_diag.BLOCK_ROWS)))
   sources = list({src.digest: src for src in sources}.values())
   t = time.time()
   build.build_all(sources)
@@ -1056,7 +1096,8 @@ def main() -> int:
               'exp45_transcendental_tax')
     kernels.append({
         'name': 'probe_chain[%s %s]' % (body.experiment, name),
-        'route': 'cuda', 'source': 'soda_tpu_torch/csrc/probe_chain.cu',
+        'route': 'cuda', 'source': 'soda_tpu_torch/csrc/%s' % (
+            narrow.SOURCE if body.form == 'shift' else 'probe_chain.cu'),
         'replaces': 'experiments/%s.py:%d' % (script, line),
         'launches': launches, 'max_abs_err': abs_err,
         'ms': row['us'] / 1e3, 'plain_ms': p_ms / CHAIN_N_SMALL,
@@ -1071,6 +1112,78 @@ def main() -> int:
               p_ms * 1e3 / CHAIN_N_SMALL, body.barriers, row['ctas'], smi))
   log16('%d streaming cases, %d chain bodies (%.1fs)' % (
       len(stream_rows), len(exp_probes.CHAIN_BODIES), time.time() - t16))
+
+  # 17. narrow: the 16-bit and op-rate probes through the six entry
+  # points, every probe counter reset just before each and read just after
+  t17 = time.time()
+
+  def log17(line):
+    say('[narrow] ' + line)
+
+  narrow_rows, fused_rows = {}, []
+  for module in (exp13_narrow_i16, exp29_pack_i16, exp16_swar_erosion,
+                 exp12_mosaic_reprobe, exp2_diag, exp1_value_mode):
+    exp_probes.LAUNCHES.clear()
+    rows = module.run('cuda', log=log17)
+    torch.cuda.synchronize()
+    launched = dict(exp_probes.LAUNCHES)
+    for row in rows:
+      if row['body'] in narrow.BODIES:
+        narrow_rows[row['body']] = (row, launched.get(
+            (narrow.KERNEL, row['body']), 0))
+      else:  # exp16's swar == wide, exp2's copies, exp1's stage modes
+        fused_rows.append(row)
+  log17('main path: %d launches (%.1fs)' % (
+      sum(n for _, n in narrow_rows.values()), time.time() - t17))
+  missing = sorted(set(narrow.BODIES) - set(narrow_rows))
+  # (a body's row is not ok where it differs from its plain version or
+  # its share of the bound exceeds narrow.MAX_SHARE)
+  bad = [name for name, (row, n) in narrow_rows.items()
+         if n < 1 or not row['ok']] + [row['body'] for row in fused_rows
+                                       if not row['ok']]
+  unlaunched = [row['body'] for row in fused_rows
+                if 'launches' in row and row['launches'] < 1]
+  if missing or bad or unlaunched:
+    raise RuntimeError('narrow: bodies not run %s, wrong or not launched %s,'
+                       ' fused kernels not launched %s' % (missing, bad,
+                                                           unlaunched))
+  spilled = {key: rep['spills'] for key, rep in narrow.sass_report().items()
+             if rep['spills']}
+  folded = sorted({body.op for body in narrow.BODIES.values()
+                   if body.form == 'ew' and
+                   not narrow.ew_loop_holds_every_iteration(body)})
+  if spilled or folded:
+    raise RuntimeError('narrow: kernels spill %s; register chains whose '
+                       'iterations fold %s' % (spilled, folded))
+  for name, body in narrow.BODIES.items():
+    row, launches = narrow_rows[name]
+    xs = narrow.body_inputs(body, 'cuda')
+    iters = narrow.check_iters(body, narrow.SLOPE.get(body.script, (1,))[0])
+    abs_err, rel_err = narrow.narrow_check(body, xs, iters)
+    if not narrow.narrow_ok(body, abs_err, rel_err):
+      raise RuntimeError('%s: narrow probe differs from its plain version '
+                         '(%g, relative %g)' % (name, abs_err, rel_err))
+    kernels.append({
+        'name': 'probe_narrow[%s]' % name, 'route': 'cuda',
+        'source': 'soda_tpu_torch/csrc/probe_narrow.cu',
+        'replaces': 'experiments/%s.py:%d' % (narrow.SCRIPTS[body.script],
+                                              body.line),
+        'launches': launches, 'max_abs_err': abs_err, 'ms': row['ms'],
+        'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+        'bound_by': row['bound_by'], 'library_ms': row['library_ms']})
+    log17('%-56s == plain (n=%s, max |err| %.3g, relative %.3g); %s %.6g '
+          'ms%s, bound %.6g ms (%s), plain %.6g ms, library %s, %d launches '
+          '| %s' % (name, ','.join(map(str, iters)), abs_err, rel_err,
+                    'per iteration' if body.chain else 'cold', row['ms'],
+                    '' if body.chain else ' (back to back: host %.1f, '
+                    'device %.1f us a call)' % (row['host_us'],
+                                                row['b2b_us']),
+                    row['bound_ms'], row['bound_by'],
+                    row['plain_ms'], '%.6g ms' % row['library_ms']
+                    if row['library_ms'] is not None else 'none', launches,
+                    smi))
+  log17('%d bodies, %d other rows (%.1fs)' % (
+      len(narrow_rows), len(fused_rows), time.time() - t17))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

@@ -6,27 +6,24 @@
 // fori_loop applying `body` to a VMEM-resident block). A body is a chain
 // of elementwise steps and wrap-around shifts, v[(i + d) % S] along an
 // axis (the JAX scripts' concatenate and pltpu.roll forms are the same
-// function and run the same code here).
+// function and run the same code here). exp24's chains of shifted mins
+// alone (roll10, indep10, the --dists bodies) run in the narrow probe's
+// strip kernel (probe_narrow.cu), one grid barrier a phase.
 //
 // Bound: operations. The block (1 MiB) stays in registers, shared
 // memory or the 50 MB L2 for the whole chain, so the least time is the
 // body's operations over the issue rate of the units that do them. It
 // does not fit one SM's 227 KB, so a shift needs other CTAs' cells. The
-// design, in four forms:
+// design, in three forms:
 //
 //   0 elementwise: every cell in a register for all n iterations; no
 //     barrier (ordinary launch).
-//   1 shift: one cooperative launch of co-resident CTAs; the stage
-//     values ping-pong between two global buffers, one grid barrier
-//     (cooperative_groups grid.sync) per phase. A phase is a run of
-//     shifted min taps all reading the previous phase's values (roll10:
-//     ten phases of one tap; indep10: one phase of ten taps).
-//   2 chunk: exp24's make_body_chunk. A CTA loads its K rows plus the 18
+//   1 chunk: exp24's make_body_chunk. A CTA loads its K rows plus the 18
 //     rows of margin (wrapping) of a W-lane tile into shared memory,
 //     runs the five row steps in place (a thread owns a column) and the
 //     five lane steps through registers with a block barrier each, and
 //     writes K rows: one grid barrier per iteration.
-//   3 stencil: exp45's compound bodies, one or two phases per iteration
+//   2 stencil: exp45's compound bodies, one or two phases per iteration
 //     (the g-stage into a third buffer, then the update), one grid
 //     barrier each.
 //
@@ -49,7 +46,6 @@ constexpr int kRows = 256;
 constexpr int kCols = 1024;
 constexpr int kCells = kRows * kCols;
 constexpr int kThreads = 256;
-constexpr int kMaxTaps = 16;
 constexpr int kMargin = 1 + 2 + 4 + 8 + 3;  // exp24's MARGIN0
 
 #define F(x) static_cast<float>(x)
@@ -186,47 +182,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// -- form 1: shifted min chains ----------------------------------------------
-
-struct Taps {
-  int axis[kMaxTaps];
-  int dist[kMaxTaps];
-};
-
-// P phases of T taps each, both fixed at compile time, so every tap's
-// axis and distance is read from the kernel's parameters at a constant
-// offset
-template <int P, int T>
-__global__ void __launch_bounds__(kThreads)
-    chain_shift(const int* __restrict__ x, int* y, int* tmp, long long n,
-                Taps taps) {
-  cg::grid_group grid = cg::this_grid();
-  const long long writes = n * P;
-  long long k = 0;
-  const int* src = x;
-  for (long long it = 0; it < n; ++it) {
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      int* dst = ((writes - 1 - k) & 1) ? tmp : y;
-      for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < kCells;
-           c += gridDim.x * blockDim.x) {
-        const int i = c / kCols, j = c % kCols;
-        int acc = src[c];
-#pragma unroll
-        for (int q = p * T; q < (p + 1) * T; ++q) {
-          const int d = taps.dist[q];
-          acc = min(acc, src[taps.axis[q] == 0 ? cell(i + d, j)
-                                               : cell(i, j + d)]);
-        }
-        dst[c] = acc;
-      }
-      src = dst;
-      if (++k < writes) grid.sync();
-    }
-  }
-}
-
-// -- form 2: chunked chains in shared memory ---------------------------------
+// -- form 1: chunked chains in shared memory ---------------------------------
 
 template <int K, int W>
 __global__ void __launch_bounds__(W)
@@ -274,7 +230,7 @@ __global__ void __launch_bounds__(W)
   }
 }
 
-// -- form 3: exp45's compound bodies -----------------------------------------
+// -- form 2: exp45's compound bodies -----------------------------------------
 
 __device__ __forceinline__ float at(const float* v, int i, int j) {
   return v[cell(i, j)];
@@ -435,7 +391,7 @@ cudaError_t launch_chunk(const void* x, void* y, void* tmp, long long n,
 
 extern "C" {
 
-// the op names of forms 0 and 3, in `op` order: "form0names;form3names"
+// the op names of forms 0 and 2, in `op` order: "form0names;form2names"
 const char* probe_chain_ops() {
   return "ew10,fma10,muladd10,div10,recip10,sqrt10,rsqrt10,recipsqrt10,"
          "g_noroll,full2d_noroll;gstage,g_norsqrt,full2d,full2d_norsqrt,"
@@ -443,15 +399,12 @@ const char* probe_chain_ops() {
 }
 
 // y = body^n(x) over a (256, 1024) block. form 0: elementwise op `op`;
-// 1: shifted min taps (`taps`: n_taps x (axis, distance, last of a
-// phase), host memory; 10 or 5 phases of one tap, or one of ten); 2: chunks of k_rows rows x lane_tile lanes
-// (k_rows 32 x 1024 or 64 x 512); 3: compound op `op`. tmp: a second
-// buffer of the block (forms 1-3), g: a third (form 3). ctas (may be
-// null) receives the grid size.
-int probe_chain_launch(int form, int op, const int* taps, int n_taps,
-                       int k_rows, int lane_tile, const void* x, void* y,
-                       void* tmp, void* g, long long n, void* stream,
-                       int* ctas) {
+// 1: chunks of k_rows rows x lane_tile lanes (k_rows 32 x 1024 or 64 x
+// 512); 2: compound op `op`. tmp: a second buffer of the block (forms 1,
+// 2), g: a third (form 2). ctas (may be null) receives the grid size.
+int probe_chain_launch(int form, int op, int k_rows, int lane_tile,
+                       const void* x, void* y, void* tmp, void* g,
+                       long long n, void* stream, int* ctas) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (form == 0) {
@@ -468,37 +421,11 @@ int probe_chain_launch(int form, int op, const int* taps, int n_taps,
       case 9: return launch_ew<Full2dNoroll>(x, y, n, s, ctas);
     }
   } else if (form == 1) {
-    if (n_taps < 1 || n_taps > kMaxTaps)
-      return static_cast<int>(cudaErrorInvalidValue);
-    Taps t;
-    int phases = 0;
-    for (int q = 0; q < n_taps; ++q) {
-      t.axis[q] = taps[3 * q];
-      t.dist[q] = taps[3 * q + 1];
-      phases += taps[3 * q + 2] != 0;
-    }
-    // every phase of the same number of taps
-    const int per = phases ? n_taps / phases : 0;
-    for (int q = 0; q < n_taps; ++q)
-      if ((taps[3 * q + 2] != 0) != (per && (q + 1) % per == 0))
-        return static_cast<int>(cudaErrorInvalidValue);
-    const void* kernel = nullptr;
-    if (phases == 10 && per == 1) kernel = (const void*)chain_shift<10, 1>;
-    if (phases == 5 && per == 1) kernel = (const void*)chain_shift<5, 1>;
-    if (phases == 1 && per == 10) kernel = (const void*)chain_shift<1, 10>;
-    if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const int* xi = static_cast<const int*>(x);
-    int* yi = static_cast<int*>(y);
-    int* ti = static_cast<int*>(tmp);
-    void* args[] = {&xi, &yi, &ti, &n, &t};
-    return static_cast<int>(
-        cooperative(kernel, 0, kThreads, 0, args, s, ctas));
-  } else if (form == 2) {
     if (k_rows == 32 && lane_tile == 1024)
       return static_cast<int>(launch_chunk<32, 1024>(x, y, tmp, n, s, ctas));
     if (k_rows == 64 && lane_tile == 512)
       return static_cast<int>(launch_chunk<64, 512>(x, y, tmp, n, s, ctas));
-  } else if (form == 3) {
+  } else if (form == 2) {
     switch (op) {
       case 0: return launch_stencil<GStage<true>>(x, y, tmp, g, n, s, ctas);
       case 1: return launch_stencil<GStage<false>>(x, y, tmp, g, n, s, ctas);

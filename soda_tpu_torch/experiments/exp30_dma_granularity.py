@@ -24,7 +24,7 @@ def run(device='cuda', n=None, log=print):
 
 
 def main(argv=None) -> int:
-  args = probes.parse_args(__doc__, argv)
+  args = probes.parse_args(__doc__, argv, grid_edge=True)
   return probes.entry(lambda: run(args.device, args.n))
 
 

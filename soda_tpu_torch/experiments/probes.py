@@ -10,7 +10,9 @@ package's ``experiments/``:
   fill, ring depth).
 - ``csrc/probe_chain.cu`` (``chain_probe``): a body applied n times to a
   (256, 1024) block, for exp24_stage_tax.py:75 and
-  exp45_transcendental_tax.py:71 (``pallas_loop``).
+  exp45_transcendental_tax.py:71 (``pallas_loop``); exp24's chains of
+  shifted mins run in the narrow probe's strip kernel
+  (``csrc/probe_narrow.cu``, see narrow.py), one grid barrier a phase.
 
 Each wrapper launches its kernel for a CUDA tensor (raising if CUDA
 refuses the launch) and runs its plain version only for a CPU tensor;
@@ -37,8 +39,9 @@ import torch
 
 from soda_tpu_torch import profiling, utils
 
-# the hand-written sources in csrc/ (backend/build.csrc_source)
-SOURCES = ('probe_stream.cu', 'probe_chain.cu')
+# the hand-written sources in csrc/ (backend/build.csrc_source): the
+# streaming and chain probes here, the narrow probe (narrow.py)
+SOURCES = ('probe_stream.cu', 'probe_chain.cu', 'probe_narrow.cu')
 # kernel launches, keyed by (kernel, configuration)
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -259,7 +262,9 @@ CELLS = SHAPE[0] * SHAPE[1]
 DISTS0 = (1, 2, 4, 8, 3)  # exp24_stage_tax.py:38-40
 DISTS1 = (1, 2, 4, 8, 3)
 MARGIN0 = sum(DISTS0)
-FORMS = {'elementwise': 0, 'shift': 1, 'chunk': 2, 'stencil': 3}
+# the chain probe's forms (a shift chain runs in the narrow probe's strip
+# kernel)
+FORMS = {'elementwise': 0, 'chunk': 1, 'stencil': 2}
 # a float body against its plain version: the largest relative error
 # (both round every operation alone; rsqrtf and torch's rsqrt may
 # differ by 2 ulp)
@@ -331,11 +336,16 @@ def _chained(axis_dists) -> Tuple[Tuple[int, int, bool], ...]:
   return tuple((a, d, True) for a, d in axis_dists)
 
 
-def _shift_step(taps):
+def _shift_step(taps, combine=torch.minimum, shift=_roll):
+  """One iteration of a chain of wrap-around shifts, the plain version of
+  every shift chain the probes run (exp24's here; the narrow probe's
+  strips): each tap (axis, distance, last of a phase) combines the
+  accumulator with the phase's values shifted by ``shift(v, axis, d)``;
+  a phase's last tap makes the accumulator the next phase's values."""
   def step(v):
     acc = v
     for axis, d, last in taps:
-      acc = torch.minimum(acc, _roll(v, axis, d))
+      acc = combine(acc, shift(v, axis, d))
       if last:
         v = acc
     return v
@@ -555,8 +565,7 @@ def _chain_lib() -> Dict[str, object]:
   return {
       'ops': {'elementwise': ew, 'stencil': stencil},
       'launch': build.bind(lib, 'probe_chain_launch',
-                           [c.c_int, c.c_int, c.POINTER(c.c_int)] +
-                           [c.c_int] * 3 + [c.c_void_p] * 4 +
+                           [c.c_int] * 4 + [c.c_void_p] * 4 +
                            [c.c_longlong, c.c_void_p, c.POINTER(c.c_int)]),
       'error': build.bind(lib, 'probe_chain_error_string', [c.c_int],
                           c.c_char_p),
@@ -585,8 +594,9 @@ def _check_chain(x: torch.Tensor, body: ChainBody, n: int) -> None:
 def chain_probe(x: torch.Tensor, body, n: int,
                 ctas: Optional[List[int]] = None) -> torch.Tensor:
   """``body`` (a ChainBody or its name) applied ``n`` times to the
-  (256, 1024) block ``x``: the chain probe kernel for a CUDA tensor, its
-  plain version for a CPU tensor. ``ctas``, a list, receives the
+  (256, 1024) block ``x``: the chain probe kernel (a shift chain: the
+  narrow probe's strip kernel) for a CUDA tensor, its plain version for
+  a CPU tensor. ``ctas``, a list, receives the
   kernel's grid size."""
   body = _body(body)
   _check_chain(x, body, n)
@@ -595,19 +605,23 @@ def chain_probe(x: torch.Tensor, body, n: int,
   if x.device.type != 'cuda':
     raise utils.InputError('chain probe: a cpu or cuda tensor, got %s' %
                            x.device)
+  if body.form == 'shift':
+    # the narrow probe's strip kernel (narrow imports this module)
+    from soda_tpu_torch.experiments import narrow
+    y = narrow.launch(narrow.EXP24_SHIFT[body.name], (x,), n, ctas)
+    LAUNCHES[('probe_chain', body.name)] += 1
+    return y
   lib = _chain_lib()
   op = (lib['ops'][body.form].index(body.name)
         if body.form in lib['ops'] else 0)
-  flat = [int(v) for tap in body.taps for v in tap]
-  taps = (ctypes.c_int * max(len(flat), 1))(*flat)
   rows, lanes = body.chunk or (0, 0)
   y, tmp, g = (torch.empty_like(x) for _ in range(3))
   grid = ctypes.c_int(0)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream().cuda_stream
-    status = lib['launch'](FORMS[body.form], op, taps, len(body.taps), rows,
-                           lanes, x.data_ptr(), y.data_ptr(), tmp.data_ptr(),
-                           g.data_ptr(), n, stream, ctypes.byref(grid))
+    status = lib['launch'](FORMS[body.form], op, rows, lanes, x.data_ptr(),
+                           y.data_ptr(), tmp.data_ptr(), g.data_ptr(), n,
+                           stream, ctypes.byref(grid))
   if status:
     raise RuntimeError('chain probe kernel (%s) failed to launch: %s' % (
         body.name, lib['error'](status).decode()))
@@ -634,16 +648,23 @@ def op_counts(name: str) -> Dict[str, float]:
   return dict(zip(('int32', 'fp32', 'sfu'), _body(name).ops))
 
 
-def chain_bound_ms(name: str, sms: int, clock_hz: float) -> Tuple[float, str]:
-  """(least milliseconds per iteration of body ``name`` on ``sms`` SMs
-  at ``clock_hz``, the unit that bounds it): each unit's operations over
-  its issue lanes (UNIT_LANES). The block's bytes (1 MiB in, 1 MiB out
-  per launch) are not per iteration; operations bound every body."""
-  counts = op_counts(name)
-  per_unit = {u: counts[u] * CELLS / (UNIT_LANES[u] * sms * clock_hz) * 1e3
+def ops_bound_ms(counts: Dict[str, float], cells: int, sms: int,
+                 clock_hz: float) -> Tuple[float, str]:
+  """(least milliseconds for ``counts`` operations by unit on each of
+  ``cells`` cells, on ``sms`` SMs at ``clock_hz``, the unit that bounds
+  it): each unit's operations over its issue lanes (UNIT_LANES)."""
+  per_unit = {u: counts[u] * cells / (UNIT_LANES[u] * sms * clock_hz) * 1e3
               for u in UNIT_LANES}
   unit = max(per_unit, key=per_unit.get)
   return per_unit[unit], unit
+
+
+def chain_bound_ms(name: str, sms: int, clock_hz: float) -> Tuple[float, str]:
+  """(least milliseconds per iteration of body ``name`` on ``sms`` SMs
+  at ``clock_hz``, the unit that bounds it): ``ops_bound_ms``. The
+  block's bytes (1 MiB in, 1 MiB out per launch) are not per iteration;
+  operations bound every body."""
+  return ops_bound_ms(op_counts(name), CELLS, sms, clock_hz)
 
 
 def chain_check(x: torch.Tensor, body, iters=CHECK_ITERS,
@@ -682,13 +703,14 @@ def warm_ms(fn: Callable[[], object], reps: int = 5, warmup: int = 1
   return statistics.median(times)
 
 
-def chain_slope_us(x: torch.Tensor, body, n_small: int, n_big: int,
-                   reps: int = 5) -> float:
-  """Device microseconds per iteration: (t(n_big) - t(n_small)) /
-  (n_big - n_small), each t a warm median of ``reps`` launches (the JAX
-  scripts' slope, with CUDA events in place of the host clock)."""
-  t_small = warm_ms(lambda: chain_probe(x, body, n_small), reps)
-  t_big = warm_ms(lambda: chain_probe(x, body, n_big), reps)
+def slope_us(run: Callable[[int], object], n_small: int, n_big: int,
+             reps: int = 5) -> float:
+  """Device microseconds per iteration of ``run(n)``: (t(n_big) -
+  t(n_small)) / (n_big - n_small), each t a warm median of ``reps``
+  launches (the JAX scripts' slope, with CUDA events in place of the
+  host clock)."""
+  t_small = warm_ms(lambda: run(n_small), reps)
+  t_big = warm_ms(lambda: run(n_big), reps)
   return (t_big - t_small) * 1e3 / (n_big - n_small)
 
 
@@ -774,7 +796,7 @@ def run_chain(bodies, device='cuda', n_small: int = 64, n_big: int = 16384,
   """Each body of exp24 or exp45 on the JAX scripts' block. On the card:
   the kernel against its plain version at CHECK_ITERS and ``n_small``
   iterations (``chain_check``), then device microseconds per iteration as the slope between ``n_small``
-  and ``n_big`` (``chain_slope_us``), ns per cell per step, grid
+  and ``n_big`` (``slope_us``), ns per cell per step, grid
   barriers per iteration and the bound. On the CPU: the plain version
   at one iteration, finite and of the block's shape (exp45's full2d
   bodies overflow after it, in the JAX script too). One line per body;
@@ -801,7 +823,7 @@ def run_chain(bodies, device='cuda', n_small: int = 64, n_big: int = 16384,
       continue
     ctas: List[int] = []
     abs_err, rel_err = chain_check(x, body, CHECK_ITERS + (n_small,), ctas)
-    us = chain_slope_us(x, body, n_small, n_big, reps)
+    us = slope_us(lambda n: chain_probe(x, body, n), n_small, n_big, reps)
     bound_ms, unit = chain_bound_ms(body.name, sms, clock_hz)
     row.update(us=us, ns_cell_step=us * 1e3 / CELLS / body.steps,
                bound_ms=bound_ms, bound_by=unit, abs_err=abs_err,
@@ -816,10 +838,12 @@ def run_chain(bodies, device='cuda', n_small: int = 64, n_big: int = 16384,
 
 
 def parse_args(doc: str, argv, flags: Tuple[str, ...] = (),
-               chain: bool = False):
+               chain: bool = False, n_small: int = 64, n_big: int = 16384,
+               groups: Tuple[str, ...] = (), grid_edge: bool = False):
   """The experiment entry points' command line: ``--device`` (default
-  cuda), the JAX script's own ``flags``, and for a chain experiment
-  ``--n-small``/``--n-big``."""
+  cuda), the JAX script's own ``flags`` and ``groups`` (positional; none
+  given: all), for a chain experiment ``--n-small``/``--n-big``, and
+  the streaming experiments' ``--n`` (``grid_edge``)."""
   import argparse
   parser = argparse.ArgumentParser(description=doc.splitlines()[0])
   parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
@@ -827,14 +851,23 @@ def parse_args(doc: str, argv, flags: Tuple[str, ...] = (),
                       '(the plain versions)')
   for flag in flags:
     parser.add_argument(flag, action='store_true')
+  if groups:
+    parser.add_argument('groups', nargs='*',
+                        help='of %s (default: all)' % ', '.join(groups))
   if chain:
-    parser.add_argument('--n-small', type=int, default=64)
-    parser.add_argument('--n-big', type=int, default=16384)
-  else:
+    parser.add_argument('--n-small', type=int, default=n_small)
+    parser.add_argument('--n-big', type=int, default=n_big)
+  if grid_edge:
     parser.add_argument('--n', type=int, default=None,
                         help='grid edge (default 256 on the card, 64 on '
                         'the CPU)')
-  return parser.parse_args(argv)
+  args = parser.parse_args(argv)
+  if groups:
+    unknown = sorted(set(args.groups) - set(groups))
+    if unknown:
+      parser.error('unknown groups %s (of %s)' % (unknown, ', '.join(groups)))
+    args.groups = tuple(args.groups) or groups
+  return args
 
 
 def entry(run: Callable[[], List[Dict[str, object]]]) -> int:

@@ -21,9 +21,9 @@ version and the oracle, the layout forms (value stages in registers,
 transposed regions, packed 16-bit stages, chunked stage loops) and the
 JAX package's 24 seed configurations against theirs and the oracle,
 compiled statistics read from the card, and the tuner end to end. Integers bit-exact, floats within the reference
-threshold (tests/checks.py). Last, the experiment probes' two kernels
-(streaming and chain) against their plain versions, every launch
-counted.
+threshold (tests/checks.py). Last, the experiment probes' three kernels
+(streaming, chain and narrow) against their plain versions, every
+launch counted, and the narrow kernels' SASS read (no spills).
 """
 
 import numpy as np
@@ -36,7 +36,7 @@ from soda_tpu_torch.backend import reference
 from soda_tpu_torch.backend.fused import FusedExecutor
 from soda_tpu_torch.backend.grouped import GroupedExecutor
 from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
-from soda_tpu_torch.experiments import probes
+from soda_tpu_torch.experiments import narrow, probes
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
 from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
@@ -482,3 +482,56 @@ def test_chain_probe_on_the_card(name):
       assert abs_err == 0, (name, n, abs_err)
     else:
       assert rel_err <= probes.CHAIN_RTOL, (name, n, rel_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', sorted(narrow.BODIES))
+def test_narrow_probe_on_the_card(name):
+  """Each body of exp13, exp29, exp16, exp12, exp1 and exp2 on its
+  script's inputs: one launch each, a chain at 1, 2 and 5 iterations (a
+  register chain also through its main loop); integers bit for bit,
+  float32 within CHAIN_RTOL of the plain version on the card; its
+  kernel's SASS read, with no spilled bytes."""
+  _need_gpu()
+  body = narrow.BODIES[name]
+  xs = narrow.body_inputs(body, 'cuda')
+  key = (narrow.KERNEL, name)
+  for n in narrow.check_iters(body):
+    before = probes.LAUNCHES[key]
+    got = narrow.narrow_probe(body, *xs, n=n)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[key] == before + 1
+    abs_err, rel_err = probes.max_error(got, body.plain(*xs, n=n))
+    assert narrow.narrow_ok(body, abs_err, rel_err), (name, n, abs_err,
+                                                      rel_err)
+  report = narrow.sass_report()[(body.form, body.op)]
+  assert report['spills'] == 0 and report['total'] > 0, report
+
+
+@pytest.mark.gpu
+def test_narrow_swar_equals_wide_on_the_card():
+  """exp16's check: both packed kernels equal the wide one at 1, 2, 5
+  iterations."""
+  _need_gpu()
+  wide, swar, swar_bitwise = narrow.EXP16
+  raw, = narrow.body_inputs(wide, 'cuda')
+  words, = narrow.body_inputs(swar, 'cuda')
+  for n in probes.CHECK_ITERS:
+    want = narrow.narrow_probe(wide, raw, n=n)
+    for body in (swar, swar_bitwise):
+      got = narrow.narrow_probe(body, words, n=n).view(torch.int16)
+      assert torch.equal(got, want), (body.name, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', sorted(
+    name for name, body in narrow.BODIES.items() if body.form == 'ew'))
+def test_narrow_register_chain_folds_no_iteration(name):
+  """A register chain's main loop, as ptxas compiled it, holds for each
+  of its EW_UNROLL iterations at least the instructions of the body's
+  least operations: no iteration folded into another (n doublings into
+  one shift), so its time per iteration is the body's."""
+  _need_gpu()
+  body = narrow.BODIES[name]
+  report = narrow.sass_report()[('ew', body.op)]
+  assert narrow.ew_loop_holds_every_iteration(body), (name, report['loop'])
