@@ -21,9 +21,9 @@ seconds:
    stencil overrides), the grouped cells' per-group kernels, the small
    replicated grid's kernel and the sharded cells' kernels at their
    halo-extended shard shapes, the mode, tuner, layout and gate kernels,
-   the three hand-written probe sources (``probes.SOURCES``) and the fused
-   kernels phase 17 runs: one nvcc per source, all at once. Each cell
-   must dispatch to the fused kernel under 'auto'.
+   the five hand-written probe sources (``probes.SOURCES``) and the fused
+   kernels phases 17 and 18 run: one nvcc per source, all at once. Each
+   cell must dispatch to the fused kernel under 'auto'.
 3. main path: every cell once through ``executor(inputs)``, with every
    launch counter reset just before and read just after.
 4. kernel vs plain: each kernel against its plain PyTorch version
@@ -147,13 +147,32 @@ seconds:
    body's kernel against
    ``NarrowBody.plain`` again (integers bit for bit, float32 within
    ``probes.CHAIN_RTOL``; the record's error).
+18. copyshift: exp32's copy-shift probe (``csrc/probe_copy.cu``: a
+   shared-memory slab copied into another at an offset by
+   ``cp.async.bulk`` with ``mbarrier`` completion, as a shift; its rotate
+   controls in the narrow probe's strip kernel) and exp9's 2.5-D jacobi
+   (``csrc/probe_25d.cu``). Each entry point's ``run`` (exp32's main and
+   check cases, exp9) with every probe counter reset just before and read
+   just after: the 11 main and 8 check cases of exp32 on the script's
+   blocks, each kernel bit for bit against its stale-tail plain version
+   at 1, 2, 5 and 64 iterations (the check cases at 3 too), µs per
+   iteration (the slope 64 -> 2048), the bound (shared-memory bytes at
+   128 B a clock an SM, or operations) and its share, which may not
+   exceed ``narrow.MAX_SHARE``; exp9's correctness line at (64, 16, 128)
+   (bit for bit, the oracle within 1e-4), its kernel at (8192, 16, 128)
+   for blocks 256, 512 and 1024 bit for bit on rows [2, h-2), and the
+   port's jacobi2d kernel at block_rows 256, 512 and its default, each
+   with its cold-L2 ms, share of the byte bound, back-to-back µs and the
+   plain version's time. Every case launched, no kernel spills, the
+   overlap kernel's chain B between its copy's issue and its wait in the
+   SASS, the store control's reloads not forwarded.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``: the fused kernel's per cell, mode and layout row, and each
-probe case and body, ``probe_stream``, ``probe_chain`` and
-``probe_narrow``), and ``{"ok": true, "device": ...}``. Any failure raises and
-exits nonzero. Inputs are made from seeded numpy (make_test_inputs).
+probe case and body, ``probe_stream``, ``probe_chain``,
+``probe_narrow``, ``probe_copy`` and ``probe_25d``), and ``{"ok": true,
+"device": ...}``. Any failure raises and exits nonzero. Inputs are made from seeded numpy (make_test_inputs).
 """
 
 import json
@@ -235,7 +254,10 @@ def main() -> int:
                                           exp24_stage_tax, exp27_gridloop,
                                           exp29_pack_i16,
                                           exp30_dma_granularity,
-                                          exp45_transcendental_tax, narrow)
+                                          exp32_dma_shift,
+                                          exp45_transcendental_tax,
+                                          exp9_layout25d, copyshift,
+                                          layout25d, narrow)
   from soda_tpu_torch.experiments import probes as exp_probes
   from soda_tpu_torch.model.compiled import compiled_stats
   from soda_tpu_torch.parallel import replicate, spmd
@@ -327,7 +349,7 @@ def main() -> int:
     sources += gpu_validate.sources(name, variants, opts, gate_stencils)
   sources += gpu_validate.sources('contrast', gpu_validate.F64_VARIANTS,
                                   cache=gate_stencils)
-  # the experiment probes' hand-written sources (phases 16-17), and the
+  # the experiment probes' hand-written sources (phases 16-18), and the
   # fused kernels exp1 and exp2 run (phase 17): the four CASES in value
   # mode (their vmem mode is the cells' default kernel), the copy stencil
   sources += [build.csrc_source(name) for name in exp_probes.SOURCES]
@@ -338,6 +360,13 @@ def main() -> int:
     sources.append(cuda_source.generate(kernel_plan(
         exp2_diag.copy_stencil(dtype, exp2_diag.COPY_SHAPE),
         exp2_diag.COPY_SHAPE, block_rows=exp2_diag.BLOCK_ROWS)))
+  # exp9's comparison rows (phase 18): the jacobi2d kernel at its block_rows
+  exp9_stencil = corpus.build('jacobi2d', tile_size=exp9_layout25d.JACOBI_TILE)
+  for block_rows in exp9_layout25d.JACOBI_BLOCK_ROWS:
+    sources.append(cuda_source.generate(
+        kernel_plan(exp9_stencil, exp9_layout25d.JACOBI_SHAPE,
+                    block_rows=block_rows) if block_rows else
+        make_tile_plan(exp9_stencil, exp9_layout25d.JACOBI_SHAPE)))
   sources = list({src.digest: src for src in sources}.values())
   t = time.time()
   build.build_all(sources)
@@ -1184,6 +1213,96 @@ def main() -> int:
                     smi))
   log17('%d bodies, %d other rows (%.1fs)' % (
       len(narrow_rows), len(fused_rows), time.time() - t17))
+
+  # 18. copyshift: exp32's copy-shift probe and exp9's 2.5-D jacobi
+  # through their entry points, every probe counter reset just before each
+  # and read just after
+  t18 = time.time()
+
+  def log18(line):
+    say('[copyshift] ' + line)
+
+  for name in (copyshift.SOURCE, layout25d.SOURCE):
+    report = build.ptxas_report(build.csrc_source(name))
+    spills = sorted(entry for entry, r in report.items()
+                    if r['spill_stores'] or r['spill_loads'])
+    log18('%s: %d entries, registers %s, spills in %s' % (
+        name, len(report), sorted(r['registers'] for r in report.values()),
+        spills or 'none'))
+    if spills:
+      raise RuntimeError('copyshift: %s spills in %s' % (name, spills))
+  runs = []
+  for run, args in ((exp32_dma_shift.run, (False,)),
+                    (exp32_dma_shift.run, (True,)), (exp9_layout25d.run, ())):
+    exp_probes.LAUNCHES.clear()
+    rows = run('cuda', *args, log=log18)
+    torch.cuda.synchronize()
+    runs.append((rows, dict(exp_probes.LAUNCHES)))
+  copy_rows = [(row, launched) for rows, launched in runs[:2] for row in rows]
+  rows9, launched9 = runs[2]
+
+  def copy_key(case):
+    return ((narrow.KERNEL, copyshift.ROTATE[case.name].name)
+            if case.kind == 'rotate' else (copyshift.KERNEL, case.name))
+
+  log18('main path: %d launches (%.1fs)' % (
+      sum(sum(launched.values()) for _, launched in runs), time.time() - t18))
+  bad = [row['case'] for row, launched in copy_rows
+         if not row['ok'] or launched.get(
+             copy_key(copyshift.CASES[row['case']]), 0) < 1]
+  bad += [row['case'] for row in rows9 if not row['ok'] or (
+      'block' in row and launched9.get((layout25d.KERNEL, 'block %d' %
+                                        row['block']), 0) < 1)]
+  if bad or len(copy_rows) != len(copyshift.CASES):
+    raise RuntimeError('copyshift: wrong, over their bound or not launched: '
+                       '%s' % bad)
+  sass = copyshift.sass_report()
+  order = copyshift.overlap_order(sass['overlap']['loop'])
+  stores = copyshift.store_loop_counts(sass['store']['loop'])
+  per = copyshift.CELL_SLOTS
+  if order['between'] < 3 * per or min(stores.values()) < per:
+    raise RuntimeError('copyshift: overlap order %s (chain B: 3 instructions '
+                       'a cell slot between issue and wait), store loop %s' %
+                       (order, stores))
+  log18('SASS: the overlap\'s chain B has %d instructions between its copy\'s '
+        'issue and the wait (%d after it, chain A\'s mins among them); the '
+        'store control\'s main loop %d STS, %d LDS, %d mins, none forwarded' %
+        (order['between'], order['after'], stores['STS'], stores['LDS'],
+         stores['min']))
+  for row, launched in copy_rows:
+    case = copyshift.CASES[row['case']]
+    kernels.append({
+        'name': '%s[exp32 %s]' % (copy_key(case)[0], case.name),
+        'route': 'cuda', 'source': 'soda_tpu_torch/csrc/%s' % (
+            narrow.SOURCE if case.kind == 'rotate' else copyshift.SOURCE),
+        'replaces': 'experiments/%s.py:%d' % (copyshift.SCRIPT, case.line),
+        'launches': launched[copy_key(case)], 'max_abs_err': row['abs_err'],
+        'ms': row['ms'], 'plain_ms': row['plain_ms'],
+        'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
+        'library_ms': None})
+  for row in rows9[1:]:
+    if 'block' in row:
+      kernels.append({
+          'name': '%s[exp9 block %d]' % (layout25d.KERNEL, row['block']),
+          'route': 'cuda', 'source': 'soda_tpu_torch/csrc/%s' %
+          layout25d.SOURCE, 'replaces': 'experiments/%s.py:%d' % (
+              layout25d.SCRIPT, layout25d.LINE),
+          'launches': launched9[(layout25d.KERNEL, 'block %d' %
+                                 row['block'])],
+          'max_abs_err': row['abs_err'], 'ms': row['ms'],
+          'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
+          'bound_by': 'bytes', 'library_ms': None})
+    else:
+      kernels.append(record(
+          'fused_stencil[exp9 jacobi2d %s]' % row['case'].split()[-1],
+          'soda_tpu_torch/backend/cuda_source.py',
+          'soda_tpu/backend/pallas_kernel.py:1543', row['launches'],
+          row['abs_err'], row['ms'], row['plain_ms'], exp9_stencil,
+          exp9_layout25d.JACOBI_SHAPE))
+  log18('%d exp32 cases, %d exp9 rows, each launched, bit for bit against '
+        'its plain version and within %.2f of its bound (%.1fs) | %s' % (
+            len(copy_rows), len(rows9), narrow.MAX_SHARE, time.time() - t18,
+            smi))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

@@ -14,8 +14,12 @@ Pallas probe it ports, runs the same cases and prints one line per case:
         [chain] [roll] [widen]
     python -m soda_tpu_torch.experiments.exp2_diag
     python -m soda_tpu_torch.experiments.exp1_value_mode
+    python -m soda_tpu_torch.experiments.exp32_dma_shift [--check]
+    python -m soda_tpu_torch.experiments.exp9_layout25d
 
-``--device cuda`` (the default) launches the kernels of ``probes.py``
-and ``narrow.py`` and exits 1 without a card; ``--device cpu`` runs
-their plain versions and prints their check.
+``--device cuda`` (the default) launches the kernels of ``probes.py``,
+``narrow.py``, ``copyshift.py`` and ``layout25d.py`` and exits 1
+without a card; ``--device cpu`` runs their plain versions and prints
+their check. ``chip_smoke.py`` drives them all on the card (phases
+16-18).
 """

@@ -843,8 +843,8 @@ def _mangled_op(form: str, op: str) -> str:
 
 def parse_listing(text: str) -> Dict[str, List[Tuple[int, str, str]]]:
   """``cuobjdump -sass`` output -> entry name -> its instructions, each
-  (address, opcode, operands): the base opcode, its modifiers dropped
-  but a packed type's, as in VIMNMX.S16x2; predicated instructions
+  (address, opcode with its modifiers, as in
+  SYNCS.PHASECHK.TRANS64.TRYWAIT, operands); predicated instructions
   included."""
   out: Dict[str, List[Tuple[int, str, str]]] = {}
   current = None
@@ -854,18 +854,23 @@ def parse_listing(text: str) -> Dict[str, List[Tuple[int, str, str]]]:
       current = out.setdefault(found.group(1), [])
       continue
     found = re.match(r'\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?'
-                     r'([A-Z][A-Z0-9_]*)((?:\.\w+)*)([^;]*)', line)
+                     r'([A-Z][A-Z0-9_]*(?:\.\w+)*)([^;]*)', line)
     if found and current is not None:
-      packed = [m for m in found.group(3).split('.') if '16x2' in m]
-      current.append((int(found.group(1), 16),
-                      '.'.join([found.group(2)] + packed),
-                      found.group(4).strip()))
+      current.append((int(found.group(1), 16), found.group(2),
+                      found.group(3).strip()))
   return out
 
 
+def base_opcode(op: str) -> str:
+  """An opcode with its modifiers dropped but a packed type's, as in
+  VIMNMX.S16x2."""
+  head, *mods = op.split('.')
+  return '.'.join([head] + [m for m in mods if '16x2' in m])
+
+
 def parse_sass(text: str) -> Dict[str, collections.Counter]:
-  """``cuobjdump -sass`` output -> entry name -> opcode counts."""
-  return {entry: collections.Counter(op for _, op, _ in listing)
+  """``cuobjdump -sass`` output -> entry name -> base opcode counts."""
+  return {entry: collections.Counter(base_opcode(op) for _, op, _ in listing)
           for entry, listing in parse_listing(text).items()}
 
 
@@ -876,10 +881,22 @@ def main_loop(listing: Sequence[Tuple[int, str, str]]
   best: List[Tuple[int, str, str]] = []
   for addr, op, operands in listing:
     target = re.search(r'0x([0-9a-f]+)', operands)
-    if op == 'BRA' and target and int(target.group(1), 16) < addr:
+    if (base_opcode(op) == 'BRA' and target and
+        int(target.group(1), 16) < addr):
       loop = [i for i in listing if int(target.group(1), 16) <= i[0] <= addr]
       best = max(best, loop, key=len)
   return best
+
+
+def cuobjdump_sass(source) -> str:
+  """``cuobjdump -sass`` of the library built from ``source`` (a
+  KernelSource; built first if need be), with the cuobjdump beside
+  nvcc."""
+  from soda_tpu_torch.backend import build
+  lib_path = build.build(source)
+  cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), 'cuobjdump')
+  return subprocess.run([cuobjdump, '-sass', str(lib_path)], check=True,
+                        stdout=subprocess.PIPE, text=True).stdout
 
 
 @functools.lru_cache(maxsize=None)
@@ -890,11 +907,7 @@ def sass_report() -> Dict[Tuple[str, str], Dict[str, object]]:
   and the ``-Xptxas -v`` report."""
   from soda_tpu_torch.backend import build
   source = build.csrc_source(SOURCE)
-  lib_path = build.build(source)
-  cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), 'cuobjdump')
-  text = subprocess.run([cuobjdump, '-sass', str(lib_path)], check=True,
-                        stdout=subprocess.PIPE, text=True).stdout
-  listings = parse_listing(text)
+  listings = parse_listing(cuobjdump_sass(source))
   ptxas = build.ptxas_report(source)
   out = {}
   for form, ops in _lib()['ops'].items():
@@ -906,7 +919,7 @@ def sass_report() -> Dict[Tuple[str, str], Dict[str, object]]:
         raise RuntimeError('narrow probe: %d SASS and %d ptxas entries for '
                            '%s %s' % (len(entries), len(regs), form, op))
       listing = listings[entries[0]]
-      counts = collections.Counter(o for _, o, _ in listing)
+      counts = collections.Counter(base_opcode(o) for _, o, _ in listing)
       out[(form, op)] = {
           'opcodes': counts, 'total': sum(counts.values()),
           'loop': len(main_loop(listing)),

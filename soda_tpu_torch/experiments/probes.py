@@ -40,8 +40,10 @@ import torch
 from soda_tpu_torch import profiling, utils
 
 # the hand-written sources in csrc/ (backend/build.csrc_source): the
-# streaming and chain probes here, the narrow probe (narrow.py)
-SOURCES = ('probe_stream.cu', 'probe_chain.cu', 'probe_narrow.cu')
+# streaming and chain probes here, the copy-shift probe (copyshift.py),
+# the 2.5-D jacobi (layout25d.py), the narrow probe (narrow.py)
+SOURCES = ('probe_stream.cu', 'probe_chain.cu', 'probe_copy.cu',
+           'probe_25d.cu', 'probe_narrow.cu')
 # kernel launches, keyed by (kernel, configuration)
 LAUNCHES: collections.Counter = collections.Counter()
 

@@ -21,9 +21,11 @@ version and the oracle, the layout forms (value stages in registers,
 transposed regions, packed 16-bit stages, chunked stage loops) and the
 JAX package's 24 seed configurations against theirs and the oracle,
 compiled statistics read from the card, and the tuner end to end. Integers bit-exact, floats within the reference
-threshold (tests/checks.py). Last, the experiment probes' three kernels
-(streaming, chain and narrow) against their plain versions, every
-launch counted, and the narrow kernels' SASS read (no spills).
+threshold (tests/checks.py). Last, the experiment probes' kernels
+(streaming, chain, narrow, copy-shift and 2.5-D jacobi) against their
+plain versions, every launch counted, and the narrow and copy-shift
+kernels' SASS read (no spills; the overlap's register chain between its
+copy's issue and its wait, the store control's reloads not forwarded).
 """
 
 import numpy as np
@@ -36,7 +38,8 @@ from soda_tpu_torch.backend import reference
 from soda_tpu_torch.backend.fused import FusedExecutor
 from soda_tpu_torch.backend.grouped import GroupedExecutor
 from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
-from soda_tpu_torch.experiments import narrow, probes
+from soda_tpu_torch.backend import build
+from soda_tpu_torch.experiments import copyshift, layout25d, narrow, probes
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
 from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
@@ -535,3 +538,69 @@ def test_narrow_register_chain_folds_no_iteration(name):
   body = narrow.BODIES[name]
   report = narrow.sass_report()[('ew', body.op)]
   assert narrow.ew_loop_holds_every_iteration(body), (name, report['loop'])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', sorted(copyshift.CASES))
+def test_copy_probe_on_the_card(name):
+  """Each exp32 case (the script's main() and check() cases, on its block)
+  at 1, 2 and 5 iterations: one launch each (a rotate control's in the
+  strip kernel), bit for bit equal to its stale-tail plain version."""
+  _need_gpu()
+  case = copyshift.CASES[name]
+  x = copyshift.copy_input(7 if name.startswith('check') else 0, 'cuda')
+  key = ((narrow.KERNEL, copyshift.ROTATE[name].name)
+         if case.kind == 'rotate' else (copyshift.KERNEL, name))
+  for n in probes.CHECK_ITERS:
+    before = probes.LAUNCHES[key]
+    got = copyshift.copy_probe(case, x, n)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[key] == before + 1
+    assert torch.equal(got, copyshift.copy_plain(case, x, n)), (name, n)
+
+
+@pytest.mark.gpu
+def test_copy_probe_sass_pins_the_overlap_and_the_store_control():
+  """No copy-shift kernel spills; the overlap's chain B (an xor, a min
+  and a shift-add for each of a thread's CELL_SLOTS cell slots) sits
+  between its copy's issue and its wait; the store control's main loop
+  keeps a store, a reload and a min for each slot (no reload
+  forwarded)."""
+  _need_gpu()
+  report = copyshift.sass_report()
+  assert all(rep['spills'] == 0 for rep in report.values()), report
+  order = copyshift.overlap_order(report['overlap']['loop'])
+  assert order['between'] >= 3 * copyshift.CELL_SLOTS, order
+  assert min(copyshift.store_loop_counts(
+      report['store']['loop']).values()) >= copyshift.CELL_SLOTS
+
+
+@pytest.mark.gpu
+def test_copy_probe_refuses_what_it_cannot_copy():
+  """A block no CTA tile of whole lines covers is refused at launch,
+  not copied another way."""
+  _need_gpu()
+  x = torch.zeros((256, 1030), dtype=torch.int32, device='cuda')
+  with pytest.raises(RuntimeError, match='failed to launch'):
+    copyshift.copy_probe('dma5_lane_d8', x, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('shape, block', [
+    ((64, 16, 128), 32), ((96, 2, 128), 32), ((8192, 16, 128), 256),
+    ((8192, 16, 128), 512), ((8192, 16, 128), 1024)])
+def test_jacobi25d_on_the_card(shape, block):
+  """exp9's 2.5-D kernel at the script's check and timed shapes and
+  blocks: one launch, bit for bit equal to the whole-grid function on
+  rows [2, h-2); built without spills, with the walk's band and tile."""
+  _need_gpu()
+  x = layout25d.grid_input(shape, 'cuda')
+  key = (layout25d.KERNEL, 'block %d' % block)
+  before = probes.LAUNCHES[key]
+  got = layout25d.jacobi25d(x, block)
+  torch.cuda.synchronize()
+  assert probes.LAUNCHES[key] == before + 1
+  assert torch.equal(layout25d.stored(got),
+                     layout25d.stored(layout25d.jacobi25d_plain(x)))
+  entry, = build.ptxas_report(build.csrc_source(layout25d.SOURCE)).values()
+  assert entry['spill_stores'] == entry['spill_loads'] == 0

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from soda_tpu_torch.experiments import narrow, probes
+from soda_tpu_torch.experiments import copyshift, narrow, probes
 
 CSRC = (pathlib.Path(__file__).resolve().parents[1] / 'soda_tpu_torch' /
         'csrc' / narrow.SOURCE)
@@ -236,11 +236,13 @@ def emulate(lib, body, xs, n):
 
 # one body of each (form, op) the source has, and both strip axes of the
 # strip ops that run along one axis in the scripts; exp24's shift chains
-# (one-step phases, an independent phase with cross taps)
+# (one-step phases, an independent phase with cross taps); exp32's rotate
+# controls (one phase of five chained steps)
 def _cases():
   seen, out = set(), []
   for body in (list(narrow.BODIES.values()) +
-               list(narrow.EXP24_SHIFT.values())):
+               list(narrow.EXP24_SHIFT.values()) +
+               list(copyshift.ROTATE.values())):
     if (body.form, body.op, body.phases) not in seen:
       seen.add((body.form, body.op, body.phases))
       out.append(body)
