@@ -167,6 +167,20 @@ seconds:
    overlap kernel's chain B between its copy's issue and its wait in the
    SASS, the store control's reloads not forwarded.
 
+19. deep: the many-stage form of the contrast cell's default kernel
+   (``tile_plan.DeepForm``: the tile of fewest stage evaluations an
+   output, thread cells fixed per extent, an interior block class,
+   barriers only where a stage reads fresh data or overwrites a slot
+   read since the last one, stages in shared barrier intervals), whose
+   run phase 3 counted: each element step
+   (``deep_steps``) bit for bit against the default form, the new kernel
+   within 1e-3 of the plain version; cold-L2 medians of the old and the
+   new kernel, device µs a call back to back as old, new, new, old and
+   each element's step likewise; barriers a tile, resident CTAs,
+   registers and spills; the bound (operations) and its share; and
+   ``torch.nn.functional.conv2d`` with contrast's 17x17 table (TF32 off),
+   timed as the cell's ``library_ms``.
+
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``: the fused kernel's per cell, mode and layout row, and each
@@ -216,6 +230,10 @@ COMPILED = ('blur', 'contrast')
 # and at probes.CHECK_ITERS), slope to N_BIG (the scripts' 16384 would
 # take minutes here)
 CHAIN_N_SMALL, CHAIN_N_BIG = 64, 2048
+# the many-stage form's cell (phase 19), and its back-to-back calls a
+# measurement (1.6-9.7 ms a call, 0.08-0.5 s)
+DEEP_CELL = 'contrast'
+DEEP_CALLS = 50
 
 
 def say(*parts):
@@ -226,6 +244,106 @@ def no_jax_loaded():
   for name in ('jax', 'soda_tpu'):
     if name in sys.modules:
       raise RuntimeError('the port loaded %s' % name)
+
+
+def deep_steps():
+  """(label, elements) of the many-stage form's measurement: the
+  default form, then tile_plan.DEEP_ELEMENTS turned on one by one."""
+  from soda_tpu_torch.backend.tile_plan import DEEP_ELEMENTS
+  return [('default form', ())] + [
+      ('+' + e, DEEP_ELEMENTS[:i + 1]) for i, e in enumerate(DEEP_ELEMENTS)]
+
+
+def deep_sources(stencil, shape):
+  """The kernel sources of ``deep_steps`` at ``shape``."""
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+  return [cuda_source.generate(make_tile_plan(stencil, shape, _deep=elements))
+          for _, elements in deep_steps()]
+
+
+def deep_phase(stencil, shape, ex, plain, plain_ms, smi, log):
+  """Phase 19: the many-stage form (tile_plan.DeepForm) of the contrast
+  cell, whose default kernel ``ex`` the main path ran. Each element step
+  of ``deep_steps`` bit for bit against the default form (the old
+  kernel) and the new kernel within the threshold of the plain version
+  ``plain`` (phase 4's); cold-L2 medians of the old and the new kernel,
+  device µs a call back to back as old, new, new, old, and each
+  element's step as before, after, after, before; barriers a tile,
+  resident CTAs, registers and spills; the bound and its share; and
+  ``torch.nn.functional.conv2d`` with contrast's 17x17 table over the
+  valid region (TF32 off; the port never calls it): its cold-L2 median
+  and largest error against the plain version. Returns the conv2d
+  median in ms."""
+  import torch
+  from soda_tpu_torch import corpus, profiling, testing
+  from soda_tpu_torch.backend.fused import FusedExecutor
+  from soda_tpu_torch.backend.tile_plan import stage_evaluations
+  from soda_tpu_torch.model.compiled import compiled_stats
+  inputs = testing.make_test_inputs(stencil, shape)
+  params = testing.make_test_params(stencil)
+  args = ex.prepare(inputs, params)
+  steps = [(label, FusedExecutor(stencil, shape, _deep=elements))
+           for label, elements in deep_steps()]
+  old = steps[0][1]
+  want = dict(zip(stencil.output_names, old.fn(*args)))
+  for label, step in steps[1:] + [('default kernel', ex)]:
+    got = dict(zip(stencil.output_names, step.fn(*args)))
+    testing.check_exact(stencil, shape, got, want, 'contrast %s vs the '
+                        'default form' % label)
+  new_out = dict(zip(stencil.output_names, ex.fn(*args)))
+  err = testing.check_outputs(stencil, shape, new_out, plain,
+                              'contrast new form vs plain')
+  del got, new_out
+  torch.cuda.synchronize()
+  for label, step in steps + [('default kernel', ex)]:
+    card = compiled_stats(step)['kernels'][0]
+    deep = step.plan.deep
+    log('%-14s tile %-9s %6d B smem, %d CTA(s)/SM (card %d), %3d barriers '
+        'a tile, %.1f evaluations/output, %d registers, spills %d/%d B, == '
+        'default form bit for bit' % (
+            label, step.plan.tile, step.plan.smem_bytes,
+            deep.ctas if deep else 1, card['ctas_per_sm'],
+            len(deep.barriers) if deep else len(step.plan.stages),
+            stage_evaluations(step.plan.spans, step.plan.tile,
+                              step.plan.stages), card['registers'],
+            card['spill_stores'], card['spill_loads']))
+    if card['spill_stores'] or card['spill_loads']:
+      raise RuntimeError('contrast %s spills' % label)
+
+  def b2b(e):
+    return profiling.back_to_back_us(lambda: e.fn(*args), calls=DEEP_CALLS)[1]
+
+  old_ms = statistics.median(profiling.cuda_times_ms(lambda: old.fn(*args),
+                                                     reps=KERNEL_REPS))
+  new_ms = statistics.median(profiling.cuda_times_ms(lambda: ex.fn(*args),
+                                                     reps=KERNEL_REPS))
+  seq = [b2b(old), b2b(ex), b2b(ex), b2b(old)]
+  bound, bound_by = profiling.bound_ms(stencil, shape)
+  log('old form %.4f ms cold, new %.4f ms (%.3fx); back to back old, new, '
+      'new, old %.1f/%.1f/%.1f/%.1f us/call (new/old %.3f); bound %.4f ms '
+      '(%s), share old %.2f%%, new %.2f%%; plain %.1f ms; new vs plain max '
+      '|err| %.3g | %s' % (
+          old_ms, new_ms, new_ms / old_ms, seq[0], seq[1], seq[2], seq[3],
+          (seq[1] + seq[2]) / (seq[0] + seq[3]), bound, bound_by,
+          100 * bound / old_ms, 100 * bound / new_ms, plain_ms, err, smi))
+  for (before, b_ex), (after, a_ex) in zip(steps, steps[1:]):
+    seq = [b2b(b_ex), b2b(a_ex), b2b(a_ex), b2b(b_ex)]
+    log('step %-10s -> %-10s back to back %.1f/%.1f/%.1f/%.1f us/call '
+        '(%.3fx) | %s' % (before, after, seq[0], seq[1], seq[2], seq[3],
+                          (seq[1] + seq[2]) / (seq[0] + seq[3]), smi))
+  torch.backends.cudnn.allow_tf32 = False
+  x = args[0].reshape((1, 1) + shape)
+  w = torch.from_numpy(corpus.contrast_table()).to(x.device)[None, None]
+  conv = torch.nn.functional.conv2d(x, w)[0, 0]
+  region = testing.output_valid_slices(stencil, shape, 'output')
+  lib_err = float((conv - plain['output'][region]).abs().max())
+  lib_ms = statistics.median(profiling.cuda_times_ms(
+      lambda: torch.nn.functional.conv2d(x, w), reps=KERNEL_REPS))
+  log('library: conv2d with the 17x17 table (TF32 off) %.4f ms cold, max '
+      '|err| %.3g against the plain version, %.2fx the new form\'s time | %s'
+      % (lib_ms, lib_err, lib_ms / new_ms, smi))
+  return lib_ms
 
 
 def main() -> int:
@@ -360,6 +478,8 @@ def main() -> int:
     sources.append(cuda_source.generate(kernel_plan(
         exp2_diag.copy_stencil(dtype, exp2_diag.COPY_SHAPE),
         exp2_diag.COPY_SHAPE, block_rows=exp2_diag.BLOCK_ROWS)))
+  # the many-stage form's element steps (phase 19)
+  sources += deep_sources(stencils[DEEP_CELL], shape_of[DEEP_CELL])
   # exp9's comparison rows (phase 18): the jacobi2d kernel at its block_rows
   exp9_stencil = corpus.build('jacobi2d', tile_size=exp9_layout25d.JACOBI_TILE)
   for block_rows in exp9_layout25d.JACOBI_BLOCK_ROWS:
@@ -379,8 +499,12 @@ def main() -> int:
     if not isinstance(ex, FusedExecutor):
       raise RuntimeError('%s: auto did not dispatch to the fused kernel' %
                          name)
-    say('[build] %-12s %-16s tile %-14s smem %6d B  %5d CTAs' % (
-        name, shape, ex.plan.tile, ex.plan.smem_bytes, ex.plan.n_tiles))
+    deep = ex.plan.deep
+    say('[build] %-12s %-16s tile %-14s smem %6d B  %5d CTAs%s' % (
+        name, shape, ex.plan.tile, ex.plan.smem_bytes, ex.plan.n_tiles,
+        '  many-stage form: %d barriers a tile for %d stages, %d CTAs/SM' % (
+            len(deep.barriers), len(ex.plan.stages), deep.ctas)
+        if deep else ''))
     inputs = testing.make_test_inputs(stencil, shape)
     params = testing.make_test_params(stencil)
     cells.append((name, shape, stencil, ex, inputs, params))
@@ -1014,7 +1138,8 @@ def main() -> int:
             plan.n_ctas, (', warp blocks %s, frame %s, %d cell(s) a lane, '
                           '~%d live values' % (warp.block, warp.window,
                                                warp.cells, warp.regs)
-                          if warp else ''),
+                          if warp else ', many-stage form, %d barriers a tile'
+                          % len(plan.deep.barriers) if plan.deep else ''),
             'layout_stencil_plain bit for bit' if layout else
             'whole-grid plain', exact, ms, default_ms,
             ms / default_ms, err, bound, 100 * bound / ms, p_ms, device_us,
@@ -1303,6 +1428,18 @@ def main() -> int:
         'its plain version and within %.2f of its bound (%.1fs) | %s' % (
             len(copy_rows), len(rows9), narrow.MAX_SHARE, time.time() - t18,
             smi))
+
+  # 19. the many-stage form: contrast's default kernel against the
+  # default form, element by element, and the library call
+  t19 = time.time()
+  name = DEEP_CELL
+  lib_ms = deep_phase(stencils[name], shape_of[name], by_name[name][3],
+                      plains[name], plain_ms_of[name], smi,
+                      lambda line: say('[deep] ' + line))
+  record_of = next(k for k in kernels
+                   if k['name'] == 'fused_stencil[%s]' % name)
+  record_of['library_ms'] = lib_ms
+  say('[deep] phase 19 (%.1fs)' % (time.time() - t19))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

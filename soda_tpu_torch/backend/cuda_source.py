@@ -952,19 +952,21 @@ def _value_blocks(plan: TilePlan, buf, valid, store) -> List[str]:
   return out
 
 
-def _kernel_head(plan: TilePlan) -> List[str]:
-  """The kernel's signature, its replica offsets and the tile origin on
-  every axis but the first (``o1, o2, ...``) from ``blockIdx.x``; what
-  is left of the block index is in ``bid``."""
+def _kernel_head(plan: TilePlan, min_ctas: int = 0) -> List[str]:
+  """The kernel's signature (``min_ctas``: resident CTAs an SM its
+  launch bounds ask registers for), its replica offsets and the tile
+  origin on every axis but the first (``o1, o2, ...``) from
+  ``blockIdx.x``; what is left of the block index is in ``bid``."""
   st = plan.stencil
   grid, tile = plan.grid, plan.tile
   decls, _ = _io_args(plan, void=False)
+  bounds = '%d, %d' % (THREADS, min_ctas) if min_ctas else '%d' % THREADS
   # kReplicas: blockIdx.y picks one of several grids laid out one after
   # another. A single grid launches the instantiation without that
   # offset, whose pointers stay kernel parameters.
   out = ['template <bool kReplicas>',
-         '__global__ void __launch_bounds__(%d) soda_fused_@H@(%s) {' %
-         (THREADS, ', '.join(decls)),
+         '__global__ void __launch_bounds__(%s) soda_fused_@H@(%s) {' %
+         (bounds, ', '.join(decls)),
          '  extern __shared__ __align__(16) unsigned char soda_smem[];',
          '  if (kReplicas) {',
          '    const long long rep = blockIdx.y;']
@@ -1017,6 +1019,204 @@ def _kernel(plan: TilePlan) -> str:
       lambda a, lo, hi: 'g%d >= %d && g%d < %d' % (a, lo, a, hi), store)
   out.append('}')
   return '\n'.join(out)
+
+
+# -- the many-stage form (tile_plan.DeepForm) ---------------------------------
+def _cell_map(ext) -> List[str]:
+  """A thread's first cell of an extent (``m<a>``, the minor axis
+  fastest): the map the 'cells' element computes once per run of stages
+  with that extent."""
+  dim = len(ext)
+  if dim == 1:
+    return ['const int m0 = threadIdx.x;']
+  lines = ['const int m%d = threadIdx.x %% %d;' % (dim - 1, ext[-1])]
+  rest = 'threadIdx.x / %d' % ext[-1]
+  for a in range(dim - 2, 0, -1):
+    lines.append('const int m%d = (%s) %% %d;' % (a, rest, ext[a]))
+    rest = '(%s) / %d' % (rest, ext[a])
+  lines.append('const int m0 = %s;' % rest)
+  return lines
+
+
+def _cell_coords(ext, j: int) -> List[str]:
+  """Local coordinates ``l<a>`` of a thread's cell ``threadIdx.x + j *
+  THREADS`` of an extent, from its map ``m<a>``: ``j * THREADS`` in the
+  extent's mixed radix (compile-time digits) added digit by digit, each
+  digit carrying at most one."""
+  dim = len(ext)
+  if j == 0:
+    return ['const int l%d = m%d;' % (a, a) for a in range(dim)]
+  digits, rest = [0] * dim, j * THREADS
+  for a in range(dim - 1, 0, -1):
+    digits[a], rest = rest % ext[a], rest // ext[a]
+  digits[0] = rest
+  lines, carry = [], ''
+  for a in range(dim - 1, 0, -1):
+    lines += ['int l%d = m%d + %d%s;' % (a, a, digits[a], carry),
+              'const int k%d = l%d >= %d;' % (a, a, ext[a]),
+              'if (k%d) l%d -= %d;' % (a, a, ext[a])]
+    carry = ' + k%d' % a
+  lines.append('const int l0 = m0 + %d%s;' % (digits[0], carry))
+  return lines
+
+
+def _fixed_cells(ext, body: List[str]) -> List[str]:
+  """``body`` once for each of a thread's cells of an extent (the map's
+  ``m<a>`` in scope), with ``i`` the cell's flat index and ``l<a>`` its
+  coordinates; the last pass guarded where the extent is not a multiple
+  of THREADS."""
+  cells = int(np.prod(ext))
+  out = []
+  for j in range(-(-cells // THREADS)):
+    left = cells - j * THREADS
+    lines = ['const int i = threadIdx.x + %d;' % (j * THREADS)]
+    lines += _cell_coords(ext, j) + body
+    if left < THREADS:
+      out += ['if (threadIdx.x < %d) {  // cell pass %d' % (left, j)]
+    else:
+      out += ['{  // cell pass %d' % j]
+    out += ['  ' + s for s in lines] + ['}']
+  return out
+
+
+def _deep_kernel(plan: TilePlan) -> str:
+  """The kernel of the many-stage form (tile_plan.DeepForm, with an
+  element besides 'tile'): the input fill, then the stages in the plan's
+  order with a barrier only before the stages ``deep.barriers`` names.
+  'cells' walks each extent with ``_fixed_cells`` (one map per run of
+  stages with one extent) in place of ``_cell_loop``'s division of every
+  cell index; 'interior' instantiates the tile's body twice, and a CTA
+  whose origin lies in ``deep.interior`` runs the one without bounds and
+  valid-region tests (``kEdge`` false)."""
+  st = plan.stencil
+  dim = plan.dim
+  shape, tile = plan.shape, plan.tile
+  deep = plan.deep
+  cells_on = deep.has('cells')
+  strides = _strides(shape)
+  params = ', '.join('p_%s' % s.name for s in st.param_stmts)
+  outputs = set(st.output_names)
+  gvars = ['g%d' % a for a in range(dim)]
+  inputs = [n for n in st.input_names if plan.buffered(n)]
+  out = _kernel_head(plan, deep.ctas)
+  out.append('  const int o0 = (int)bid * %d;' % tile[0])
+
+  def walk(name, body):
+    if cells_on:
+      return _fixed_cells(plan.extent(name), body)
+    return [s[2:] for s in _cell_loop(plan, name, body)]
+
+  def coords(name):
+    neg = plan.spans[name][0]
+    return ['const int g%d = o%d %s %d + l%d;' % (
+        a, a, '-' if neg[a] >= 0 else '+', abs(neg[a]), a)
+            for a in range(dim)] if cells_on else []
+
+  body = []
+  for name in inputs:  # halo tiles, 0 outside the array
+    t = storage_ctype(plan.dtype(name))
+    inside = ' && '.join('g%d >= 0 && g%d < %d' % (a, a, shape[a])
+                         for a in range(dim))
+    body += ['{  // input %s' % name, '  ' + _smem_ptr(plan, name, False)]
+    cell = coords(name) + [
+        '%s v = 0;' % t,
+        'if (!kEdge || (%s)) v = g_%s[%s];' % (inside, name,
+                                              _flat(gvars, strides)),
+        's_%s[i] = v;' % name]
+    if cells_on:
+      body += ['  ' + s for s in _cell_map(plan.extent(name))]
+    body += ['  ' + s for s in walk(name, cell)] + ['}']
+
+  barriers = set(deep.barriers)
+  mapped = None  # the extent whose map is in scope
+  for k, stage in enumerate(plan.stages):
+    name = stage.name
+    ext = plan.extent(name)
+    if k in barriers:
+      body.append('__syncthreads();')
+    if cells_on and ext != mapped:
+      if mapped is not None:
+        body.append('}')
+      body += ['{  // cells of extent %s' % (ext,)] + [
+          '  ' + s for s in _cell_map(ext)]
+      mapped = ext
+    t = storage_ctype(stage.dtype)
+    lo, hi = plan.margins[name]
+    neg = plan.spans[name][0]
+    ok = ' && '.join('g%d >= %d && g%d < %d' % (a, lo[a], a, shape[a] - hi[a])
+                     for a in range(dim))
+    cell = coords(name) + ['%s v = 0;' % t,
+                           'const bool ok = !kEdge || (%s);' % ok, 'if (ok) {']
+    loaders = []
+    for p in _stage_parents(stage):
+      pext = plan.extent(p)
+      pneg = plan.spans[p][0]
+      pt = storage_ctype(plan.dtype(p))
+      pstrides = _strides(pext)
+      args = ', '.join('int d%d' % a for a in range(dim))
+      base = ' + '.join('l%d * %d' % (a, s) if s != 1 else 'l%d' % a
+                        for a, s in enumerate(pstrides))
+      shift = sum((pneg[a] - neg[a]) * pstrides[a] for a in range(dim))
+      taps = ' + '.join('d%d * %d' % (a, s) if s != 1 else 'd%d' % a
+                        for a, s in enumerate(pstrides))
+      cell += ['  const int b_%s = %s + %d;' % (p, base, shift),
+               '  auto ld_%s = [&](%s) -> %s { return s_%s[b_%s + %s]; };' % (
+                   p, args, pt, p, p, taps)]
+      loaders.append('ld_%s' % p)
+    cell.append('  v = soda_stage_%d(%s);' % (
+        k, ', '.join(loaders + ([params] if params else []))))
+    cell.append('}')
+    if plan.buffered(name):
+      cell.append('s_%s[i] = v;' % name)
+    if name in outputs:
+      own = ['l%d >= %d && l%d < %d' % (a, neg[a], a, neg[a] + tile[a])
+             for a in range(dim) if plan.spans[name] != ((0,) * dim,) * 2]
+      cell.append('if (%s) o_%s[%s] = v;' % (' && '.join(['ok'] + own), name,
+                                             _flat(gvars, strides)))
+    block = ['{  // stage %s, extent %s' % (name, ext)]
+    for p in _stage_parents(stage):
+      block.append('  ' + _smem_ptr(plan, p, True))
+    if plan.buffered(name):
+      block.append('  ' + _smem_ptr(plan, name, False))
+    block += ['  ' + s for s in walk(name, cell)] + ['}']
+    body += [('  ' if mapped else '') + s for s in block]
+  if mapped is not None:
+    body.append('}')
+
+  run = ['auto tile_body = [&](auto edge) {',
+         '  constexpr bool kEdge = decltype(edge)::value;']
+  run += ['  ' + s for s in body]
+  run.append('};')
+  if deep.has('interior'):
+    inside = ' && '.join('o%d >= %d && o%d <= %d' % (a, lo, a, hi)
+                         for a, (lo, hi) in enumerate(deep.interior))
+    run += ['// a CTA inside every stage\'s valid region (and its input',
+            '// windows inside the array) runs without those tests',
+            'if (%s) tile_body(std::false_type{});' % inside,
+            'else tile_body(std::true_type{});']
+  else:
+    run.append('tile_body(std::true_type{});')
+  out += ['  ' + s for s in run]
+  out.append('}')
+  return '\n'.join(out)
+
+
+def _deep_note(plan: TilePlan) -> str:
+  deep = plan.deep
+  lines = _note(plan).split('\n')[:4] + [
+      '// Many-stage form (tile_plan.DeepForm; elements %s):' %
+      ', '.join(deep.elements),
+      '// tile %s for %d resident CTAs an SM (%d bytes of shared memory' % (
+          plan.tile, deep.ctas, plan.smem_bytes),
+      '// each), %.1f stage evaluations an output; %d barriers a tile for %d'
+      % (deep.evaluations, len(deep.barriers), len(plan.stages)),
+      '// stages: a barrier only where a stage reads a buffer written since',
+      '// the last one or writes bytes read since it (tile_plan.',
+      '// hazard_barriers); buffers reused by liveness one barrier later.']
+  return '\n'.join(lines + [
+      '// Bound on this card: the larger of the bytes (each input read once,',
+      '// each output written once) and the operations, each float operation',
+      '// its own instruction under --fmad=false (profiling.bound_ms).'])
 
 
 # -- the mode kernels (stream_loop, prefetch, dma_split, out_dma) -----------
@@ -1559,7 +1759,10 @@ def generate(plan: TilePlan) -> KernelSource:
   funcs = [_stage_function(plan, k, stage)
            for k, stage in enumerate(plan.stages)]
   config = plan.config
-  if config.is_default:
+  deep = plan.deep is not None and plan.deep.elements != ('tile',)
+  if deep:
+    note = _deep_note(plan)
+  elif config.is_default:
     note = _note(plan)
   elif config.one_tile:
     note = '\n'.join(_note(plan).split('\n')[:4] + _layout_note(plan))
@@ -1584,7 +1787,8 @@ def generate(plan: TilePlan) -> KernelSource:
       '\n'.join(funcs),
       '#ifdef __CUDACC__',
       ''.join(p + '\n' for p in packed) +
-      (_kernel(plan) if config.one_tile else _mode_kernel(plan)),
+      (_deep_kernel(plan) if deep else _kernel(plan) if config.one_tile
+       else _mode_kernel(plan)),
       '',
       _launcher(plan),
       '#else',

@@ -38,6 +38,7 @@ for the default config is laid out exactly as before.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from soda_tpu_torch import utils
@@ -48,6 +49,12 @@ from soda_tpu_torch.backend.plan import (FusionPlan, Stage, make_plan,
 
 # Shared memory a block may use on the H100 (dynamic, opt-in above 48 KB).
 SMEM_LIMIT = 232_448
+# Shared memory of one H100 SM, and what each resident CTA reserves of it
+# besides its own buffers: k CTAs reside where k * (bytes + 1 KB) fit.
+SM_SMEM = 233_472
+CTA_SMEM_RESERVED = 1024
+# Threads one SM holds at once.
+SM_THREADS = 2048
 # Buffers start on 16-byte boundaries (vector-width aligned).
 ALIGN = 16
 # The minor (contiguous) axis of a tile grows first, up to this width.
@@ -78,6 +85,35 @@ REG_BUDGET = 64
 # Live register values per thread beyond which a window is not held at
 # all (4 KB of values a thread).
 REG_LIMIT = 1024
+# The many-stage form (DeepForm), element by element in the order they
+# are measured: 'tile' picks the tile for resident CTAs (alone: the
+# default form at that tile), 'cells' walks each stage's extent by a
+# thread map fixed per extent, 'interior' drops the valid-region tests
+# in CTAs that lie inside every stage's valid region, 'barriers' runs a
+# barrier only where a stage reads fresh data or overwrites a slot read
+# since the last one, 'intervals' reorders the stages into barrier
+# intervals and places their buffers so that independent stages share
+# one. DEEP_DEFAULT are the elements the default kernel takes: those
+# whose step lowered the time back to back (PERF.md, the many-stage
+# form's findings).
+DEEP_ELEMENTS = ('tile', 'cells', 'interior', 'barriers', 'intervals')
+DEEP_DEFAULT = DEEP_ELEMENTS
+# Stages at which the default kernel takes the many-stage form. A stage
+# of the default form is one pass of the CTA's threads over an extent
+# of a few thousand cells (a few a thread) and then a barrier that
+# drains the SM; with a handful of stages (the 11 other benchmark cells
+# have 2-10) the input fill and the stores dominate, while contrast's
+# 114 stages of 1-6 cells a thread ran at 0.4% of its bound (PERF.md's
+# default kernel table). Any count between them separates the cells.
+DEEP_MIN_STAGES = 32
+# Barriers a tile the form's schedule may take, as a share of its
+# stages. Swept on an H100 (python -m soda_tpu_torch.tile_sweep --deep;
+# PERF.md): at each of contrast's tiles, its stages in shared barrier
+# intervals (8-44 barriers for 114 stages) ran 0.75-0.89x the time of
+# the default order with a barrier only where one is needed (79-90). A
+# tile whose buffers leave no room to share intervals falls back towards
+# that, and the next tile is taken.
+DEEP_MAX_BARRIER_SHARE = 1 / 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +207,7 @@ class TilePlan:
       buffer (``out_dma``).
     warp: a value-mode plan's warp window (WarpPlan); its stages live
       in registers, so ``offsets`` names the inputs only.
+    deep: the many-stage form's schedule (DeepForm), or None.
   """
   stencil: object
   shape: Tuple[int, ...]
@@ -187,6 +224,7 @@ class TilePlan:
   slot_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
   staging: Dict[str, int] = dataclasses.field(default_factory=dict)
   warp: Optional['WarpPlan'] = None
+  deep: Optional['DeepForm'] = None
 
   @property
   def dim(self) -> int:
@@ -371,6 +409,17 @@ def last_readers(order: Sequence[Stage]) -> Dict[str, int]:
   return readers
 
 
+def _buffer_bytes(stencil, spans: Dict[str, Span], tile: Sequence[int],
+                  name: str) -> int:
+  """Bytes of ``name``'s shared-memory buffer (its extent, aligned)."""
+  neg, pos = spans[name]
+  cells = 1
+  for t, n, p in zip(tile, neg, pos):
+    cells *= t + n + p
+  itemsize = stencil.tensors[name].dtype.np_dtype.itemsize
+  return _round_up(cells * itemsize, ALIGN)
+
+
 def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
               tile: Sequence[int], inputs: bool = True, stages: bool = True
               ) -> Tuple[Dict[str, int], int]:
@@ -385,22 +434,13 @@ def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
   value-mode plan keeps its stages in registers).
   """
   readers = last_readers(order)
-
-  def nbytes(name):
-    neg, pos = spans[name]
-    cells = 1
-    for t, n, p in zip(tile, neg, pos):
-      cells *= t + n + p
-    itemsize = stencil.tensors[name].dtype.np_dtype.itemsize
-    return _round_up(cells * itemsize, ALIGN)
-
   live: Dict[str, Tuple[int, int]] = {}
   offsets: Dict[str, int] = {}
   peak = 0
 
   def alloc(name):
     nonlocal peak
-    size = nbytes(name)
+    size = _buffer_bytes(stencil, spans, tile, name)
     spans_ = sorted(live.values())
     start = 0
     for lo, hi in spans_:
@@ -740,6 +780,331 @@ def _warp_plan(stencil, shape, tile, order, spans, layout: LayoutConfig,
                   scratch_offset=scratch_offset)
 
 
+# -- the many-stage form -------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class DeepForm:
+  """The many-stage form of the default kernel (DEEP_ELEMENTS).
+
+  Attributes:
+    elements: the elements on, in DEEP_ELEMENTS order.
+    barriers: indices into the plan's stages before which every thread
+      of the CTA waits at a barrier; 0 is the one after the input fill.
+      Without 'barriers' every stage has one (the default form's
+      schedule).
+    ctas: resident CTAs an SM that the plan's shared memory leaves.
+    evaluations: stage cells a CTA evaluates per output cell.
+    interior: per axis, the (first, last) tile origin of a CTA whose
+      every stage extent lies inside that stage's valid region and whose
+      input windows lie inside the array (first > last: no such CTA).
+  """
+  elements: Tuple[str, ...]
+  barriers: Tuple[int, ...]
+  ctas: int
+  evaluations: float
+  interior: Tuple[Tuple[int, int], ...]
+
+  def has(self, element: str) -> bool:
+    return element in self.elements
+
+
+def resident_ctas(smem_bytes: int) -> int:
+  """CTAs of the kernel's 512 threads that one SM holds at once, as its
+  threads and its shared memory allow (registers aside)."""
+  return min(SM_THREADS // (32 * WARPS),
+             SM_SMEM // (smem_bytes + CTA_SMEM_RESERVED))
+
+
+def stage_evaluations(spans: Dict[str, Span], tile: Sequence[int],
+                      order: Sequence[Stage]) -> float:
+  """Stage cells one CTA evaluates per output cell of its tile."""
+  cells = sum(_prod(t + n + p for t, n, p in zip(tile, *spans[s.name]))
+              for s in order)
+  return cells / _prod(tile)
+
+
+def _deep_intervals(stencil, order: Sequence[Stage], spans: Dict[str, Span],
+                    tile: Sequence[int], budget: int
+                    ) -> Optional[List[List[Stage]]]:
+  """Stages in barrier intervals: no stage reads a buffer written in its
+  own interval, and a buffer's bytes are free again only in the interval
+  after its last reader's. Each interval takes, in ``order``'s priority,
+  every stage whose parents are done whose buffer keeps the bytes live
+  in the interval within ``budget``, and that leaves the remaining
+  stages, one an interval in ``order``, within it too (so the schedule
+  always completes). Bytes are counted as a sum; the first-fit
+  allocation after it may need more (see _deep_schedule). None when not
+  even one stage an interval fits."""
+  readers: Dict[str, int] = {}
+  for stage in order:
+    for parent in stage.load_offsets:
+      readers[parent] = readers.get(parent, 0) + 1
+  size = {n: _buffer_bytes(stencil, spans, tile, n) if n in readers else 0
+          for n in spans}
+
+  def freed(stages, unread):
+    return sum(size[p] for p in {p for s in stages for p in s.load_offsets}
+               if unread[p] == 0)
+
+  def completes(rest, live, unread):
+    unread = dict(unread)
+    for stage in rest:
+      live += size[stage.name]
+      if live > budget:
+        return False
+      for parent in stage.load_offsets:
+        unread[parent] -= 1
+        if unread[parent] == 0:
+          live -= size[parent]
+    return True
+
+  done = set(stencil.input_names)
+  unread = dict(readers)
+  live = sum(size[n] for n in stencil.input_names if n in size)
+  remaining = list(order)
+  intervals = []
+  if not completes(remaining, live, unread):
+    return None
+  while remaining:
+    cur: List[Stage] = []
+    cur_live = live
+    for stage in remaining:
+      if any(p not in done for p in stage.load_offsets):
+        continue
+      if cur_live + size[stage.name] > budget:
+        continue
+      after = dict(unread)
+      for parent in stage.load_offsets:
+        after[parent] -= 1
+      taken = cur + [stage]
+      rest = [s for s in remaining if s not in taken]
+      if not completes(rest, cur_live + size[stage.name] - freed(taken, after),
+                       after):
+        continue
+      cur, cur_live, unread = taken, cur_live + size[stage.name], after
+    intervals.append(cur)
+    done.update(s.name for s in cur)
+    live = cur_live - freed(cur, unread)
+    remaining = [s for s in remaining if s not in cur]
+  return intervals
+
+
+def _allocate_intervals(stencil, intervals: Sequence[Sequence[Stage]],
+                        spans: Dict[str, Span], tile: Sequence[int]
+                        ) -> Tuple[Dict[str, int], int]:
+  """First-fit shared-memory offsets for a schedule of barrier
+  intervals: a buffer's bytes are taken from its stage's interval (an
+  input's from the fill) to its last reader's, and free from the next
+  interval on, so no slot is rewritten before a barrier that follows its
+  old occupant's last read."""
+  last: Dict[str, int] = {}
+  for j, interval in enumerate(intervals):
+    for stage in interval:
+      for parent in stage.load_offsets:
+        last[parent] = j
+  live: Dict[str, Tuple[int, int]] = {}
+  offsets: Dict[str, int] = {}
+  peak = 0
+
+  def alloc(name):
+    nonlocal peak
+    size = _buffer_bytes(stencil, spans, tile, name)
+    start = 0
+    for lo, hi in sorted(live.values()):
+      if start + size <= lo:
+        break
+      start = max(start, hi)
+    live[name] = (start, start + size)
+    offsets[name] = start
+    peak = max(peak, start + size)
+
+  for name in stencil.input_names:
+    if name in last:
+      alloc(name)
+  for j, interval in enumerate(intervals):
+    for stage in interval:
+      if stage.name in last:
+        alloc(stage.name)
+    for name in [n for n in live if last[n] == j]:
+      del live[name]
+  return offsets, peak
+
+
+def hazard_barriers(stencil, stages: Sequence[Stage], offsets: Dict[str, int],
+                    spans: Dict[str, Span], tile: Sequence[int]
+                    ) -> Tuple[int, ...]:
+  """Indices into ``stages`` before which a barrier must run: the stage
+  reads bytes written since the last barrier (the input fill writes the
+  inputs' buffers), or writes bytes read or written since it. Placing
+  each barrier as late as that allows gives the fewest, and each one
+  separates a hazard no other separates."""
+  def extent(name):
+    start = offsets[name]
+    return start, start + _buffer_bytes(stencil, spans, tile, name)
+
+  def meets(a, ranges):
+    return any(a[0] < hi and lo < a[1] for lo, hi in ranges)
+
+  written = [extent(n) for n in stencil.input_names if n in offsets]
+  read: List[Tuple[int, int]] = []
+  out = []
+  for k, stage in enumerate(stages):
+    reads = [extent(p) for p in sorted(stage.load_offsets) if p in offsets]
+    writes = [extent(stage.name)] if stage.name in offsets else []
+    if (any(meets(r, written) for r in reads) or
+        any(meets(w, written + read) for w in writes)):
+      out.append(k)
+      written, read = [], []
+    read += reads
+    written += writes
+  return tuple(out)
+
+
+def _deep_schedule(stencil, order: Sequence[Stage], spans: Dict[str, Span],
+                   tile: Sequence[int], budget: int
+                   ) -> Tuple[List[Stage], Dict[str, int], int]:
+  """(stages, offsets, shared-memory bytes) of the barrier-interval
+  schedule within ``budget`` bytes: each interval's stages grouped by
+  extent (so a thread's cell map serves a run of them), then by
+  ``order``. Where first-fit fragments past the budget, the schedule is
+  redone under a budget lowered by the excess; one stage an interval in
+  ``order`` (the default form's peak) always fits."""
+  index = {s.name: i for i, s in enumerate(order)}
+  cap = budget
+  while True:
+    intervals = _deep_intervals(stencil, order, spans, tile, cap)
+    if intervals is None:
+      intervals = [[s] for s in order]
+    intervals = [sorted(iv, key=lambda s: (
+        tuple(t + n + p for t, n, p in zip(tile, *spans[s.name])),
+        index[s.name])) for iv in intervals]
+    offsets, peak = _allocate_intervals(stencil, intervals, spans, tile)
+    if peak <= budget or all(len(iv) == 1 for iv in intervals):
+      return [s for iv in intervals for s in iv], offsets, peak
+    cap -= peak - budget
+
+
+def _interior_box(stencil, shape, tile, spans, margins, offsets
+                  ) -> Tuple[Tuple[int, int], ...]:
+  """DeepForm.interior: per axis, the tile origins whose every stage
+  extent lies in that stage's valid region and whose buffered input
+  windows lie in the array."""
+  box = []
+  for a in range(len(shape)):
+    first, last = 0, shape[a] - 1
+    for name, (neg, pos) in sorted(spans.items()):
+      if name in stencil.input_names:
+        if name not in offsets:
+          continue
+        lo = hi = 0
+      else:
+        lo, hi = margins[name][0][a], margins[name][1][a]
+      first = max(first, lo + neg[a])
+      last = min(last, shape[a] - hi - pos[a] - tile[a])
+    box.append((first, last))
+  return tuple(box)
+
+
+def _ctas_budget(ctas: int) -> int:
+  """Shared memory a CTA may use where ``ctas`` reside on an SM."""
+  return min(SMEM_LIMIT, SM_SMEM // ctas - CTA_SMEM_RESERVED)
+
+
+def _tile_schedule(stencil, order, spans, tile):
+  """(stages, offsets, bytes, barriers) of the interval schedule at
+  ``tile``: under the budget of the most resident CTAs whose schedule
+  stays within DEEP_MAX_BARRIER_SHARE of the stages as barriers, else
+  the fewest barriers found; None where not even the default form's
+  buffers leave a resident CTA."""
+  most = resident_ctas(_allocate(stencil, order, spans, tile)[1])
+  best = None
+  for ctas in range(most, 0, -1):
+    stages, offsets, peak = _deep_schedule(stencil, order, spans, tile,
+                                           _ctas_budget(ctas))
+    got = (stages, offsets, peak,
+           hazard_barriers(stencil, stages, offsets, spans, tile))
+    if len(got[3]) <= DEEP_MAX_BARRIER_SHARE * len(order):
+      return got
+    if best is None or len(got[3]) < len(best[3]):
+      best = got
+  return best
+
+
+def _deep_tile(stencil, shape, order, spans):
+  """(tile, schedule) of the many-stage form: tiles of powers of two on
+  every axis (the minor one up to MAX_MINOR) within MAX_TILE_CELLS whose
+  default-form buffers (one stage a barrier interval: the least shared
+  memory a schedule can take) leave a resident CTA, in order of stage
+  evaluations an output; the first whose schedule (_tile_schedule)
+  keeps within DEEP_MAX_BARRIER_SHARE, else the one with the fewest
+  barriers. The fewest evaluations beat resident CTAs in the sweep
+  (PERF.md): at contrast's (32768, 512) the 1-CTA tiles (16, 64), 147.3
+  evaluations an output, and (32, 32), 152.0, ran 3% faster back to
+  back than (8, 32) at 2 CTAs, 186.2, and 8-11% faster than (16, 16)
+  at 3, 195.7; this picks (16, 64). None fit: the smallest tile (the
+  caller refuses it)."""
+  caps = [_pow2_ceil(s) for s in shape]
+  caps[-1] = min(caps[-1], MAX_MINOR)
+  axes = []
+  for cap in caps:
+    sizes, b = [], 1
+    while b <= cap:
+      sizes.append(b)
+      b *= 2
+    axes.append(sizes)
+  cands = []
+  for tile in itertools.product(*axes):
+    if _prod(tile) > MAX_TILE_CELLS:
+      continue
+    if resident_ctas(_allocate(stencil, order, spans, tile)[1]):
+      cands.append((stage_evaluations(spans, tile, order), tile))
+  best = None
+  for _, tile in sorted(cands):
+    got = _tile_schedule(stencil, order, spans, tile)
+    if len(got[3]) <= DEEP_MAX_BARRIER_SHARE * len(order):
+      return tile, got
+    if best is None or len(got[3]) < len(best[1][3]):
+      best = tile, got
+  return best or (tuple(1 for _ in shape), None)
+
+
+def _deep_plan(stencil, shape, order, spans, margins, elements,
+               tile=None) -> TilePlan:
+  """The many-stage form's plan (DeepForm) with ``elements`` on, at
+  ``tile`` or the one _deep_tile picks."""
+  sched = None
+  if tile is None:
+    tile, sched = _deep_tile(stencil, shape, order, spans)
+  stages, (offsets, peak) = list(order), _allocate(stencil, order, spans,
+                                                   tile)
+  barriers = tuple(range(len(stages)))
+  if 'intervals' in elements:
+    sched = sched or _tile_schedule(stencil, order, spans, tile)
+    if sched is not None:
+      stages, offsets, peak, barriers = sched
+  elif 'barriers' in elements:
+    barriers = hazard_barriers(stencil, stages, offsets, spans, tile)
+  deep = DeepForm(elements=tuple(elements), barriers=barriers,
+                  ctas=resident_ctas(peak),
+                  evaluations=stage_evaluations(spans, tile, order),
+                  interior=_interior_box(stencil, shape, tile, spans,
+                                         margins, offsets))
+  return TilePlan(stencil=stencil, shape=tuple(shape), tile=tuple(tile),
+                  stages=tuple(stages), spans=spans, offsets=offsets,
+                  smem_bytes=peak, margins=margins, deep=deep)
+
+
+def deep_elements(elements) -> Tuple[str, ...]:
+  """Validate a private ``_deep`` argument: DEEP_ELEMENTS names with
+  'tile' among them ('intervals' with 'barriers'), in DEEP_ELEMENTS
+  order."""
+  names = set(elements)
+  if not names <= set(DEEP_ELEMENTS) or 'tile' not in names or (
+      'intervals' in names and 'barriers' not in names):
+    raise ValueError('the many-stage form takes %s, with tile (and barriers '
+                     'for intervals); got %s' % (DEEP_ELEMENTS, sorted(names)))
+  return tuple(e for e in DEEP_ELEMENTS if e in names)
+
+
 def candidate_tiles(shape: Sequence[int],
                     max_cells: int = MAX_TILE_CELLS
                     ) -> List[Tuple[int, ...]]:
@@ -793,12 +1158,20 @@ def make_tile_plan(stencil, shape: Sequence[int],
                    config: Optional[KernelConfig] = None,
                    block_rows: Optional[int] = None,
                    mid_tile: Optional[int] = None,
-                   fusion: Optional[FusionPlan] = None) -> TilePlan:
+                   fusion: Optional[FusionPlan] = None,
+                   _deep: Optional[Sequence[str]] = None) -> TilePlan:
   """Plan the fused kernel for ``shape``; ``tile=None`` picks the
   largest candidate tile whose buffers (with ``config``'s window slots
   and staging) fit SMEM_LIMIT. ``block_rows`` and ``mid_tile`` fix the
   tile's axis-0 and axis-1 extents (the JAX kernel's names). ``fusion``
   is the stencil's ``make_plan(stencil, 'full')``, built when None.
+
+  With no tile, block_rows, mid_tile, mode or layout key, a stage graph
+  of DEEP_MIN_STAGES or more takes the many-stage form (DeepForm, the
+  elements of DEEP_DEFAULT). ``_deep`` is private, for the tests and
+  chip_smoke.py that measure the form element by element: () keeps the
+  default form, a set of DEEP_ELEMENTS (deep_elements) forces the form
+  with those on, at ``tile`` where one is given.
 
   Raises utils.InputError when the grid is too small for the stencil
   window, or when even a one-cell tile needs more shared memory than a
@@ -826,6 +1199,22 @@ def make_tile_plan(stencil, shape: Sequence[int],
     if len(tile) != len(shape) or min(tile) < 1:
       raise utils.InputError('tile %s does not match the %d-D grid' %
                              (tile, len(shape)))
+  if _deep is None:
+    _deep = DEEP_DEFAULT if (tile is None and not fixed and config.is_default
+                              and len(stages) >= DEEP_MIN_STAGES) else ()
+  if _deep:
+    elements = deep_elements(_deep)
+    if fixed or not config.is_default:
+      raise utils.InputError('the many-stage form takes no block_rows, '
+                             'mid_tile, mode or layout key')
+    tp = _deep_plan(stencil, shape, order, spans, margins, elements, tile)
+    if tp.smem_bytes > SMEM_LIMIT:
+      raise utils.InputError(
+          'the many-stage form needs %d bytes of shared memory at tile %s, '
+          'more than the %d a block may use' % (tp.smem_bytes, tp.tile,
+                                                SMEM_LIMIT))
+    return tp
+  if tile is not None:
     if fixed:
       raise utils.InputError('give tile, or block_rows/mid_tile, not both')
     tp = _plan_for_tile(stencil, shape, tile, order, spans, margins, config)
@@ -856,7 +1245,7 @@ def kernel_plan(stencil, shape: Sequence[int],
                 block_rows: Optional[int] = None,
                 mid_tile: Optional[int] = None, stream_loop=False,
                 prefetch: int = 2, dma_split: int = 1, out_dma: bool = False,
-                **layout) -> TilePlan:
+                _deep: Optional[Sequence[str]] = None, **layout) -> TilePlan:
   """The plan of the fused kernel that ``FusedExecutor(stencil, shape,
   **opts)`` builds: the structural keys validated (kernel_config), the
   layout keys checked and resolved with the JAX package's rules
@@ -873,4 +1262,4 @@ def kernel_plan(stencil, shape: Sequence[int],
     config = dataclasses.replace(config, layout=layout_config(
         fusion, shape, mid_tile=mid_tile, **keys))
   return make_tile_plan(stencil, shape, tile, config, block_rows, mid_tile,
-                        fusion)
+                        fusion, _deep)

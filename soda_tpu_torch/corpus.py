@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
+
 BLUR = """
 kernel: blur
 burst width: 256
@@ -210,7 +212,8 @@ _CONTRAST_HALF_ROWS = (
 )
 
 
-def _contrast_terms():
+def _contrast_coeffs() -> Dict[Tuple[int, int], int]:
+  """contrast's coefficient of input(x, y), by (x, y)."""
   coeffs: Dict[Tuple[int, int], int] = {}
   for y, half in enumerate(_CONTRAST_HALF_ROWS):
     for dx, c in enumerate(half):
@@ -222,10 +225,25 @@ def _contrast_terms():
   # (2, 6)/(2, 10)/(14, 10) present but (14, 6) absent) — match it
   # term for term
   coeffs.pop((14, 6), None)
+  return coeffs
+
+
+def _contrast_terms():
   return ' + '.join('input(%d, %d) * %d' % (x, y, c)
-                    for (x, y), c in sorted(coeffs.items(),
+                    for (x, y), c in sorted(_contrast_coeffs().items(),
                                             key=lambda kv: (kv[0][1],
                                                             kv[0][0])))
+
+
+def contrast_table() -> np.ndarray:
+  """contrast's 17x17 coefficients in array-axis order: entry [y][x]
+  multiplies input(x, y), so the output at array index (r, c) is the
+  sum of ``table * input[r:r + 17, c:c + 17]`` (a cross-correlation, as
+  ``torch.nn.functional.conv2d`` computes one)."""
+  table = np.zeros((17, 17), np.float32)
+  for (x, y), c in _contrast_coeffs().items():
+    table[y, x] = c
+  return table
 
 
 CONTRAST = """

@@ -30,10 +30,14 @@ __all__ = ['back_to_back_us', 'bound_ms', 'cuda_times_ms', 'device_report',
 
 # bytes written between timed calls: four times the H100's 50 MB L2
 _FLUSH_BYTES = 200 * 2**20
-# spec peaks of one H100 SXM at 700 W (NVIDIA's data sheet): device
-# memory rate, and float32 operations outside the tensor cores
+# one H100 SXM at 700 W: the spec device memory rate (NVIDIA's data
+# sheet), and float32 instructions outside the tensor cores: 128 lanes
+# an SM a clock on 132 SMs at the 1.98 GHz boost clock. The data sheet's
+# 67 TFLOP/s counts a fused multiply-add as two operations; the kernels
+# are built with --fmad=false (backend/build.py), so they never fuse a
+# multiply into an add and each operation is an instruction of its own.
 H100_BYTES_PER_S = 3.35e12
-H100_F32_OPS_PER_S = 67e12
+H100_F32_OPS_PER_S = 132 * 128 * 1.98e9
 # what PyTorch's sync debug mode warns at each synchronising operation
 _SYNC_WARNING = 'called a synchronizing CUDA operation'
 
@@ -85,7 +89,9 @@ def bound_ms(stencil, shape, grids: int = 1) -> Tuple[float, str]:
   """(least milliseconds the card could take for ``grids`` passes of
   ``stencil`` over ``shape``, 'bytes' or 'operations'): the larger of
   the unique traffic over the spec memory rate and the operations over
-  the spec float32 rate outside the tensor cores (an integer operation
+  the float32 instruction rate outside the tensor cores,
+  H100_F32_OPS_PER_S (one instruction an operation: under --fmad=false
+  the kernels never fuse a multiply into an add; an integer operation
   is no faster, so the bound stays a lower one)."""
   in_b, out_b = stream_bytes(stencil, shape)
   by_bytes = (in_b + out_b) * grids / H100_BYTES_PER_S * 1e3

@@ -9,6 +9,20 @@ with the cap lifted, whose buffers fit shared memory, from 1,024 output
 cells up. Each kernel is checked against the plain version
 (``testing.check_outputs``) and timed from a cold L2 cache (median of
 20 CUDA-event times). Needs a CUDA device; prints one line per tile.
+
+    python -m soda_tpu_torch.tile_sweep --deep [CELL ...]
+
+The measurement behind ``tile_plan._deep_tile`` and the form's barrier
+elements: the many-stage form of each named cell (default: contrast)
+at every tile of ``DEEP_TILES`` that leaves a resident CTA, each with
+the elements ``deep_schedules`` lists (a barrier a stage, then each
+barrier element of ``tile_plan.DEEP_ELEMENTS`` added in turn), all
+built at once. Each kernel is held bit for bit against the cell's
+default-form kernel and printed with its resident CTAs, barriers a
+tile, stage evaluations an output, registers and spills and its
+cold-L2 median; a tile's schedules are timed back to back (device µs a
+call) in the order first, ..., last, last, ..., first, and each line
+gives its mean and its ratio to the first.
 """
 
 from __future__ import annotations
@@ -20,12 +34,28 @@ import sys
 import torch
 
 from soda_tpu_torch import profiling, testing
+from soda_tpu_torch.backend import build, cuda_source
 from soda_tpu_torch.backend.fused import FusedExecutor, fused_stencil_plain
-from soda_tpu_torch.backend.tile_plan import (SMEM_LIMIT, candidate_tiles,
+from soda_tpu_torch.backend.tile_plan import (DEEP_ELEMENTS, SMEM_LIMIT,
+                                               candidate_tiles,
                                                make_tile_plan)
+from soda_tpu_torch.model.compiled import compiled_stats
 
 MIN_CELLS = 1024
 NO_CAP = 1 << 30
+# the many-stage form's tiles swept (2-D cells): 256 to 1024 outputs
+DEEP_TILES = ((4, 64), (4, 128), (8, 32), (8, 64), (16, 16), (16, 32),
+              (16, 64), (32, 16), (32, 32), (64, 16))
+# back-to-back calls a measurement (1.5-3 ms a call at contrast's shape)
+DEEP_CALLS = 50
+
+
+def deep_schedules():
+  """The element sets ``--deep`` times at each tile: the form with a
+  barrier a stage (its elements before 'barriers'), then each later
+  element of tile_plan.DEEP_ELEMENTS added in turn."""
+  first = DEEP_ELEMENTS.index('barriers')
+  return [DEEP_ELEMENTS[:k] for k in range(first, len(DEEP_ELEMENTS) + 1)]
 
 
 def sweep(name: str, smi: str) -> None:
@@ -60,17 +90,71 @@ def sweep(name: str, smi: str) -> None:
               '  <- default' if tile == default else '', smi), flush=True)
 
 
+def deep_sweep(name: str, smi: str) -> None:
+  shape, overrides = next((s, o) for n, s, o in testing.CELLS if n == name)
+  stencil = testing.build_cell(name, overrides)
+  inputs = testing.make_test_inputs(stencil, shape)
+  params = testing.make_test_params(stencil)
+  rows = []
+  for tile in DEEP_TILES:
+    plans = [make_tile_plan(stencil, shape, tile, _deep=elements)
+             for elements in deep_schedules()]
+    if min(p.deep.ctas for p in plans) >= 1:
+      rows.append(plans)
+  default = make_tile_plan(stencil, shape, _deep=())
+  build.build_all([cuda_source.generate(p)
+                   for p in [default] + [p for r in rows for p in r]])
+  base = FusedExecutor(stencil, shape, _deep=())
+  args = base.prepare(inputs, params)
+  want = dict(zip(stencil.output_names, base.fn(*args)))
+  chosen = make_tile_plan(stencil, shape)
+  for plans in rows:
+    exs = [FusedExecutor(stencil, shape, tile=p.tile, _deep=p.deep.elements)
+           for p in plans]
+    for ex in exs:
+      got = dict(zip(stencil.output_names, ex.fn(*args)))
+      testing.check_exact(stencil, shape, got, want, '%s %s %s' % (
+          name, ex.plan.tile, '+'.join(ex.plan.deep.elements)))
+    del got
+    device_us = {i: [] for i in range(len(exs))}
+    order = list(range(len(exs)))
+    for i in order + order[::-1]:
+      device_us[i].append(profiling.back_to_back_us(
+          lambda: exs[i].fn(*args), calls=DEEP_CALLS)[1])
+    first = statistics.mean(device_us[0])
+    for i, ex in enumerate(exs):
+      plan, deep = ex.plan, ex.plan.deep
+      ms = statistics.median(profiling.cuda_times_ms(lambda: ex.fn(*args)))
+      stats = compiled_stats(ex)['kernels'][0]
+      us = statistics.mean(device_us[i])
+      print('[deep-sweep] %-10s tile %-10s %-34s smem %6d B  %d CTA(s)/SM '
+            '(card %d)  %3d barriers  %.1f evaluations/output  %d '
+            'registers, spills %d/%d B  %.4f ms cold  back to back %s us/call'
+            ' (mean %.1f, %.3fx the first)  == default form bit for bit%s | '
+            '%s' % (
+                name, plan.tile, '+'.join(deep.elements), plan.smem_bytes,
+                deep.ctas, stats['ctas_per_sm'], len(deep.barriers),
+                deep.evaluations, stats['registers'], stats['spill_stores'],
+                stats['spill_loads'], ms,
+                '/'.join('%.1f' % u for u in device_us[i]), us, us / first,
+                '  <- chosen' if (plan.tile, deep.elements) == (
+                    chosen.tile, chosen.deep.elements) else '', smi),
+            flush=True)
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-  parser.add_argument('cells', nargs='*',
-                      default=['blur', 'jacobi2d', 'erosion'])
+  parser.add_argument('--deep', action='store_true',
+                      help='sweep the many-stage form\'s tiles')
+  parser.add_argument('cells', nargs='*')
   args = parser.parse_args(argv)
   if not torch.cuda.is_available():
     print('tile_sweep: no CUDA device', file=sys.stderr)
     return 1
   smi = profiling.nvidia_smi_line()
-  for name in args.cells:
-    sweep(name, smi)
+  for name in args.cells or (['contrast'] if args.deep else
+                             ['blur', 'jacobi2d', 'erosion']):
+    (deep_sweep if args.deep else sweep)(name, smi)
   return 0
 
 

@@ -101,7 +101,8 @@ def _build_candidates(stencil, shape, candidates) -> None:
 
 
 def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
-  """The configurations ``tune`` probes: the plan's tile, its axis-0
+  """The configurations ``tune`` probes: the plan's tile (``{}`` where
+  the plan is the many-stage form, which no explicit tile gives), its axis-0
   extent doubled and quadrupled (where the tile stays within the grid
   and shared memory); at the tile each mode's plan picks, the streaming
   loop (True and 'peel', each with prefetch 2 and 3) where a CTA would
@@ -117,7 +118,9 @@ def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
 
   base = tile_plan.make_tile_plan(stencil, shape)
   shape = tuple(shape)
-  cands = [{'tile': base.tile}]
+  # the default kernel first: an explicit tile would turn the many-stage
+  # form off
+  cands = [{} if base.deep is not None else {'tile': base.tile}]
   for mult in (2, 4):
     rows = base.tile[0] * mult
     if rows <= tile_plan._pow2_ceil(shape[0]):

@@ -182,3 +182,19 @@ def test_key_is_the_stencil_shape_and_card():
   assert key != autotune._key(blur, (64, 256), 'another card')
   assert key != autotune._key(corpus.build('jacobi2d'), (64, 256),
                               'NVIDIA H100 80GB HBM3')
+
+
+@pytest.mark.parametrize('name', ['blur', 'contrast'])
+def test_first_candidate_is_the_default_kernel(name):
+  """The first candidate builds the kernel that runs untuned: the
+  default form's tile for blur, ``{}`` for contrast, whose default
+  kernel is the many-stage form that an explicit tile turns off."""
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.backend import cuda_source
+  _, shape, overrides = next(c for c in testing.CELLS if c[0] == name)
+  stencil = testing.build_cell(name, overrides)
+  first = autotune.candidate_configs(stencil, shape)[0]
+  assert (first == {}) == (name == 'contrast')
+  text = cuda_source.generate(tile_plan.kernel_plan(stencil, shape, **first))
+  default = cuda_source.generate(tile_plan.make_tile_plan(stencil, shape))
+  assert text.text == default.text

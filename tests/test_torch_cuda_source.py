@@ -201,8 +201,10 @@ class _StepClock:
 
 # sha256 (first 16 hex digits) of each benchmark cell's generated
 # source, as the fused kernel's generator printed it before the sharded
-# executor existed: the sharded path changes no kernel source. The
-# stencils are built with the in-process schedulers under _StepClock.
+# executor existed: the sharded path changes no kernel source; contrast's
+# is its many-stage form's (tile_plan.DeepForm), which replaced its
+# default-form kernel. The stencils are built with the in-process
+# schedulers under _StepClock.
 CELL_SOURCES = {
     'blur': 'dff6ad3b15226ca0',
     'jacobi2d': '495a9a06ca9ed1f6',
@@ -212,7 +214,7 @@ CELL_SOURCES = {
     'erosion': '987cbe8f820242a5',
     'sobel2d': 'ca2e7182a811ea45',
     'xcorr': 'baee7cc74bb9da95',
-    'contrast': '28d3b85553c28a71',
+    'contrast': '42ac5aed20698af9',
     'denoise2d': '4ec236113b4143d5',
     'denoise3d': '307a08e9fdcd1777',
     'jacobi3d_256': '98d66f7c05fd9a9a',
@@ -227,6 +229,27 @@ def test_cell_source_is_unchanged(name, shape, overrides, monkeypatch):
   text = cuda_source.generate(make_tile_plan(build_cell(name, overrides),
                                              shape)).text
   assert hashlib.sha256(text.encode()).hexdigest()[:16] == CELL_SOURCES[name]
+
+
+# the default form's sources (tile_plan's ``_deep=()``): every cell's
+# as before the many-stage form existed, contrast's included
+DEFAULT_FORM_SOURCES = dict(CELL_SOURCES, contrast='28d3b85553c28a71')
+
+
+@pytest.mark.parametrize('name,shape,overrides', CELLS,
+                         ids=[c[0] for c in CELLS])
+def test_default_form_source_is_unchanged(name, shape, overrides,
+                                          monkeypatch):
+  """The many-stage form leaves the default form's text as it was, and
+  the 11 cells other than contrast keep it as their default kernel."""
+  monkeypatch.setattr(cr_schedules, 'find_external_cr', lambda: None)
+  monkeypatch.setattr(cr_schedules, 'time', _StepClock())
+  stencil = build_cell(name, overrides)
+  text = cuda_source.generate(make_tile_plan(stencil, shape, _deep=())).text
+  assert hashlib.sha256(text.encode()).hexdigest()[:16] == \
+      DEFAULT_FORM_SOURCES[name]
+  default = cuda_source.generate(make_tile_plan(stencil, shape)).text
+  assert (default == text) == (name != 'contrast')
 
 
 def test_nvcc_command_keeps_ieee_floats():

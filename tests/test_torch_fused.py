@@ -21,8 +21,10 @@ from soda_tpu_torch import corpus, utils
 from soda_tpu_torch.api import build_stencil
 from soda_tpu_torch.backend import reference
 from soda_tpu_torch.backend.fused import FusedExecutor, fused_stencil_plain
-from soda_tpu_torch.backend.tile_plan import (MAX_TILE_CELLS, SMEM_LIMIT,
-                                               candidate_tiles, make_tile_plan)
+from soda_tpu_torch.backend.tile_plan import (CTA_SMEM_RESERVED,
+                                               MAX_TILE_CELLS, SM_SMEM,
+                                               SMEM_LIMIT, candidate_tiles,
+                                               make_tile_plan)
 from soda_tpu_torch.testing import (CELLS, CONV_PARAM, GEOMETRY_CASES,
                                     MULTI_OUTPUT, build_cell, check_outputs)
 
@@ -119,11 +121,19 @@ def test_bench_cells_fit_shared_memory(bench_plans, name):
 
 def test_liveness_reuses_buffers(bench_plans):
   """contrast's reuse chain: its 114 stage buffers would not fit side by
-  side at the chosen tile; reused by liveness they do."""
-  plan = bench_plans['contrast']
+  side at the chosen tile; reused by liveness they do, in the default
+  form (one stage a barrier) and in the many-stage form that is
+  contrast's default kernel."""
+  deep = bench_plans['contrast']
+  name, shape, overrides = next(c for c in CELLS if c[0] == 'contrast')
+  plan = make_tile_plan(build_cell(name, overrides), shape, _deep=())
   sizes = sum(int(np.prod(plan.extent(t))) * 4 for t in plan.offsets)
   assert len(plan.stages) > 100
   assert plan.smem_bytes <= SMEM_LIMIT < sizes
+  sizes = sum(int(np.prod(deep.extent(t))) * 4 for t in deep.offsets)
+  assert deep.deep is not None
+  assert deep.smem_bytes + CTA_SMEM_RESERVED <= SM_SMEM
+  assert deep.smem_bytes <= SMEM_LIMIT < sizes
 
 
 @pytest.mark.parametrize('shape,max_cells', [((8192, 2048), MAX_TILE_CELLS),

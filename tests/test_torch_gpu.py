@@ -20,6 +20,7 @@ loop, cp.async ring, split fills, staged stores) against their plain
 version and the oracle, the layout forms (value stages in registers,
 transposed regions, packed 16-bit stages, chunked stage loops) and the
 JAX package's 24 seed configurations against theirs and the oracle,
+contrast's many-stage form element by element against its default form,
 compiled statistics read from the card, and the tuner end to end. Integers bit-exact, floats within the reference
 threshold (tests/checks.py). Last, the experiment probes' kernels
 (streaming, chain, narrow, copy-shift and 2.5-D jacobi) against their
@@ -42,10 +43,12 @@ from soda_tpu_torch.backend import build
 from soda_tpu_torch.experiments import copyshift, layout25d, narrow, probes
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
-from soda_tpu_torch.testing import (CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
+from soda_tpu_torch.backend.tile_plan import DEEP_ELEMENTS
+from soda_tpu_torch.testing import (CELLS, CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
                                     GEOMETRY_CASES, LAYOUT_CASES, MODE_CASES,
                                     MULTI_OUTPUT, SEED_CONFIGS, build_cell,
-                                    check_outputs, gen_program, make_inputs,
+                                    check_exact, check_outputs, gen_program,
+                                    make_inputs,
                                     mode_inputs, mode_stencil, repeated_mesh,
                                     replica_inputs, seed_small)
 
@@ -377,6 +380,31 @@ def test_seed_config_on_the_card(index):
   assert ex.launches == 1
   check_outputs(stencil, small, got, reference.run(stencil, inputs),
                 '%s %s on gpu' % (name, opts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('elements', [DEEP_ELEMENTS[:i + 1] for i in range(
+    len(DEEP_ELEMENTS))], ids=['+'.join(DEEP_ELEMENTS[:i + 1]) for i in range(
+        len(DEEP_ELEMENTS))])
+def test_deep_form_on_the_card(elements):
+  """contrast's many-stage form (tile_plan.DeepForm), element step by
+  element step, at a shape with interior and edge CTAs: bit for bit
+  against the default form and within the threshold of the oracle."""
+  _need_gpu()
+  shape = (72, 192)
+  overrides = dict(next(c for c in CELLS if c[0] == 'contrast')[2],
+                   tile_size=(192, 0))
+  stencil = build_cell('contrast', overrides)
+  inputs = reference.make_test_inputs(stencil, shape)
+  old = FusedExecutor(stencil, shape, device='cuda', _deep=())
+  ex = FusedExecutor(stencil, shape, device='cuda', _deep=elements)
+  assert ex.plan.deep is not None and old.plan.deep is None
+  got, want = ex(inputs), old(inputs)
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  check_exact(stencil, shape, got, want, 'contrast %s' % (elements,))
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                'contrast %s on gpu' % (elements,))
 
 
 @pytest.mark.gpu

@@ -81,7 +81,7 @@ static unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
 #define __global__
 #define __device__
 #define __forceinline__
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 
 #include "soda_stencil.cuh"
 
