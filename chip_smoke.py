@@ -181,6 +181,25 @@ seconds:
    ``torch.nn.functional.conv2d`` with contrast's 17x17 table (TF32 off),
    timed as the cell's ``library_ms``.
 
+20. short: the short form of the other 11 cells' default kernels
+   (``tile_plan.ShortForm``: fixed thread cells and an interior block
+   class, stages read only at offset zero kept in registers, 16-byte
+   fills and whole-unit loads and stores of several cells a thread, a
+   walk along axis 0 with rings of rows), whose runs phase 3 counted:
+   for each cell, each element step (``tile_sweep.short_steps``) bit for
+   bit against the default form (``_short=()``) and the new kernel
+   within the threshold of the plain version; cold-L2 medians of the old
+   and the new kernel, device µs a call back to back as old, new, new,
+   old and each element's step likewise; resident CTAs, registers,
+   spills, stage evaluations and input cells filled an output, barriers
+   a tile; the bound and its share; and, where one PyTorch call computes
+   the cell's function, that call (TF32 off) with its cold-L2 median and
+   largest error against the plain version, as the cell's
+   ``library_ms``: a convolution with the composed table of the linear
+   cells (jacobi2d, seidel2d: ``conv2d`` 5x5; jacobi3d, heat3d,
+   jacobi3d_256: ``conv3d`` 5x5x5), erosion's ``-max_pool2d(-x, 19)`` on
+   a float32 copy made outside the timed region.
+
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``: the fused kernel's per cell, mode and layout row, and each
@@ -234,6 +253,16 @@ CHAIN_N_SMALL, CHAIN_N_BIG = 64, 2048
 # measurement (1.6-9.7 ms a call, 0.08-0.5 s)
 DEEP_CELL = 'contrast'
 DEEP_CALLS = 50
+# phase 20's back-to-back calls a measurement (0.03-0.5 ms a call)
+SHORT_CALLS = 300
+# the cells whose function one PyTorch call computes (phase 20): a linear
+# stencil is one convolution with its composed table, erosion a 19x19
+# max pool of the negated input; the others none, for the reason given
+LINEAR = ('jacobi2d', 'seidel2d', 'jacobi3d', 'heat3d', 'jacobi3d_256')
+NO_LIBRARY = {
+    'blur': 'integer division', 'sobel2d': '16-bit wraps',
+    'xcorr': '16-bit wraps', 'denoise2d': 'sqrt and divide over 8 stages',
+    'denoise3d': 'sqrt and divide over 10 stages'}
 
 
 def say(*parts):
@@ -344,6 +373,167 @@ def deep_phase(stencil, shape, ex, plain, plain_ms, smi, log):
       '|err| %.3g against the plain version, %.2fx the new form\'s time | %s'
       % (lib_ms, lib_err, lib_ms / new_ms, smi))
   return lib_ms
+
+
+def short_cells():
+  """The benchmark cells whose default kernel is the short form."""
+  from soda_tpu_torch import testing
+  return [c for c in testing.CELLS if c[0] != DEEP_CELL]
+
+
+def short_sources(stencils):
+  """The kernel sources of each short cell's element steps."""
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+  from soda_tpu_torch.tile_sweep import short_steps
+  return [cuda_source.generate(make_tile_plan(stencils[name], shape,
+                                              _short=elements))
+          for name, shape, _ in short_cells()
+          for _, elements in short_steps(len(shape))]
+
+
+def composed_table(stencil, dim):
+  """The table of a linear stencil's whole function: the plain version's
+  response to a unit impulse, flipped, on the CPU."""
+  import torch
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.backend.fused import fused_stencil_plain
+  out = stencil.output_names[0]
+  probe = tuple(64 for _ in range(dim))
+  region = testing.output_valid_slices(stencil, probe, out)
+  lo = [r.start for r in region]
+  hi = [p - r.stop for p, r in zip(probe, region)]
+  size = tuple(2 * (a + b) + 1 for a, b in zip(lo, hi))
+  x = torch.zeros(size, dtype=torch.float32)
+  x[tuple(a + b for a, b in zip(lo, hi))] = 1
+  y = fused_stencil_plain(stencil, [x])[0]
+  y = y[testing.output_valid_slices(stencil, size, out)]
+  return torch.flip(y, tuple(range(dim)))
+
+
+def library_call(name, stencil, shape, x):
+  """(fn, region) of the one PyTorch call that computes cell ``name``'s
+  function on input ``x`` (``fn()`` gives the output's valid region),
+  or None (NO_LIBRARY says why)."""
+  import torch
+  from soda_tpu_torch import testing
+  region = testing.output_valid_slices(stencil, shape,
+                                       stencil.output_names[0])
+  if name in LINEAR:
+    w = composed_table(stencil, len(shape)).to(x.device)[None, None]
+    conv = (torch.nn.functional.conv2d if len(shape) == 2 else
+            torch.nn.functional.conv3d)
+    xb = x.reshape((1, 1) + tuple(shape))
+    return (lambda: conv(xb, w)[0, 0]), region
+  if name == 'erosion':
+    xf = x.float().reshape((1, 1) + tuple(shape))
+    return (lambda: -torch.nn.functional.max_pool2d(-xf, 19, stride=1)[0, 0]
+            ), region
+  return None
+
+
+def short_phase(cells, plains, smi, log):
+  """Phase 20: the short form (tile_plan.ShortForm) of the 11 cells other
+  than contrast, whose default kernels the main path ran (``cells``:
+  phase 2's tuples). Per cell, each element step of
+  ``tile_sweep.short_steps`` bit for bit against the default form (the
+  old kernel) and the new kernel within the threshold of the plain
+  version ``plains[name]`` (phase 4's); cold-L2 medians of the old and
+  the new kernel, device µs a call back to back as old, new, new, old,
+  and each element's step as before, after, after, before; resident
+  CTAs, registers and spills, stage evaluations and input cells filled
+  an output, barriers a tile; the bound and its share; and the library
+  call (``library_call``, TF32 off; the port never calls it) with its
+  cold-L2 median and largest error against the plain version. Returns
+  cell -> library ms (None where no call computes the function)."""
+  import torch
+  from soda_tpu_torch import profiling, testing
+  from soda_tpu_torch.backend.fused import FusedExecutor
+  from soda_tpu_torch.model.compiled import compiled_stats
+  from soda_tpu_torch.tile_sweep import short_steps
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  lib = {}
+  for name, shape, stencil, ex, inputs, params in cells:
+    if name == DEEP_CELL:
+      continue
+    t = time.time()
+    args = ex.prepare(inputs, params)
+    steps = [(label, FusedExecutor(stencil, shape, _short=elements))
+             for label, elements in short_steps(len(shape))]
+    old = steps[0][1]
+    want = dict(zip(stencil.output_names, old.fn(*args)))
+    for label, step in steps[1:] + [('default kernel', ex)]:
+      got = dict(zip(stencil.output_names, step.fn(*args)))
+      testing.check_exact(stencil, shape, got, want, '%s %s vs the default '
+                          'form' % (name, label))
+    new_out = dict(zip(stencil.output_names, ex.fn(*args)))
+    err = testing.check_outputs(stencil, shape, new_out, plains[name],
+                                '%s new form vs plain' % name)
+    del got, new_out
+    torch.cuda.synchronize()
+    for label, step in steps + [('default kernel', ex)]:
+      card = compiled_stats(step)['kernels'][0]
+      short = step.plan.short
+      log('%-12s %-34s tile %-14s %6d B smem, %d CTA(s)/SM (card %d), %s, '
+          '%s, %d registers, spills %d/%d B%s' % (
+              name, label, step.plan.tile, step.plan.smem_bytes,
+              short.ctas if short else 0, card['ctas_per_sm'],
+              '%d barriers a tile, %.2f evaluations and %.2f fills/output, '
+              '%d cell(s) a thread, %d step(s) a CTA' % (
+                  len(short.barriers), short.evaluations, short.fills,
+                  short.vec, step.plan.steps) if short else
+              '%d barriers a tile' % len(step.plan.stages),
+              'registers: %s' % (', '.join(short.values) or 'none')
+              if short else 'every stage buffered', card['registers'],
+              card['spill_stores'], card['spill_loads'],
+              '' if step is old else ', == default form bit for bit'))
+
+    def b2b(e):
+      return profiling.back_to_back_us(lambda: e.fn(*args),
+                                       calls=SHORT_CALLS)[1]
+
+    profiling.settle(lambda: ex.fn(*args))
+    old_ms = statistics.median(profiling.cuda_times_ms(
+        lambda: old.fn(*args), reps=KERNEL_REPS))
+    new_ms = statistics.median(profiling.cuda_times_ms(
+        lambda: ex.fn(*args), reps=KERNEL_REPS))
+    seq = [b2b(old), b2b(ex), b2b(ex), b2b(old)]
+    bound, bound_by = profiling.bound_ms(stencil, shape)
+    log('%-12s old form %.4f ms cold, new %.4f ms (%.3fx); back to back old, '
+        'new, new, old %.1f/%.1f/%.1f/%.1f us/call (new/old %.3f); bound '
+        '%.4f ms (%s), share old %.1f%%, new %.1f%%; new vs plain max |err| '
+        '%.3g | %s' % (
+            name, old_ms, new_ms, new_ms / old_ms, seq[0], seq[1], seq[2],
+            seq[3], (seq[1] + seq[2]) / (seq[0] + seq[3]), bound, bound_by,
+            100 * bound / old_ms, 100 * bound / new_ms, err, smi))
+    for (before, b_ex), (after, a_ex) in zip(steps, steps[1:]):
+      seq = [b2b(b_ex), b2b(a_ex), b2b(a_ex), b2b(b_ex)]
+      log('%-12s step %-30s -> %-30s back to back %.1f/%.1f/%.1f/%.1f '
+          'us/call (%.3fx) | %s' % (
+              name, before, after, seq[0], seq[1], seq[2], seq[3],
+              (seq[1] + seq[2]) / (seq[0] + seq[3]), smi))
+    call = library_call(name, stencil, shape, args[0])
+    if call is None:
+      lib[name] = None
+      log('%-12s library: none (%s)' % (name, NO_LIBRARY[name]))
+    else:
+      fn, region = call
+      got = fn()
+      out = stencil.output_names[0]
+      lib_err = float((got.double() - plains[name][out][region].double()
+                       ).abs().max())
+      lib[name] = statistics.median(profiling.cuda_times_ms(
+          fn, reps=KERNEL_REPS))
+      log('%-12s library: %s %.4f ms cold, max |err| %.3g against the plain '
+          'version, %.2fx the new form\'s time | %s' % (
+              name, 'conv%dd with the composed table (TF32 off)' % len(
+                  shape) if name in LINEAR else '-max_pool2d(-x, 19) on a '
+              'float32 copy', lib[name], lib_err, lib[name] / new_ms, smi))
+    del steps, old, want
+    torch.cuda.synchronize()
+    log('%-12s (%.1fs)' % (name, time.time() - t))
+  return lib
 
 
 def main() -> int:
@@ -478,8 +668,10 @@ def main() -> int:
     sources.append(cuda_source.generate(kernel_plan(
         exp2_diag.copy_stencil(dtype, exp2_diag.COPY_SHAPE),
         exp2_diag.COPY_SHAPE, block_rows=exp2_diag.BLOCK_ROWS)))
-  # the many-stage form's element steps (phase 19)
+  # the many-stage form's element steps (phase 19), the short form's
+  # (phase 20)
   sources += deep_sources(stencils[DEEP_CELL], shape_of[DEEP_CELL])
+  sources += short_sources(stencils)
   # exp9's comparison rows (phase 18): the jacobi2d kernel at its block_rows
   exp9_stencil = corpus.build('jacobi2d', tile_size=exp9_layout25d.JACOBI_TILE)
   for block_rows in exp9_layout25d.JACOBI_BLOCK_ROWS:
@@ -982,8 +1174,9 @@ def main() -> int:
       first = len(probes)
       entry = next(e for e in autotune._load(tune_cache).values()
                    if e['stencil'] == stencil.app_name)
+      # the first candidate is the default kernel's configuration
       default = entry['probes'][json.dumps(
-          {'tile': list(make_tile_plan(stencil, shape).tile)}, sort_keys=True)]
+          autotune.candidate_configs(stencil, shape)[0], sort_keys=True)]
       del probes[:]
       again = autotune.tune(stencil, shape, cache_path=tune_cache)
       if probes or again != cfg or not first:
@@ -1440,6 +1633,15 @@ def main() -> int:
                    if k['name'] == 'fused_stencil[%s]' % name)
   record_of['library_ms'] = lib_ms
   say('[deep] phase 19 (%.1fs)' % (time.time() - t19))
+
+  # 20. the short form: the other cells' default kernels against the
+  # default form, element by element, and the library calls
+  t20 = time.time()
+  lib = short_phase(cells, plains, smi, lambda line: say('[short] ' + line))
+  for name, ms in lib.items():
+    next(k for k in kernels if k['name'] == 'fused_stencil[%s]' % name
+         )['library_ms'] = ms
+  say('[short] phase 20 (%.1fs)' % (time.time() - t20))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

@@ -46,7 +46,8 @@ from soda_tpu_torch.ir import nodes as ir
 from soda_tpu_torch.ir.types import Type
 
 from soda_tpu_torch.backend.tile_plan import (WARPS, TilePlan, copy_width,
-                                               last_readers)
+                                               last_readers, register_rows,
+                                               value_closure)
 
 # Threads per CTA: every stage loop strides its tile extent by this.
 THREADS = 32 * WARPS
@@ -1219,6 +1220,400 @@ def _deep_note(plan: TilePlan) -> str:
       '// its own instruction under --fmad=false (profiling.bound_ms).'])
 
 
+# -- the short form (tile_plan.ShortForm) -------------------------------------
+def _short_kernel(plan: TilePlan) -> str:
+  """The kernel of the short form (tile_plan.ShortForm): the input fill,
+  then each stage not kept in registers with a barrier only before the
+  stages ``short.barriers`` names. Each extent is walked by a thread map
+  fixed per extent (``_cell_map``/``_fixed_cells``) over units of
+  ``short.vec`` cells of a frame row: a thread loads the parents' cells
+  its taps read as register rows (``tile_plan.register_rows``), then
+  evaluates its cells, each after the register stages it reads
+  (``short.values``, each with its own valid-region test and 0 outside
+  it), and stores the unit to its buffer and, for an output's cells in
+  the tile, to device memory. With ``vec`` > 1 the fill is 16-byte
+  ``cp.async`` copies (a chunk outside the array reads nothing and
+  lands as 0), the rows and the stores loads and stores of whole units;
+  else one element each. 'interior' instantiates the body twice, and a
+  tile whose origin lies in ``short.interior`` runs the one without
+  bounds and valid-region tests (``kEdge`` false).
+
+  'walk': a CTA walks ``plan.steps`` axis-0 tiles of one tile column.
+  Each buffer is a ring of ``short.rings`` axis-0 rows, addressed from
+  the tensor's phase ``ph_<name>``; the run's first step fills and
+  computes whole extents, a later step only the rows it does not share
+  with the step before (``kFirst``), and a step's first act after its
+  barrier is to issue the next step's new input rows (one cp.async
+  group), waited for at its end."""
+  st = plan.stencil
+  dim, shape, tile = plan.dim, plan.shape, plan.tile
+  short = plan.short
+  vec, last = short.vec, plan.dim - 1
+  walk = short.has('walk') and dim >= 2
+  strides = _strides(shape)
+  params = ', '.join('p_%s' % s.name for s in st.param_stmts)
+  outputs = set(st.output_names)
+  by_name = {s.name: s for s in plan.stages}
+  index = {s.name: k for k, s in enumerate(plan.stages)}
+  gvars = ['g%d' % a for a in range(dim)]
+
+  def itemsize(name):
+    return plan.dtype(name).np_dtype.itemsize
+
+  def rows_range(name, first):
+    """(first extent row, count) of the axis-0 rows a step computes or
+    fills."""
+    ext0 = plan.extent(name)[0]
+    if first or not walk:
+      return 0, ext0
+    fresh = min(tile[0], ext0)
+    return ext0 - fresh, fresh
+
+  def units(name, width, first):
+    """The rows a step covers, and the frame row in units of
+    ``width``."""
+    if not last:
+      return (short.pitch(name) // width,)
+    return ((rows_range(name, first)[1],) + plan.extent(name)[1:-1] +
+            (short.pitch(name) // width,))
+
+  def row_coords(name, first):
+    neg = plan.spans[name][0]
+    e0 = rows_range(name, first)[0]
+    return ['const int g%d = o%d %s %d + l%d;' % (
+        a, a, '-' if neg[a] - (e0 if a == 0 else 0) >= 0 else '+',
+        abs(neg[a] - (e0 if a == 0 else 0)), a) for a in range(last)]
+
+  def row_flat(name, index_):
+    """Flat cell index of the first frame column of row ``index_``."""
+    ext = plan.extent(name)
+    flat = index_[0] if last else '0'
+    for a in range(1, last):
+      flat = '(%s) * %d + (%s)' % (flat, ext[a], index_[a])
+    return '(%s) * %d' % (flat, short.pitch(name)) if last else '0'
+
+  def ring_row(name, row, var, phase=None):
+    """(lines, expression) of the buffer row holding extent row ``row``
+    of ``name``: the row itself, or under 'walk' its ring row."""
+    if not walk:
+      return [], row
+    ring = short.rings[name]
+    return ['int %s = %s + %s;' % (var, phase or 'ph_%s' % name, row),
+            'if (%s >= %d) %s -= %d;' % (var, ring, var, ring)], var
+
+  def fill_blocks(first, phase):
+    lines, copies = [], False
+    for name in st.input_names:  # frames, 0 outside the array
+      if not plan.buffered(name):
+        continue
+      cv = short.fill_chunk(itemsize(name))
+      a0 = short.frames[name][0]
+      t = storage_ctype(plan.dtype(name))
+      ext_u = units(name, cv, first)
+      e0 = rows_range(name, first)[0]
+      inside = ' && '.join('g%d >= 0 && g%d < %d' % (a, a, shape[a])
+                           for a in range(dim))
+      cell = row_coords(name, first) + [
+          'const int g%d = o%d - %d + l%d * %d;' % (last, last, a0, last, cv)]
+      if walk:
+        more, q0 = ring_row(name, 'l0 + %d' % e0, 'q0', phase(name))
+        cell += more
+        dst = 's_%s + %s + l%d * %d' % (
+            name, row_flat(name, [q0] + ['l%d' % a for a in range(1, last)]),
+            last, cv)
+      else:
+        dst = 's_%s + i * %d' % (name, cv)
+      if cv > 1:
+        copies = True
+        cell += ['const bool in = !kEdge || (%s);' % inside,
+                 'soda::cp_async16(%s, in ? g_%s + (%s) : g_%s, in ? 16 : '
+                 '0);' % (dst, name, _flat(gvars, strides), name)]
+        how = '16-byte cp.async copies'
+      else:
+        cell += ['%s v = 0;' % t,
+                 'if (!kEdge || (%s)) v = g_%s[%s];' % (
+                     inside, name, _flat(gvars, strides)),
+                 '*(%s) = v;' % dst if walk else 's_%s[i] = v;' % name]
+        how = 'one element a thread'
+      lines += ['{  // input %s: rows %s, frame [-%d, %d), %s' % (
+          name, ext_u[:-1], a0, short.frames[name][1], how),
+                '  ' + _smem_ptr(plan, name, False)]
+      lines += ['  ' + s for s in _cell_map(ext_u)]
+      lines += ['  ' + s for s in _fixed_cells(ext_u, cell)] + ['}']
+    return lines, copies
+
+  def valid(name):
+    lo, hi = plan.margins[name]
+    return ' && '.join('g%d >= %d && g%d < %d' % (a, lo[a], a,
+                                                  shape[a] - hi[a])
+                       for a in range(dim))
+
+  def loaders(stage, j, rows_of):
+    """``ld_<parent>`` of ``stage``'s cell j of the unit: an element of
+    the register rows ``rows_of`` (register_rows), or a register stage's
+    value."""
+    lines = []
+    args = ', '.join('int d%d' % a for a in range(dim))
+    for p in _stage_parents(stage):
+      pt = storage_ctype(plan.dtype(p))
+      if p in short.values:
+        lines.append('auto ld_%s = [&](%s) -> %s { return w_%s; };' % (
+            p, ', '.join('int' for _ in range(dim)), pt, p))
+        continue
+      groups = [(g, lo) for (q, g), (lo, _) in rows_of.items() if q == p]
+      code = None
+      for n, (g, lo) in enumerate(reversed(groups)):
+        pick = 'r_%s_%d[%s + d%d - (%d)]' % (
+            p, len(groups) - 1 - n, j, last, lo)
+        if code is None:
+          code = pick
+        else:
+          test = ' && '.join('d%d == %d' % (a, g[a]) for a in range(last))
+          code = '(%s) ? %s : %s' % (test, pick, code)
+      lines.append('auto ld_%s = [&](%s) -> %s { return %s; };' % (
+          p, args, pt, code))
+    return lines
+
+  def stage_blocks(first):
+    body = []
+    for k, stage in enumerate(plan.stages):
+      name = stage.name
+      if name in short.values:
+        continue
+      if k in short.barriers:
+        body.append('__syncthreads();')
+      closure = value_closure(stage, by_name, short.values)
+      rows_of = register_rows(st, stage, by_name, short.values, vec)
+      a_s = short.frames[name][0]
+      neg = plan.spans[name][0]
+      e0 = rows_range(name, first)[0]
+      t = storage_ctype(stage.dtype)
+      ext_u = units(name, vec, first)
+      cell = row_coords(name, first) + [
+          'const int x0 = l%d * %d - %d;  // the unit\'s first frame column'
+          % (last, vec, a_s),
+          'const int gc = o%d + x0;' % last]
+      parents = sorted({p for p, _ in rows_of})
+      counter = {}
+      for (p, g), (lo, hi) in rows_of.items():  # (parent, group) order
+        gid = counter.setdefault(p, 0)
+        counter[p] += 1
+        pneg = plan.spans[p][0]
+        row = ['l%d + %d' % (a, g[a] + pneg[a] - neg[a] + (
+            e0 if a == 0 else 0)) for a in range(last)]
+        pt = storage_ctype(plan.dtype(p))
+        cell.append('%s r_%s_%d[%d];  // %s row at %s, columns [x0%+d, '
+                    'x0%+d)' % (pt, p, gid, hi - lo, p, g, lo, hi))
+        cell.append('{')
+        if last:
+          more, row[0] = ring_row(p, row[0], 'q0')
+          cell += ['  ' + line for line in more]
+        cell.append('  const int at = %s + x0 + %d;' % (
+            row_flat(p, row), short.frames[p][0] + lo))
+        if vec > 1:
+          cell += ['  soda::ldv<%d>(r_%s_%d + %d, s_%s + at + %d);' % (
+              vec * itemsize(p), p, gid, q, p, q)
+                   for q in range(0, hi - lo, vec)]
+        else:
+          cell += ['  r_%s_%d[%d] = s_%s[at + %d];' % (p, gid, q, p, q)
+                   for q in range(hi - lo)]
+        cell.append('}')
+      each = ['const int g%d = gc + j;' % last]
+      for s in closure:
+        sk = index[s.name]
+        each += ['%s w_%s = 0;' % (storage_ctype(s.dtype), s.name), '{'] + [
+            '  ' + line for line in loaders(s, 'j', rows_of) + [
+                'if (!kEdge || (%s)) w_%s = soda_stage_%d(%s);' % (
+                    valid(s.name), s.name, sk, ', '.join(
+                        ['ld_%s' % p for p in _stage_parents(s)] +
+                        ([params] if params else [])))]] + ['}']
+      each += loaders(stage, 'j', rows_of) + [
+          '%s u = 0;' % t,
+          'if (!kEdge || (%s)) u = soda_stage_%d(%s);' % (
+              valid(name), k, ', '.join(['ld_%s' % p for p in
+                                         _stage_parents(stage)] +
+                                        ([params] if params else []))),
+          'v[j] = u;']
+      cell += ['%s v[%d];' % (t, vec)] + _unrolled([('j', 0, vec)], each)
+      unit = vec * itemsize(name)
+      if plan.buffered(name):
+        if walk:
+          more, w0 = ring_row(name, 'l0 + %d' % e0, 'w0')
+          cell += more
+          dst = 's_%s + %s + l%d * %d' % (
+              name, row_flat(name, [w0] + ['l%d' % a
+                                           for a in range(1, last)]),
+              last, vec)
+        else:
+          dst = 's_%s + i * %d' % (name, vec)
+        if vec > 1:
+          cell.append('soda::stv<%d>(%s, v);' % (unit, dst))
+        else:
+          cell.append('*(%s) = v[0];' % dst if walk else
+                      's_%s[i] = v[0];' % name)
+      if name in outputs:
+        own = ['l%d >= %d && l%d < %d' % (
+            a, neg[a] - (e0 if a == 0 else 0), a,
+            neg[a] - (e0 if a == 0 else 0) + tile[a])
+               for a in range(last) if neg[a] or plan.spans[name][1][a]]
+        if short.frames[name] != (0, tile[last]):
+          own.append('x0 >= 0 && x0 < %d' % tile[last])
+        inside = ' && '.join(['g%d < %d' % (a, shape[a])
+                              for a in range(last)] +
+                             ['gc < %d' % shape[last]])
+        test = ' && '.join(own + ['(!kEdge || (%s))' % inside])
+        at = _flat(['g%d' % a for a in range(last)] + ['gc'], strides)
+        if vec > 1:
+          cell.append('if (%s) soda::stv<%d>(o_%s + (%s), v);' % (
+              test, unit, name, at))
+        else:
+          cell.append('if (%s) o_%s[%s] = v[0];' % (test, name, at))
+      block = ['{  // stage %s, rows %s, frame [-%d, %d), %d cell(s) a '
+               'unit%s' % (name, ext_u[:-1], a_s, short.frames[name][1],
+                           vec, ', registers: %s' % ', '.join(
+                               s.name for s in closure) if closure else '')]
+      for p in parents:
+        block.append('  ' + _smem_ptr(plan, p, True))
+      if plan.buffered(name):
+        block.append('  ' + _smem_ptr(plan, name, False))
+      block += ['  ' + s for s in _cell_map(ext_u)]
+      block += ['  ' + s for s in _fixed_cells(ext_u, cell)] + ['}']
+      body += block
+    return body
+
+  out = _kernel_head(plan, short.ctas)
+  inside = ' && '.join('o%d >= %d && o%d <= %d' % (a, lo, a, hi)
+                       for a, (lo, hi) in enumerate(short.interior))
+  if not walk:
+    out.append('  const int o0 = (int)bid * %d;' % tile[0])
+    fill, copies = fill_blocks(True, None)
+    body = fill
+    if copies:
+      body += ['soda::cp_async_commit();',
+               'soda::cp_async_wait<0>();  // this thread\'s copies landed']
+    body += stage_blocks(True)
+    run = ['auto tile_body = [&](auto edge) {',
+           '  constexpr bool kEdge = decltype(edge)::value;']
+    run += ['  ' + s for s in body]
+    run.append('};')
+    if short.has('interior'):
+      run += ['// a CTA inside every stage\'s valid region (and its input',
+              '// frames inside the array) runs without those tests',
+              'if (%s) tile_body(std::false_type{});' % inside,
+              'else tile_body(std::true_type{});']
+    else:
+      run.append('tile_body(std::true_type{});')
+    out += ['  ' + s for s in run]
+    out.append('}')
+    return '\n'.join(out)
+
+  steps, grid0 = plan.steps, plan.grid[0]
+  rings = short.rings
+  first_fill, copies = fill_blocks(True, lambda name: 'ph_%s' % name)
+  next_fill, _ = fill_blocks(False, lambda name: 'fph_%s' % name)
+  run = ['const int k_first = (int)bid * %d;' % steps,
+         'const int k_end = k_first + %d < %d ? k_first + %d : %d;' % (
+             steps, grid0, steps, grid0),
+         '// ring phases: extent row r of a step lies in ring row',
+         '// (ph + r) mod rows',
+         ] + ['int ph_%s = 0;  // %d rows' % (n, rows)
+              for n, rows in rings.items()]
+  run += ['// the input rows of step k (kFirst: its whole extents; else',
+          '// those the step before does not share), issued as cp.async',
+          '// copies where they are 16-byte ones',
+          'auto fill = [&](auto edge, auto first, int k) {',
+          '  constexpr bool kEdge = decltype(edge)::value;',
+          '  const int o0 = k * %d;' % tile[0],
+          '  if constexpr (decltype(first)::value) {']
+  run += ['    ' + s for s in first_fill]
+  run += ['  } else {']
+  run += ['    const int fph_%s = (ph_%s + %d) %% %d;' % (n, n, tile[0],
+                                                        rings[n])
+          for n in st.input_names if n in rings]
+  run += ['    ' + s for s in next_fill]
+  run += ['  }']
+  if copies:
+    run.append('  soda::cp_async_commit();')
+  run += ['};',
+          'auto step = [&](auto edge, auto first, int k) {',
+          '  constexpr bool kEdge = decltype(edge)::value;',
+          '  const int o0 = k * %d;' % tile[0],
+          '  if constexpr (decltype(first)::value) {']
+  run += ['    ' + s for s in stage_blocks(True)]
+  run += ['  } else {']
+  run += ['    ' + s for s in stage_blocks(False)]
+  run += ['  }', '};']
+  if short.has('interior'):
+    run += ['// a step inside every stage\'s valid region (and its input',
+            '// frames inside the array) runs without those tests',
+            'auto inner = [&](int k) {',
+            '  const int o0 = k * %d;' % tile[0],
+            '  return %s;' % inside,
+            '};']
+  else:
+    run += ['auto inner = [&](int) { return false; };']
+  run += ['if (inner(k_first)) fill(std::false_type{}, std::true_type{}, '
+          'k_first);',
+          'else fill(std::true_type{}, std::true_type{}, k_first);']
+  if copies:
+    run.append('soda::cp_async_wait<0>();')
+  run += ['#pragma unroll 1',
+          'for (int k = k_first; k < k_end; ++k) {',
+          '  __syncthreads();  // step k\'s input rows landed, step k - 1 '
+          'done',
+          '  if (k + 1 < k_end) {',
+          '    if (inner(k + 1)) fill(std::false_type{}, std::false_type{}, '
+          'k + 1);',
+          '    else fill(std::true_type{}, std::false_type{}, k + 1);',
+          '  }',
+          '  const bool in = inner(k);',
+          '  if (k == k_first) {',
+          '    if (in) step(std::false_type{}, std::true_type{}, k);',
+          '    else step(std::true_type{}, std::true_type{}, k);',
+          '  } else {',
+          '    if (in) step(std::false_type{}, std::false_type{}, k);',
+          '    else step(std::true_type{}, std::false_type{}, k);',
+          '  }']
+  if copies:
+    run.append('  soda::cp_async_wait<0>();  // the next step\'s rows')
+  run += ['  ph_%s = (ph_%s + %d) %% %d;' % (n, n, tile[0], rows)
+          for n, rows in rings.items()]
+  run.append('}')
+  out += ['  ' + s for s in run]
+  out.append('}')
+  return '\n'.join(out)
+
+
+def _short_note(plan: TilePlan) -> str:
+  short = plan.short
+  lines = _note(plan).split('\n')[:4] + [
+      '// Short form (tile_plan.ShortForm; elements %s):' %
+      ', '.join(short.elements),
+      '// %d resident CTA(s) an SM (%d bytes of shared memory each); %s;' % (
+          short.ctas, plan.smem_bytes,
+          '%d cells a thread on the minor axis, 16-byte fills, loads and '
+          'stores of whole units' % short.vec if short.vec > 1 else
+          'one cell a thread'),
+      '// stages in registers: %s; %d barriers a tile for %d stages;' % (
+          ', '.join(short.values) or 'none', len(short.barriers),
+          len(plan.stages)),
+      '// %.2f stage evaluations and %.2f input cells filled an output.' % (
+          short.evaluations, short.fills)]
+  if short.has('walk') and plan.dim >= 2:
+    lines += ['// walk: a CTA walks %d axis-0 tiles of one tile column (%d '
+              'CTAs), each' % (plan.steps, plan.n_ctas),
+              '// buffer a ring of axis-0 rows (%s), the next tile\'s new' %
+              ', '.join('%s %d' % kv for kv in short.rings.items()),
+              '// input rows in flight while a tile computes.']
+  return '\n'.join(lines + [
+      '// Bound on this card: bytes (each input read once, each output',
+      '// written once; a stencil does a few operations per byte). The design',
+      '// therefore makes one pass over device memory for all stages: one',
+      '// CTA per output tile fills its input frames into shared memory once,',
+      '// keeps the stages other stages read at offsets there and the rest in',
+      '// registers, and stores only the outputs.'])
+
+
 # -- the mode kernels (stream_loop, prefetch, dma_split, out_dma) -----------
 def _fill_function(plan: TilePlan, index: int, name: str) -> List[str]:
   """``soda_fill_<index><kCheck0>``: the CTA's threads fill window rows
@@ -1762,6 +2157,8 @@ def generate(plan: TilePlan) -> KernelSource:
   deep = plan.deep is not None and plan.deep.elements != ('tile',)
   if deep:
     note = _deep_note(plan)
+  elif plan.short is not None:
+    note = _short_note(plan)
   elif config.is_default:
     note = _note(plan)
   elif config.one_tile:
@@ -1787,7 +2184,8 @@ def generate(plan: TilePlan) -> KernelSource:
       '\n'.join(funcs),
       '#ifdef __CUDACC__',
       ''.join(p + '\n' for p in packed) +
-      (_deep_kernel(plan) if deep else _kernel(plan) if config.one_tile
+      (_deep_kernel(plan) if deep else _short_kernel(plan)
+       if plan.short is not None else _kernel(plan) if config.one_tile
        else _mode_kernel(plan)),
       '',
       _launcher(plan),

@@ -35,7 +35,7 @@ from soda_tpu_torch import utils
 from soda_tpu_torch.backend import c_semantics as oracle
 from soda_tpu_torch.ir import nodes as ir
 
-from soda_tpu_torch.backend import cuda_source, semantics
+from soda_tpu_torch.backend import cuda_source, semantics, tile_plan
 from soda_tpu_torch.backend.border import preserve_border_fixup
 from soda_tpu_torch.core.stencil import Stencil
 from soda_tpu_torch.backend.tile_plan import (TilePlan, kernel_plan,
@@ -793,6 +793,11 @@ class FusedExecutor:
                       dtype=semantics.storage_dtype(stencil.symbol_table[n]))
           for n in stencil.output_names)
       pointers = [t.data_ptr() for t in (*args, *outs)]
+      if self.plan.short is not None and self.plan.short.vec > 1 and any(
+          t.data_ptr() % tile_plan.VECTOR_BYTES for t in (*ins, *outs)):
+        raise utils.InputError(
+            'the kernel copies 16 bytes at a time: every input and output '
+            'must start on a 16-byte boundary')
       with torch.cuda.device(self.device):  # restores the caller's device
         stream = torch.cuda.current_stream().cuda_stream
         self.kernel.launch(pointers, self.replicas or 1, stream)

@@ -114,6 +114,35 @@ DEEP_MIN_STAGES = 32
 # tile whose buffers leave no room to share intervals falls back towards
 # that, and the next tile is taken.
 DEEP_MAX_BARRIER_SHARE = 1 / 3
+# The short form (ShortForm), the default kernel of stage graphs below
+# DEEP_MIN_STAGES, element by element in the order they are measured:
+# 'cells' walks each extent by the many-stage form's fixed thread maps
+# (the form's base), 'interior' drops the bounds and valid-region tests
+# in CTAs inside every stage's valid region, 'values' evaluates a stage
+# that every reader reads only at offset zero over its own extent in
+# each reader's registers (no buffer, no barrier), 'vector' gives a
+# thread 16 bytes of consecutive minor-axis cells (16-byte cp.async
+# fills, register rows of taps, 16-byte stores) where the grid's rows
+# allow, 'walk' makes each CTA walk a run of axis-0 tiles of one tile
+# column, keeping each buffer's rows that the next tile shares in a ring
+# and filling the next tile's new input rows by cp.async while the
+# current one computes, 'tile' takes _short_tile's tile in place of the
+# default form's.
+# short_default(dim) are the elements the default kernel takes: those
+# whose step lowered the time back to back (PERF.md, the short form's
+# findings).
+SHORT_ELEMENTS = ('cells', 'interior', 'values', 'vector', 'walk', 'tile')
+# 'walk' lowered the time in the 3-D cells only (jacobi3d 0.77x,
+# jacobi3d_256 0.76x at their best tiles; 1.2-1.4x in erosion, xcorr and
+# denoise2d, whose rings cost resident CTAs and registers): grids of
+# fewer axes take the other elements.
+WALK_MIN_DIM = 3
+# Bytes of one fill copy (cp.async) and of the widest type's unit.
+VECTOR_BYTES = 16
+# SMs of the H100, and the waves of resident CTAs the walk's runs fill:
+# each CTA walks the fewest axis-0 tiles that keep the grid within them.
+SMS = 132
+WALK_WAVES = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +225,8 @@ class TilePlan:
     margins: tensor name -> (lo, hi) valid-region margins
       (plan.materialized_margins, here per array axis).
     config: the kernel's structural modes.
-    steps: axis-0 tiles one CTA walks (1 without ``stream_loop``).
+    steps: axis-0 tiles one CTA walks (1 without ``stream_loop`` or the
+      short form's 'walk').
     slots: input windows per input (the ``prefetch`` ring; 1 without
       ``stream_loop``); a mode plan's input ``offsets`` name slot 0 and
       slot j lies ``slot_bytes[name] * j`` bytes further.
@@ -208,6 +238,7 @@ class TilePlan:
     warp: a value-mode plan's warp window (WarpPlan); its stages live
       in registers, so ``offsets`` names the inputs only.
     deep: the many-stage form's schedule (DeepForm), or None.
+    short: the short form's geometry (ShortForm), or None.
   """
   stencil: object
   shape: Tuple[int, ...]
@@ -225,6 +256,7 @@ class TilePlan:
   staging: Dict[str, int] = dataclasses.field(default_factory=dict)
   warp: Optional['WarpPlan'] = None
   deep: Optional['DeepForm'] = None
+  short: Optional['ShortForm'] = None
 
   @property
   def dim(self) -> int:
@@ -421,7 +453,8 @@ def _buffer_bytes(stencil, spans: Dict[str, Span], tile: Sequence[int],
 
 
 def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
-              tile: Sequence[int], inputs: bool = True, stages: bool = True
+              tile: Sequence[int], inputs: bool = True, stages: bool = True,
+              sizes: Optional[Dict[str, int]] = None, reads=None
               ) -> Tuple[Dict[str, int], int]:
   """First-fit shared-memory offsets with liveness reuse.
 
@@ -431,16 +464,24 @@ def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
   separates consecutive stages, so the next stage may reuse it).
   ``inputs=False`` places the stage buffers only (a mode plan keeps its
   input windows apart); ``stages=False`` the input windows only (a
-  value-mode plan keeps its stages in registers).
+  value-mode plan keeps its stages in registers). ``sizes`` gives each
+  buffer's bytes (else its extent's), ``reads(stage)`` the buffers a
+  stage reads (else its parents; the short form's stages read through
+  their register stages).
   """
-  readers = last_readers(order)
+  reads = reads or (lambda stage: stage.load_offsets)
+  readers: Dict[str, int] = {}
+  for idx, stage in enumerate(order):
+    for parent in reads(stage):
+      readers[parent] = idx
   live: Dict[str, Tuple[int, int]] = {}
   offsets: Dict[str, int] = {}
   peak = 0
 
   def alloc(name):
     nonlocal peak
-    size = _buffer_bytes(stencil, spans, tile, name)
+    size = (sizes[name] if sizes is not None else
+            _buffer_bytes(stencil, spans, tile, name))
     spans_ = sorted(live.values())
     start = 0
     for lo, hi in spans_:
@@ -457,7 +498,7 @@ def _allocate(stencil, order: Sequence[Stage], spans: Dict[str, Span],
   for idx, stage in enumerate(order):
     if stage.name in readers and stages:
       alloc(stage.name)
-    for parent in sorted(stage.load_offsets):
+    for parent in sorted(reads(stage)):
       if readers.get(parent) == idx:
         live.pop(parent, None)
   return offsets, peak
@@ -930,31 +971,39 @@ def _allocate_intervals(stencil, intervals: Sequence[Sequence[Stage]],
 
 
 def hazard_barriers(stencil, stages: Sequence[Stage], offsets: Dict[str, int],
-                    spans: Dict[str, Span], tile: Sequence[int]
-                    ) -> Tuple[int, ...]:
+                    spans: Dict[str, Span], tile: Sequence[int],
+                    ranges: Optional[Dict[str, Tuple[int, int]]] = None,
+                    reads=None, filled: bool = True) -> Tuple[int, ...]:
   """Indices into ``stages`` before which a barrier must run: the stage
   reads bytes written since the last barrier (the input fill writes the
   inputs' buffers), or writes bytes read or written since it. Placing
   each barrier as late as that allows gives the fewest, and each one
-  separates a hazard no other separates."""
+  separates a hazard no other separates. ``ranges`` gives each buffer's
+  bytes (else from its offset over its extent), ``reads`` as
+  ``_allocate``'s; ``filled=False``: a barrier already separates the
+  input fill from the first stage (the short form's walk)."""
   def extent(name):
+    if ranges is not None:
+      return ranges[name]
     start = offsets[name]
     return start, start + _buffer_bytes(stencil, spans, tile, name)
 
-  def meets(a, ranges):
-    return any(a[0] < hi and lo < a[1] for lo, hi in ranges)
+  def meets(a, ranges_):
+    return any(a[0] < hi and lo < a[1] for lo, hi in ranges_)
 
-  written = [extent(n) for n in stencil.input_names if n in offsets]
+  reads = reads or (lambda stage: stage.load_offsets)
+  written = [extent(n) for n in stencil.input_names
+             if n in offsets and filled]
   read: List[Tuple[int, int]] = []
   out = []
   for k, stage in enumerate(stages):
-    reads = [extent(p) for p in sorted(stage.load_offsets) if p in offsets]
+    got = [extent(p) for p in sorted(reads(stage)) if p in offsets]
     writes = [extent(stage.name)] if stage.name in offsets else []
-    if (any(meets(r, written) for r in reads) or
+    if (any(meets(r, written) for r in got) or
         any(meets(w, written + read) for w in writes)):
       out.append(k)
       written, read = [], []
-    read += reads
+    read += got
     written += writes
   return tuple(out)
 
@@ -1105,6 +1154,344 @@ def deep_elements(elements) -> Tuple[str, ...]:
   return tuple(e for e in DEEP_ELEMENTS if e in names)
 
 
+# -- the short form -------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShortForm:
+  """The short form of the default kernel (SHORT_ELEMENTS).
+
+  A tensor's buffer holds, on every axis but the minor one, its extent's
+  rows; on the minor axis its frame, columns [-A, B) around the tile
+  origin (``frames``: (A, B), multiples of ``vec``, and of 16 bytes for
+  an input where ``vec`` > 1, so that its fill is 16-byte copies). A
+  thread owns ``vec`` consecutive cells of a frame row, a unit; it loads
+  the cells each tap needs as register rows (``register_rows``), whole
+  units of the parent where ``vec`` > 1, which may reach past a frame
+  row's ends: into the neighbouring row, or, before the first row and
+  after the last, into the buffer's ``slack`` (cells). The frame's cells
+  outside the extent are evaluated too and read by no cell of the
+  extent.
+
+  Attributes:
+    elements: the elements on, in SHORT_ELEMENTS order.
+    vec: cells a thread owns on the minor axis (1: the element path).
+    values: the stages kept in registers: every reader reads them only
+      at offset zero over its own extent, and evaluates them at its own
+      cell, parents first ('values').
+    frames: tensor name -> (A, B), for the inputs and the stages a
+      kernel stage runs (those not in ``values``).
+    slack: buffered tensor name -> (cells before, cells after).
+    barriers: indices into the plan's stages before which every thread
+      of the CTA waits at a barrier; the first is the one after the
+      input fill. Only where a stage reads a buffer written since the
+      last one or writes bytes read since it (hazard_barriers).
+    ctas: resident CTAs an SM that the plan's shared memory leaves (the
+      launch bounds ask registers for as many).
+    evaluations: stage cells a CTA evaluates per output cell (a
+      register stage's at each cell of its readers).
+    fills: input cells a CTA fills per output cell.
+    interior: as DeepForm's, with each input's frame inside the array.
+    rings: buffered tensor name -> the axis-0 rows its buffer holds:
+      its extent's, and under 'walk' an input's also the next tile's new
+      rows (row r of a run's extent lies in ring row (r + phase) mod
+      rings[name], the phase advancing by tile[0] a step).
+  """
+  elements: Tuple[str, ...]
+  vec: int
+  values: Tuple[str, ...]
+  frames: Dict[str, Tuple[int, int]]
+  slack: Dict[str, Tuple[int, int]]
+  barriers: Tuple[int, ...]
+  ctas: int
+  evaluations: float
+  fills: float
+  interior: Tuple[Tuple[int, int], ...]
+  rings: Dict[str, int]
+
+  def has(self, element: str) -> bool:
+    return element in self.elements
+
+  def pitch(self, name: str) -> int:
+    a, b = self.frames[name]
+    return a + b
+
+  def fill_chunk(self, itemsize: int) -> int:
+    """Cells of one fill copy of an input: 16 bytes (1 on the element
+    path)."""
+    return VECTOR_BYTES // itemsize if self.vec > 1 else 1
+
+
+def value_stages(stencil, order: Sequence[Stage], spans: Dict[str, Span]
+                 ) -> Tuple[str, ...]:
+  """The stages 'values' keeps in registers: not an output, read by
+  some stage, and every reader reads it only at offset zero and has its
+  extent."""
+  readers: Dict[str, List[Stage]] = {}
+  for stage in order:
+    for parent in stage.load_offsets:
+      readers.setdefault(parent, []).append(stage)
+  outputs = set(stencil.output_names)
+  out = []
+  for stage in order:
+    got = readers.get(stage.name)
+    if stage.name in outputs or not got:
+      continue
+    if all(spans[r.name] == spans[stage.name] and
+           not any(any(off) for off in r.load_offsets[stage.name])
+           for r in got):
+      out.append(stage.name)
+  return tuple(out)
+
+
+def value_closure(stage: Stage, by_name: Dict[str, Stage],
+                  values: Sequence[str]) -> List[Stage]:
+  """The register stages ``stage``'s cell evaluates, in the order of
+  ``by_name`` (the plan's stage order: parents first)."""
+  out: List[Stage] = []
+
+  def visit(s):
+    for parent in sorted(s.load_offsets):
+      if parent in values and by_name[parent] not in out:
+        visit(by_name[parent])
+        out.append(by_name[parent])
+
+  visit(stage)
+  order = list(by_name)
+  return sorted(out, key=lambda s: order.index(s.name))
+
+
+def buffer_reads(stage: Stage, by_name: Dict[str, Stage],
+                 values: Sequence[str]) -> List[str]:
+  """The buffers a kernel stage's cell reads: its parents' and its
+  register stages' parents that are not register stages."""
+  names = set()
+  for s in value_closure(stage, by_name, values) + [stage]:
+    names.update(p for p in s.load_offsets if p not in values)
+  return sorted(names)
+
+
+def register_rows(stencil, stage: Stage, by_name: Dict[str, Stage],
+                  values: Sequence[str], vec: int
+                  ) -> Dict[Tuple[str, Tuple[int, ...]], Tuple[int, int]]:
+  """(parent, offsets on every axis but the minor one) -> (lo, hi): the
+  columns [x0 + lo, x0 + hi) of the parent's row that a thread loads for
+  its cells x0 .. x0 + vec - 1 of ``stage`` and its register stages
+  (which lie at the stage's own cells), as whole units of ``vec``
+  cells."""
+  rows: Dict[Tuple[str, Tuple[int, ...]], Tuple[int, int]] = {}
+  for s in value_closure(stage, by_name, values) + [stage]:
+    for parent in sorted(s.load_offsets):
+      if parent in values:
+        continue
+      for off in _array_offsets(s, parent):
+        key = (parent, off[:-1])
+        lo, hi = rows.get(key, (off[-1], off[-1]))
+        rows[key] = (min(lo, off[-1]), max(hi, off[-1]))
+  out = {}
+  for (parent, group), (lo, hi) in sorted(rows.items()):
+    out[(parent, group)] = (lo // vec * vec, -(-(vec + hi) // vec) * vec)
+  return out
+
+
+def vector_width(stencil, shape: Sequence[int], tile: Sequence[int],
+                 names: Sequence[str]) -> int:
+  """'vector''s cells a thread owns on the minor axis: 16 bytes of the
+  widest type among ``names``, where every input's and output's rows are
+  whole 16-byte units and the tile's minor extent holds whole 16-byte
+  units of every type; else 1, the element path (a row of another
+  length would start off a 16-byte boundary on some rows, which a
+  16-byte copy cannot address). A narrower type's unit is 4 or 8 bytes:
+  a unit of 16 bytes of it would put a wider type's units 32 bytes
+  apart, and a warp's 16-byte shared-memory loads at that stride take
+  twice the wavefronts (on an H100, 8 int32 cells a thread ran erosion
+  at 1.247x and xcorr at 1.192x the element path; PERF.md)."""
+  def size(name):
+    return stencil.tensors[name].dtype.np_dtype.itemsize
+
+  vec = VECTOR_BYTES // max(size(n) for n in names)
+  edges = list(stencil.input_names) + list(stencil.output_names)
+  if any(shape[-1] * size(n) % VECTOR_BYTES for n in edges) or \
+      tile[-1] % (VECTOR_BYTES // min(size(n) for n in names)):
+    return 1
+  return vec
+
+
+def _short_plan(stencil, shape, order, spans, margins, elements,
+                tile) -> TilePlan:
+  """The short form's plan (ShortForm) with ``elements`` on, at
+  ``tile``."""
+  last = len(shape) - 1
+  by_name = {s.name: s for s in order}
+  values = (value_stages(stencil, order, spans) if 'values' in elements
+            else ())
+  kernel = [s for s in order if s.name not in values]
+  names = [n for n in spans if n not in values]
+  vec = (vector_width(stencil, shape, tile, names) if 'vector' in elements
+         else 1)
+
+  def itemsize(name):
+    return stencil.tensors[name].dtype.np_dtype.itemsize
+
+  def align(name):  # an input's fill copies 16 bytes
+    return (VECTOR_BYTES // itemsize(name) if vec > 1 and
+            name in stencil.input_names else vec)
+
+  frames = {n: (_round_up(spans[n][0][last], align(n)),
+                _round_up(tile[last] + spans[n][1][last], align(n)))
+            for n in names}
+
+  def reads(stage):
+    return buffer_reads(stage, by_name, values)
+
+  readers = {p for s in kernel for p in reads(s)}
+  slack = {n: [0, 0] for n in names if n in readers}
+  for stage in kernel:
+    a, b = frames[stage.name]
+    for (parent, _), (lo, hi) in register_rows(stencil, stage, by_name,
+                                               values, vec).items():
+      pa, pb = frames[parent]
+      slack[parent][0] = max(slack[parent][0],
+                             _round_up(a - lo - pa, align(parent)))
+      slack[parent][1] = max(slack[parent][1], b - vec + hi - pb)
+  walk = 'walk' in elements and len(shape) >= 2
+  # axis-0 rows of each extent (a 1-D grid's one row is its frame)
+  tile0 = tile[0] if last else 1
+  ext0 = {n: tile[0] + spans[n][0][0] + spans[n][1][0] if last else 1
+          for n in names}
+  rings = {n: ext0[n] + (min(tile0, ext0[n]) if walk and
+                         n in stencil.input_names else 0) for n in slack}
+
+  def cross(name):  # cells of one axis-0 row of the frame
+    return _prod(t + n + p for t, n, p in zip(tile[1:-1], *(
+        x[1:-1] for x in spans[name]))) * sum(frames[name])
+
+  sizes = {}
+  for name, (before, after) in slack.items():
+    sizes[name] = _round_up((before + rings[name] * cross(name) + after) *
+                            itemsize(name), ALIGN)
+  if walk:  # every ring lives for the whole run
+    starts, peak = {}, 0
+    for name in [n for n in stencil.input_names if n in sizes] + [
+        s.name for s in kernel if s.name in sizes]:
+      starts[name], peak = peak, peak + sizes[name]
+  else:
+    starts, peak = _allocate(stencil, kernel, spans, tile, sizes=sizes,
+                             reads=reads)
+  offsets = {n: at + slack[n][0] * itemsize(n) for n, at in starts.items()}
+  ranges = {n: (at, at + sizes[n]) for n, at in starts.items()}
+  index = {s.name: k for k, s in enumerate(order)}
+  barriers = tuple(index[kernel[k].name] for k in hazard_barriers(
+      stencil, kernel, offsets, spans, tile, ranges, reads, not walk))
+  ctas = resident_ctas(peak)
+  grid = [-(-x // t) for x, t in zip(shape, tile)]
+  steps = 1
+  if walk:
+    waves = SMS * WALK_WAVES * max(ctas, 1)
+    steps = min(grid[0], max(1, -(-_prod(grid) // waves)))
+  tile_cells = _prod(tile)
+
+  def rows(name):  # axis-0 rows a step computes or fills, over a run
+    fresh = min(tile0, ext0[name]) if walk else ext0[name]
+    return (ext0[name] + (steps - 1) * fresh) / steps
+
+  evaluations = sum(rows(s.name) * cross(s.name) *
+                    (1 + len(value_closure(s, by_name, values)))
+                    for s in kernel) / tile_cells
+  fills = sum(rows(n) * cross(n) for n in stencil.input_names
+              if n in offsets) / tile_cells
+  box_spans = dict(spans)
+  for name in stencil.input_names:
+    if name in frames:
+      neg, pos = spans[name]
+      a, b = frames[name]
+      box_spans[name] = (neg[:-1] + (a,), pos[:-1] + (b - tile[last],))
+  short = ShortForm(
+      elements=tuple(elements), vec=vec, values=values, frames=frames,
+      slack={n: tuple(v) for n, v in slack.items()}, barriers=barriers,
+      ctas=ctas, evaluations=evaluations, fills=fills,
+      interior=_interior_box(stencil, shape, tile, box_spans, margins,
+                             offsets), rings=rings)
+  return TilePlan(stencil=stencil, shape=tuple(shape), tile=tuple(tile),
+                  stages=tuple(order), spans=spans, offsets=offsets,
+                  smem_bytes=peak, margins=margins, steps=steps, short=short)
+
+
+def _short_tile(stencil, shape, order, spans, margins, elements
+                ) -> TilePlan:
+  """The short form's plan at its tile. With 'tile': among
+  ``short_tiles`` whose plan fits, the fewest stage evaluations and
+  input cells filled an output, with at least 2 resident CTAs (1 under
+  'walk', whose next tile's fill overlaps a tile's stages as a second
+  CTA's would), ties to more CTAs, then the narrower cross-section.
+  Swept on an H100 (python -m soda_tpu_torch.tile_sweep --short;
+  PERF.md): within 0-10% of each cell's fastest tile (sobel2d 9.6%, the
+  others 0-6%). Without 'tile', or where no such tile fits: the default
+  form's tile (the largest candidate whose default-form buffers fit), or
+  the next smaller candidate where the form's frames, slack and rings
+  push it past SMEM_LIMIT."""
+  if 'tile' in elements:
+    walk = 'walk' in elements and len(shape) >= 2
+    best = None
+    for tile in short_tiles(shape, walk):
+      tp = _short_plan(stencil, shape, order, spans, margins, elements, tile)
+      if tp.smem_bytes > SMEM_LIMIT or tp.short.ctas < (1 if walk else 2):
+        continue
+      key = (tp.short.evaluations + tp.short.fills, -tp.short.ctas,
+             _prod(tile[1:]))
+      if best is None or key < best[0]:
+        best = key, tp
+    if best is not None:
+      return best[1]
+  base = _default_plan(stencil, shape, order, spans, margins, KernelConfig(),
+                       {})
+  cands = [t for t in candidate_tiles(shape) if _prod(t) <= _prod(base.tile)]
+  for tile in [base.tile] + cands[::-1]:
+    tp = _short_plan(stencil, shape, order, spans, margins, elements, tile)
+    if tp.smem_bytes <= SMEM_LIMIT:
+      return tp
+  raise utils.InputError(
+      'the short form needs %d bytes of shared memory even for a one-cell '
+      'tile, more than the %d a block may use' % (tp.smem_bytes, SMEM_LIMIT))
+
+
+def short_default(dim: int) -> Tuple[str, ...]:
+  """The short form's elements in a ``dim``-D grid's default kernel."""
+  return tuple(e for e in SHORT_ELEMENTS
+               if e != 'walk' or dim >= WALK_MIN_DIM)
+
+
+def short_tiles(shape: Sequence[int], walk: bool) -> List[Tuple[int, ...]]:
+  """The tiles the short form's tile rule (and ``tile_sweep --short``)
+  weighs: without 'walk' powers of two of 2,048 to 16,384 output cells,
+  64 to 256 wide (2-D: 4 to 256 rows; 3-D: 4 to 32 rows of the middle
+  axis, the minor axis 128 or 256); with it steps of 4 to 32 rows, 128
+  or 256 wide (2-D), or of 1 to 4 planes over cross-sections of 8 to 32
+  rows, 128 or 256 wide (3-D); each within the grid."""
+  caps = [_pow2_ceil(s) for s in shape]
+  if len(shape) == 2:
+    out = ([(t0, m) for m in (128, 256) for t0 in (4, 8, 16, 32)] if walk
+           else [(t0, m) for m in (64, 128, 256)
+                 for t0 in (4, 8, 16, 32, 64, 128, 256)
+                 if 2048 <= t0 * m <= 16384])
+  elif len(shape) == 3:
+    out = ([(t0, mid, m) for m in (128, 256) for mid in (8, 16, 32)
+            for t0 in (1, 2, 4)] if walk else
+           [(t0, mid, m) for m in (128, 256) for mid in (4, 8, 16, 32)
+            for t0 in (1, 2, 4, 8, 16) if 2048 <= t0 * mid * m <= 16384])
+  else:
+    out = []
+  return [t for t in out if all(x <= c for x, c in zip(t, caps))]
+
+
+def short_elements(elements) -> Tuple[str, ...]:
+  """Validate a private ``_short`` argument: SHORT_ELEMENTS names with
+  'cells' among them, in SHORT_ELEMENTS order."""
+  names = set(elements)
+  if not names <= set(SHORT_ELEMENTS) or 'cells' not in names:
+    raise ValueError('the short form takes %s, with cells; got %s' % (
+        SHORT_ELEMENTS, sorted(names)))
+  return tuple(e for e in SHORT_ELEMENTS if e in names)
+
+
 def candidate_tiles(shape: Sequence[int],
                     max_cells: int = MAX_TILE_CELLS
                     ) -> List[Tuple[int, ...]]:
@@ -1153,13 +1540,36 @@ def _prod(values) -> int:
   return n
 
 
+def _default_plan(stencil, shape, order, spans, margins, config, fixed
+                  ) -> TilePlan:
+  """The largest candidate tile (``fixed`` axes imposed) whose buffers
+  fit SMEM_LIMIT; raises utils.InputError where not even a one-cell tile
+  does."""
+  chosen = tp = None
+  cands = _fixed_candidates(shape, fixed) if fixed else candidate_tiles(shape)
+  for cand in cands:
+    tp = _plan_for_tile(stencil, shape, cand, order, spans, margins, config)
+    if tp.smem_bytes > SMEM_LIMIT:
+      break
+    chosen = tp
+  if chosen is None:
+    raise utils.InputError(
+        'the fused kernel needs %d bytes of shared memory even for a '
+        'one-cell tile, more than the %d a block may use; split the '
+        'pipeline (cluster: coarse), shorten its window, or run the '
+        "whole-grid executor (backend 'xla')" %
+        (tp.smem_bytes, SMEM_LIMIT))
+  return chosen
+
+
 def make_tile_plan(stencil, shape: Sequence[int],
                    tile: Optional[Sequence[int]] = None,
                    config: Optional[KernelConfig] = None,
                    block_rows: Optional[int] = None,
                    mid_tile: Optional[int] = None,
                    fusion: Optional[FusionPlan] = None,
-                   _deep: Optional[Sequence[str]] = None) -> TilePlan:
+                   _deep: Optional[Sequence[str]] = None,
+                   _short: Optional[Sequence[str]] = None) -> TilePlan:
   """Plan the fused kernel for ``shape``; ``tile=None`` picks the
   largest candidate tile whose buffers (with ``config``'s window slots
   and staging) fit SMEM_LIMIT. ``block_rows`` and ``mid_tile`` fix the
@@ -1168,10 +1578,13 @@ def make_tile_plan(stencil, shape: Sequence[int],
 
   With no tile, block_rows, mid_tile, mode or layout key, a stage graph
   of DEEP_MIN_STAGES or more takes the many-stage form (DeepForm, the
-  elements of DEEP_DEFAULT). ``_deep`` is private, for the tests and
-  chip_smoke.py that measure the form element by element: () keeps the
-  default form, a set of DEEP_ELEMENTS (deep_elements) forces the form
-  with those on, at ``tile`` where one is given.
+  elements of DEEP_DEFAULT), a smaller one the short form (ShortForm,
+  the elements of short_default). ``_deep`` and ``_short`` are private,
+  for the tests and chip_smoke.py that measure the forms element by
+  element: () keeps the default form, a set of DEEP_ELEMENTS
+  (deep_elements) or SHORT_ELEMENTS (short_elements) forces that form
+  with those on, at ``tile`` where one is given (the short form without
+  'tile': else at the default form's tile).
 
   Raises utils.InputError when the grid is too small for the stencil
   window, or when even a one-cell tile needs more shared memory than a
@@ -1199,14 +1612,22 @@ def make_tile_plan(stencil, shape: Sequence[int],
     if len(tile) != len(shape) or min(tile) < 1:
       raise utils.InputError('tile %s does not match the %d-D grid' %
                              (tile, len(shape)))
+  default = tile is None and not fixed and config.is_default
   if _deep is None:
-    _deep = DEEP_DEFAULT if (tile is None and not fixed and config.is_default
-                              and len(stages) >= DEEP_MIN_STAGES) else ()
+    _deep = DEEP_DEFAULT if (default and len(stages) >= DEEP_MIN_STAGES
+                             ) else ()
+  if _short is None:
+    _short = short_default(len(shape)) if (
+        default and not _deep and len(stages) < DEEP_MIN_STAGES) else ()
+  if _deep and _short:
+    raise ValueError('a plan takes the many-stage or the short form, not '
+                     'both')
+  if (_deep or _short) and (fixed or not config.is_default):
+    raise utils.InputError('the %s form takes no block_rows, mid_tile, mode '
+                           'or layout key' % ('many-stage' if _deep else
+                                              'short'))
   if _deep:
     elements = deep_elements(_deep)
-    if fixed or not config.is_default:
-      raise utils.InputError('the many-stage form takes no block_rows, '
-                             'mid_tile, mode or layout key')
     tp = _deep_plan(stencil, shape, order, spans, margins, elements, tile)
     if tp.smem_bytes > SMEM_LIMIT:
       raise utils.InputError(
@@ -1214,6 +1635,17 @@ def make_tile_plan(stencil, shape: Sequence[int],
           'more than the %d a block may use' % (tp.smem_bytes, tp.tile,
                                                 SMEM_LIMIT))
     return tp
+  if _short:
+    elements = short_elements(_short)
+    if tile is not None:
+      tp = _short_plan(stencil, shape, order, spans, margins, elements, tile)
+      if tp.smem_bytes > SMEM_LIMIT:
+        raise utils.InputError(
+            'the short form needs %d bytes of shared memory at tile %s, '
+            'more than the %d a block may use' % (tp.smem_bytes, tile,
+                                                  SMEM_LIMIT))
+      return tp
+    return _short_tile(stencil, shape, order, spans, margins, elements)
   if tile is not None:
     if fixed:
       raise utils.InputError('give tile, or block_rows/mid_tile, not both')
@@ -1223,21 +1655,7 @@ def make_tile_plan(stencil, shape: Sequence[int],
           'tile %s with %s needs %d bytes of shared memory, more than the '
           '%d a block may use' % (tile, config, tp.smem_bytes, SMEM_LIMIT))
     return tp
-  chosen = None
-  cands = _fixed_candidates(shape, fixed) if fixed else candidate_tiles(shape)
-  for cand in cands:
-    tp = _plan_for_tile(stencil, shape, cand, order, spans, margins, config)
-    if tp.smem_bytes > SMEM_LIMIT:
-      break
-    chosen = tp
-  if chosen is None:
-    raise utils.InputError(
-        'the fused kernel needs %d bytes of shared memory even for a '
-        'one-cell tile, more than the %d a block may use; split the '
-        'pipeline (cluster: coarse), shorten its window, or run the '
-        "whole-grid executor (backend 'xla')" %
-        (tp.smem_bytes, SMEM_LIMIT))
-  return chosen
+  return _default_plan(stencil, shape, order, spans, margins, config, fixed)
 
 
 def kernel_plan(stencil, shape: Sequence[int],
@@ -1245,7 +1663,8 @@ def kernel_plan(stencil, shape: Sequence[int],
                 block_rows: Optional[int] = None,
                 mid_tile: Optional[int] = None, stream_loop=False,
                 prefetch: int = 2, dma_split: int = 1, out_dma: bool = False,
-                _deep: Optional[Sequence[str]] = None, **layout) -> TilePlan:
+                _deep: Optional[Sequence[str]] = None,
+                _short: Optional[Sequence[str]] = None, **layout) -> TilePlan:
   """The plan of the fused kernel that ``FusedExecutor(stencil, shape,
   **opts)`` builds: the structural keys validated (kernel_config), the
   layout keys checked and resolved with the JAX package's rules
@@ -1262,4 +1681,4 @@ def kernel_plan(stencil, shape: Sequence[int],
     config = dataclasses.replace(config, layout=layout_config(
         fusion, shape, mid_tile=mid_tile, **keys))
   return make_tile_plan(stencil, shape, tile, config, block_rows, mid_tile,
-                        fusion, _deep)
+                        fusion, _deep, _short)

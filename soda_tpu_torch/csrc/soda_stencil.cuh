@@ -253,6 +253,67 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void store16(void* dst, const void* src) {
   *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
 }
+// the short form's fill (cuda_source.py _short_kernel): cp.async of 16
+// bytes cached in L2 only (.cg), src-size 0 reads nothing and writes 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+#endif
+
+#if defined(__CUDACC__) || defined(SODA_EMULATE)
+// ---- the short form's register rows (cuda_source.py _short_kernel) ------
+// Bytes (4, 8 or 16) between an address in memory aligned to Bytes and a
+// thread's registers: `regs` is a register array at a compile-time
+// offset (a row of taps, a unit of cells), copied through one word.
+#ifdef __CUDACC__
+#define SODA_VEC __device__ __forceinline__
+#else
+#define SODA_VEC inline
+#endif
+#ifndef SODA_EMULATE
+template <int Bytes>
+struct word_of;
+template <>
+struct word_of<4> { using type = uint32_t; };
+template <>
+struct word_of<8> { using type = uint2; };
+template <>
+struct word_of<16> { using type = uint4; };
+#endif
+template <int Bytes, class T>
+SODA_VEC void ldv(T* regs, const T* src) {
+  static_assert(Bytes == 4 || Bytes == 8 || Bytes == 16, "4, 8 or 16 bytes");
+#ifdef SODA_EMULATE
+  if ((uintptr_t)src % Bytes) {
+    fprintf(stderr, "misaligned %d-byte load\n", Bytes);
+    abort();
+  }
+  memcpy(regs, src, Bytes);
+#else
+  const typename word_of<Bytes>::type w =
+      *reinterpret_cast<const typename word_of<Bytes>::type*>(src);
+  memcpy(regs, &w, Bytes);
+#endif
+}
+template <int Bytes, class T>
+SODA_VEC void stv(T* dst, const T* regs) {
+  static_assert(Bytes == 4 || Bytes == 8 || Bytes == 16, "4, 8 or 16 bytes");
+#ifdef SODA_EMULATE
+  if ((uintptr_t)dst % Bytes) {
+    fprintf(stderr, "misaligned %d-byte store\n", Bytes);
+    abort();
+  }
+  memcpy(dst, regs, Bytes);
+#else
+  typename word_of<Bytes>::type w;
+  memcpy(&w, regs, Bytes);
+  *reinterpret_cast<typename word_of<Bytes>::type*>(dst) = w;
+#endif
+}
 #endif
 
 #if defined(__CUDACC__) || defined(SODA_EMULATE)

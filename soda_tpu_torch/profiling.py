@@ -149,6 +149,19 @@ def back_to_back_us(fn: Callable[[], object], calls: int = 200,
   return host / calls * 1e6, start.elapsed_time(end) / calls * 1e3
 
 
+def settle(fn: Callable[[], object], seconds: float = 1.0) -> None:
+  """Call ``fn()`` back to back for ``seconds`` of wall time, then wait
+  for the card: a first measurement after a pause or after another
+  cell's work read 0.6-1.6x its later ones (tile_sweep --short's and
+  phase 20's first cells on an H100), and a second of the cell's own
+  work before it removes that spread."""
+  t0 = time.perf_counter()
+  while time.perf_counter() - t0 < seconds:
+    for _ in range(20):
+      fn()
+    torch.cuda.synchronize()
+
+
 def sync_count(fn: Callable[[], object]) -> int:
   """Operations in one call of ``fn()`` that make the host wait for the
   device (a blocking copy from or to host memory, ``.item()``): PyTorch's

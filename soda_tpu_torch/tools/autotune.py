@@ -102,7 +102,9 @@ def _build_candidates(stencil, shape, candidates) -> None:
 
 def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
   """The configurations ``tune`` probes: the plan's tile (``{}`` where
-  the plan is the many-stage form, which no explicit tile gives), its axis-0
+  the plan is the many-stage or the short form, which no explicit tile
+  gives; the tiles and modes then start from the default form's tile,
+  ``_short=()``), its axis-0
   extent doubled and quadrupled (where the tile stays within the grid
   and shared memory); at the tile each mode's plan picks, the streaming
   loop (True and 'peel', each with prefetch 2 and 3) where a CTA would
@@ -116,11 +118,16 @@ def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
   candidate whose plan does not fit is left out."""
   from soda_tpu_torch.backend import tile_plan
 
-  base = tile_plan.make_tile_plan(stencil, shape)
+  default = tile_plan.make_tile_plan(stencil, shape)
+  # the tiles and modes below start from the default form's tile (the
+  # short form's own tile comes from its rule)
+  base = default if default.short is None else tile_plan.make_tile_plan(
+      stencil, shape, _short=())
   shape = tuple(shape)
   # the default kernel first: an explicit tile would turn the many-stage
-  # form off
-  cands = [{} if base.deep is not None else {'tile': base.tile}]
+  # and the short form off
+  cands = [{} if default.deep is not None or default.short is not None
+           else {'tile': base.tile}]
   for mult in (2, 4):
     rows = base.tile[0] * mult
     if rows <= tile_plan._pow2_ceil(shape[0]):

@@ -141,14 +141,15 @@ def test_tune_needs_the_card(tmp_path):
 
 
 def test_candidates_2d():
-  """The plan's tile, its axis-0 extent x2 and x4, the streaming loop
-  (True and 'peel', prefetch 2 and 3) where a CTA walks several tiles,
-  staged stores; no split fills on a 2-D grid. A grid of few tiles gets
-  no streaming candidate (one step per CTA)."""
+  """The default kernel (``{}``: blur's is the short form, which an
+  explicit tile turns off), the default form's tile's axis-0 extent x2
+  and x4, the streaming loop (True and 'peel', prefetch 2 and 3) where a
+  CTA walks several tiles, staged stores; no split fills on a 2-D grid.
+  A grid of few tiles gets no streaming candidate (one step per CTA)."""
   stencil = corpus.build('blur', tile_size=(2048, 0))
   many = autotune.candidate_configs(stencil, (8192, 2048))
-  base = tile_plan.make_tile_plan(stencil, (8192, 2048)).tile
-  assert many[0] == {'tile': base}
+  base = tile_plan.make_tile_plan(stencil, (8192, 2048), _short=()).tile
+  assert many[0] == {}
   assert {'tile': (base[0] * 2,) + base[1:]} in many
   assert {'tile': (base[0] * 4,) + base[1:]} in many
   for mode in (True, 'peel'):
@@ -186,15 +187,15 @@ def test_key_is_the_stencil_shape_and_card():
 
 @pytest.mark.parametrize('name', ['blur', 'contrast'])
 def test_first_candidate_is_the_default_kernel(name):
-  """The first candidate builds the kernel that runs untuned: the
-  default form's tile for blur, ``{}`` for contrast, whose default
-  kernel is the many-stage form that an explicit tile turns off."""
+  """The first candidate builds the kernel that runs untuned: ``{}``,
+  since blur's default kernel is the short form and contrast's the
+  many-stage form, which an explicit tile turns off."""
   from soda_tpu_torch import testing
   from soda_tpu_torch.backend import cuda_source
   _, shape, overrides = next(c for c in testing.CELLS if c[0] == name)
   stencil = testing.build_cell(name, overrides)
   first = autotune.candidate_configs(stencil, shape)[0]
-  assert (first == {}) == (name == 'contrast')
+  assert first == {}
   text = cuda_source.generate(tile_plan.kernel_plan(stencil, shape, **first))
   default = cuda_source.generate(tile_plan.make_tile_plan(stencil, shape))
   assert text.text == default.text

@@ -200,24 +200,24 @@ class _StepClock:
 
 
 # sha256 (first 16 hex digits) of each benchmark cell's generated
-# source, as the fused kernel's generator printed it before the sharded
-# executor existed: the sharded path changes no kernel source; contrast's
-# is its many-stage form's (tile_plan.DeepForm), which replaced its
-# default-form kernel. The stencils are built with the in-process
-# schedulers under _StepClock.
+# source: contrast's is its many-stage form's (tile_plan.DeepForm), the
+# other 11 cells' their short form's (tile_plan.ShortForm), each of which
+# replaced the cell's default-form kernel (DEFAULT_FORM_SOURCES below).
+# The stencils are built with the in-process schedulers under
+# _StepClock.
 CELL_SOURCES = {
-    'blur': 'dff6ad3b15226ca0',
-    'jacobi2d': '495a9a06ca9ed1f6',
-    'jacobi3d': 'eda28e44e9f8a911',
-    'heat3d': 'eec52704f6db6d9a',
-    'seidel2d': '876dd6e650f40ce5',
-    'erosion': '987cbe8f820242a5',
-    'sobel2d': 'ca2e7182a811ea45',
-    'xcorr': 'baee7cc74bb9da95',
+    'blur': '256ad56d493dcb08',
+    'jacobi2d': 'c90e599431937f2e',
+    'jacobi3d': '608eee87dafc391a',
+    'heat3d': '01391e246699aa2b',
+    'seidel2d': '43c07e3c7182aa6d',
+    'erosion': '15708285f89cd646',
+    'sobel2d': '013ca9fa5ad16846',
+    'xcorr': '351ab4efbd40d706',
     'contrast': '42ac5aed20698af9',
-    'denoise2d': '4ec236113b4143d5',
-    'denoise3d': '307a08e9fdcd1777',
-    'jacobi3d_256': '98d66f7c05fd9a9a',
+    'denoise2d': '79b58e9494414081',
+    'denoise3d': 'dfc62828c7732efa',
+    'jacobi3d_256': '2665808ca8fe26a5',
 }
 
 
@@ -231,25 +231,40 @@ def test_cell_source_is_unchanged(name, shape, overrides, monkeypatch):
   assert hashlib.sha256(text.encode()).hexdigest()[:16] == CELL_SOURCES[name]
 
 
-# the default form's sources (tile_plan's ``_deep=()``): every cell's
-# as before the many-stage form existed, contrast's included
-DEFAULT_FORM_SOURCES = dict(CELL_SOURCES, contrast='28d3b85553c28a71')
+# the default form's sources (tile_plan's ``_deep=()`` with
+# ``_short=()``): every cell's as before the many-stage and the short
+# form existed
+DEFAULT_FORM_SOURCES = {
+    'blur': 'dff6ad3b15226ca0',
+    'jacobi2d': '495a9a06ca9ed1f6',
+    'jacobi3d': 'eda28e44e9f8a911',
+    'heat3d': 'eec52704f6db6d9a',
+    'seidel2d': '876dd6e650f40ce5',
+    'erosion': '987cbe8f820242a5',
+    'sobel2d': 'ca2e7182a811ea45',
+    'xcorr': 'baee7cc74bb9da95',
+    'contrast': '28d3b85553c28a71',
+    'denoise2d': '4ec236113b4143d5',
+    'denoise3d': '307a08e9fdcd1777',
+    'jacobi3d_256': '98d66f7c05fd9a9a',
+}
 
 
 @pytest.mark.parametrize('name,shape,overrides', CELLS,
                          ids=[c[0] for c in CELLS])
 def test_default_form_source_is_unchanged(name, shape, overrides,
                                           monkeypatch):
-  """The many-stage form leaves the default form's text as it was, and
-  the 11 cells other than contrast keep it as their default kernel."""
+  """The many-stage and the short form leave the default form's text as
+  it was, and every cell's default kernel is now one of those forms."""
   monkeypatch.setattr(cr_schedules, 'find_external_cr', lambda: None)
   monkeypatch.setattr(cr_schedules, 'time', _StepClock())
   stencil = build_cell(name, overrides)
-  text = cuda_source.generate(make_tile_plan(stencil, shape, _deep=())).text
+  text = cuda_source.generate(make_tile_plan(stencil, shape, _deep=(),
+                                             _short=())).text
   assert hashlib.sha256(text.encode()).hexdigest()[:16] == \
       DEFAULT_FORM_SOURCES[name]
   default = cuda_source.generate(make_tile_plan(stencil, shape)).text
-  assert (default == text) == (name != 'contrast')
+  assert default != text
 
 
 def test_nvcc_command_keeps_ieee_floats():

@@ -3,7 +3,7 @@
 - Plans: contrast at its benchmark shape takes the form at the tile of
   fewest stage evaluations an output whose schedule shares barrier
   intervals, with far fewer barriers than stages; the 11 other
-  benchmark cells keep the default form.
+  benchmark cells take the short form.
 - A static schedule checker, written apart from the scheduler: every
   read of a shared-memory buffer follows a barrier that follows the
   buffer's write, and no buffer's bytes are written over before a
@@ -179,8 +179,12 @@ def test_the_tile_rule_passes_over_a_schedule_without_room(monkeypatch):
                          ids=[c[0] for c in testing.CELLS
                               if c[0] != 'contrast'])
 def test_other_cells_keep_the_default_form(name, shape, overrides):
+  """The 11 other cells, below DEEP_MIN_STAGES, take the short form
+  (tests/test_torch_short_form.py), not the many-stage one."""
   plan = make_tile_plan(testing.build_cell(name, overrides), shape)
   assert plan.deep is None
+  assert plan.short is not None and \
+      plan.short.elements == tile_plan.short_default(len(shape))
   assert len(plan.stages) < tile_plan.DEEP_MIN_STAGES
 
 

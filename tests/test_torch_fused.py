@@ -110,7 +110,8 @@ def bench_plans():
 def test_bench_cells_fit_shared_memory(bench_plans, name):
   plan = bench_plans[name]
   assert 0 < plan.smem_bytes <= SMEM_LIMIT
-  assert plan.tile[-1] <= 128
+  # the short form's tiles come from its swept candidates, up to 256 wide
+  assert plan.tile[-1] <= (256 if plan.short is not None else 128)
   assert all(t & (t - 1) == 0 for t in plan.tile)  # powers of two
   # every buffer lies inside the block's shared memory
   for tensor, offset in plan.offsets.items():

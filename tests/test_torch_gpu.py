@@ -20,7 +20,8 @@ loop, cp.async ring, split fills, staged stores) against their plain
 version and the oracle, the layout forms (value stages in registers,
 transposed regions, packed 16-bit stages, chunked stage loops) and the
 JAX package's 24 seed configurations against theirs and the oracle,
-contrast's many-stage form element by element against its default form,
+contrast's many-stage form and the other cells' short form element by
+element against the default form (and a misaligned argument refused),
 compiled statistics read from the card, and the tuner end to end. Integers bit-exact, floats within the reference
 threshold (tests/checks.py). Last, the experiment probes' kernels
 (streaming, chain, narrow, copy-shift and 2.5-D jacobi) against their
@@ -43,7 +44,8 @@ from soda_tpu_torch.backend import build
 from soda_tpu_torch.experiments import copyshift, layout25d, narrow, probes
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
-from soda_tpu_torch.backend.tile_plan import DEEP_ELEMENTS
+from soda_tpu_torch.backend import tile_plan
+from soda_tpu_torch.backend.tile_plan import DEEP_ELEMENTS, SHORT_ELEMENTS
 from soda_tpu_torch.testing import (CELLS, CONV_PARAM, FUZZ_SEEDS, FUZZ_SHAPE,
                                     GEOMETRY_CASES, LAYOUT_CASES, MODE_CASES,
                                     MULTI_OUTPUT, SEED_CONFIGS, build_cell,
@@ -405,6 +407,56 @@ def test_deep_form_on_the_card(elements):
   check_exact(stencil, shape, got, want, 'contrast %s' % (elements,))
   check_outputs(stencil, shape, got, reference.run(stencil, inputs),
                 'contrast %s on gpu' % (elements,))
+
+
+# the short form's card cases: (cell, shape, tile) with interior and
+# edge tiles and, under 'walk', runs of several steps
+SHORT_CARD = (('denoise2d', (40, 64), (8, 16)),
+              ('denoise3d', (12, 24, 96), (2, 8, 32)),
+              ('erosion', (48, 96), (8, 32)),
+              ('blur', (40, 64), (8, 32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,shape,tile,elements', [
+    (n, s, t, SHORT_ELEMENTS[:k + 1]) for n, s, t in SHORT_CARD
+    for k in range(len(SHORT_ELEMENTS) - 1)], ids=[
+        '%s-%s' % (n, '+'.join(SHORT_ELEMENTS[:k + 1])) for n, _, _ in
+        SHORT_CARD for k in range(len(SHORT_ELEMENTS) - 1)])
+def test_short_form_on_the_card(name, shape, tile, elements, monkeypatch):
+  """The short form (tile_plan.ShortForm), element step by element step:
+  bit for bit against the default form and within the threshold of the
+  oracle."""
+  _need_gpu()
+  monkeypatch.setattr(tile_plan, 'SMS', 1)  # runs of several steps
+  overrides = dict(next(c for c in CELLS if c[0] == name)[2],
+                   tile_size=tuple(reversed(shape[1:])) + (0,))
+  stencil = build_cell(name, overrides)
+  inputs = reference.make_test_inputs(stencil, shape)
+  old = FusedExecutor(stencil, shape, device='cuda', tile=tile, _short=())
+  ex = FusedExecutor(stencil, shape, device='cuda', tile=tile,
+                     _short=elements)
+  assert ex.plan.short is not None and old.plan.short is None
+  got, want = ex(inputs), old(inputs)
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  check_exact(stencil, shape, got, want, '%s %s' % (name, elements))
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                '%s %s on gpu' % (name, elements))
+
+
+@pytest.mark.gpu
+def test_short_form_refuses_misaligned_arguments():
+  """The 16-byte copies need every input and output on a 16-byte
+  boundary: a view one element in raises instead of faulting."""
+  _need_gpu()
+  from soda_tpu_torch import utils
+  stencil = build_stencil(corpus.CORPUS['blur'], tile_size=(64, 0))
+  ex = FusedExecutor(stencil, (40, 64), device='cuda')
+  assert ex.plan.short.vec > 1
+  x = torch.zeros(40 * 64 + 1, dtype=torch.uint16, device='cuda')[1:]
+  with pytest.raises(utils.InputError, match='16-byte'):
+    ex.fn(x.view(40, 64))
 
 
 @pytest.mark.gpu

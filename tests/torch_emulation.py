@@ -103,6 +103,9 @@ void cp_async(void* dst, const void* src, int src_bytes) {
   EmuCopy c{dst, src, Bytes, src_bytes};
   if (soda_emu_eager) emu_land(c); else emu_open.push_back(c);
 }
+static void cp_async16(void* dst, const void* src, int src_bytes) {
+  cp_async<16>(dst, src, src_bytes);
+}
 static void cp_async_commit() {
   emu_groups.push_back(emu_open);
   emu_open.clear();
