@@ -200,6 +200,30 @@ seconds:
    jacobi3d_256: ``conv3d`` 5x5x5), erosion's ``-max_pool2d(-x, 19)`` on
    a float32 copy made outside the timed region.
 
+21. graph: one dispatch per call. ``chained(ex, 100)`` over the blur,
+   jacobi2d and heat3d cells (after its first call, one replay of a CUDA
+   graph of the 100 calls: ``api.Chained``), the sharded calls of blur
+   (4,) and heat3d (2, 2) on meshes that repeat the card (one replay of
+   the exchange and per-shard launches), and fault C2's repair (a blur
+   input one element into its storage): each bit for bit equal to the
+   Python loop or the uncaptured call (blur also to the NumPy oracle),
+   the launches a replay holds counted; device µs a step (or call) and
+   host µs a call back to back, captured against uncaptured, after a
+   settle run, and ``chained(ex, 10)``'s beside them (the host's time a
+   call does not grow with the steps); the peak memory of the first call
+   (the loop and the recording) and of a replay, in grids.
+22. emit: the program ``--emit-torch`` prints for each of the 11 corpus
+   cells at its bench shape, run on the card on the kernel's inputs and
+   held against the kernel's outputs (integers bit-exact, floats within
+   the threshold), its cold-L2 median beside the kernel's.
+23. examples: ``examples/torch_image_pipeline.py``,
+   ``torch_iterative_solver.py`` and ``torch_multichip_relaxation.py``
+   at their default sizes on the card (kernels built in phase 2), each
+   checked: the edges bit for bit against the NumPy oracle of smooth
+   then edges, the solver's field and sweeps against its solve over the
+   plain version on the card, the relaxation against the NumPy oracle's
+   25 batches on the unsharded grid.
+
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``: the fused kernel's per cell, mode and layout row, and each
@@ -263,6 +287,15 @@ NO_LIBRARY = {
     'blur': 'integer division', 'sobel2d': '16-bit wraps',
     'xcorr': '16-bit wraps', 'denoise2d': 'sqrt and divide over 8 stages',
     'denoise3d': 'sqrt and divide over 10 stages'}
+# phase 21: the cells chained, each chain's steps and back-to-back calls
+# (3-9 ms a call), the shorter chain beside it, the sharded calls
+GRAPH_CELLS = ('blur', 'jacobi2d', 'heat3d')
+GRAPH_STEPS, GRAPH_SHORT_STEPS, GRAPH_CALLS = 100, 10, 20
+GRAPH_SHARDED = (('blur', (4,)), ('heat3d', (2, 2)))
+# phase 22: cold-L2 runs of each emitted program (1-100 ms a run)
+EMIT_REPS = 5
+# phase 23: the port's examples (examples/torch_<name>.py)
+EXAMPLES = ('image_pipeline', 'iterative_solver', 'multichip_relaxation')
 
 
 def say(*parts):
@@ -536,6 +569,279 @@ def short_phase(cells, plains, smi, log):
   return lib
 
 
+def example_modules(here):
+  """The port's three examples, loaded (not run): name -> globals."""
+  import runpy
+  return {name: runpy.run_path(os.path.join(here, 'examples',
+                                            'torch_%s.py' % name))
+          for name in EXAMPLES}
+
+
+def example_sources(examples, card):
+  """The kernel sources the examples run at their default sizes (phase
+  23): smooth and edges, the solver's jacobi, the relaxation's jacobi
+  per halo-extended shard of its (4,) mesh."""
+  from soda_tpu_torch import build_stencil, testing
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+  from soda_tpu_torch.parallel import spmd
+  image = examples['image_pipeline']
+  solver = examples['iterative_solver']
+  relax = examples['multichip_relaxation']
+  plans = [make_tile_plan(build_stencil(image[key], tile_size=(
+      image['SHAPE'][1], 0)), image['SHAPE']) for key in ('SMOOTH', 'EDGES')]
+  plans.append(make_tile_plan(build_stencil(solver['JACOBI'], tile_size=(
+      solver['SHAPE'][1], 0)), solver['SHAPE']))
+  stencil = build_stencil(relax['JACOBI4'], tile_size=(relax['SHAPE'][1], 0))
+  plans.append(make_tile_plan(stencil, spmd.geometry(
+      stencil, relax['SHAPE'],
+      testing.repeated_mesh(card, (relax['MESH'],)))[-1]))
+  return [cuda_source.generate(plan) for plan in plans]
+
+
+def graph_phase(by_name, oracle, card, smi, log):
+  """Phase 21: one dispatch per call. ``chained(ex, 100)`` over the
+  blur, jacobi2d and heat3d cells, the sharded calls of blur (4,) and
+  heat3d (2, 2) on meshes that repeat the card, and fault C2's
+  misaligned blur call. Each replay bit for bit equal to the Python loop
+  or the uncaptured call (blur also to the NumPy oracle); launches a
+  replay; host and device µs a call back to back, captured against
+  uncaptured, after a settle run; peak memory of the first call (the
+  loop and the recording) and of a replay, in grids."""
+  import torch
+  import soda_tpu_torch
+  from soda_tpu_torch import profiling, testing
+  from soda_tpu_torch.backend import tile_plan
+
+  def back_to_back(fn, calls):
+    profiling.settle(fn)
+    return profiling.back_to_back_us(fn, calls=calls)
+
+  def peak(fn):
+    """(fn(), bytes its call allocated at most beyond what was held)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - held
+
+  def named(stencil, outs):
+    return dict(zip(stencil.output_names, outs))
+
+  def check_oracle(got, context):
+    _, shape, stencil, _, _, _ = by_name[FLAGSHIP]
+    testing.check_outputs(stencil, shape, got, oracle, context + ' vs oracle')
+
+  for name in GRAPH_CELLS:
+    t = time.time()
+    _, shape, stencil, ex, inputs, params = by_name[name]
+    args = ex.prepare(inputs, params)
+    grid = args[0].numel() * args[0].element_size()
+    run = soda_tpu_torch.chained(ex, GRAPH_STEPS)
+    want = named(stencil, run.loop(*args))
+    first, first_peak = peak(lambda: run(*args))
+    ex.launches = 0
+    got, replay_peak = peak(lambda: run(*args))
+    launches = ex.launches
+    if launches != GRAPH_STEPS or run.replays != 1:
+      raise RuntimeError('%s: a replay of chained(ex, %d) counted %d '
+                         'launches (%d replays)' % (
+                             name, GRAPH_STEPS, launches, run.replays))
+    testing.check_exact(stencil, shape, named(stencil, first), want,
+                        name + ' chained: first call vs loop')
+    testing.check_exact(stencil, shape, named(stencil, got), want,
+                        name + ' chained: replay vs loop')
+    del first, got, want
+    short = soda_tpu_torch.chained(ex, GRAPH_SHORT_STEPS)
+    short(*args)
+    host_s, dev_s = back_to_back(lambda: short(*args), GRAPH_CALLS)
+    host_c, dev_c = back_to_back(lambda: run(*args), GRAPH_CALLS)
+    host_l, dev_l = back_to_back(lambda: run.loop(*args), GRAPH_CALLS)
+    log('%-9s chained(ex, %d) %s: replay == loop bit for bit, %d launches '
+        'a replay; device %.2f us a step captured, %.2f uncaptured '
+        '(%.3fx); host %.1f us a call captured, %.1f uncaptured; '
+        'chained(ex, %d) captured: host %.1f us, device %.2f us a step; '
+        'peak memory first call %.2f grids, replay %.2f (grid %.1f MiB) '
+        '(%.1fs) | %s' % (
+            name, GRAPH_STEPS, shape, launches, dev_c / GRAPH_STEPS,
+            dev_l / GRAPH_STEPS, dev_c / dev_l, host_c, host_l,
+            GRAPH_SHORT_STEPS, host_s, dev_s / GRAPH_SHORT_STEPS,
+            first_peak / grid, replay_peak / grid, grid / 2 ** 20,
+            time.time() - t, smi))
+    del args, run, short
+    torch.cuda.empty_cache()
+
+  for name, mesh_shape in GRAPH_SHARDED:
+    t = time.time()
+    _, shape, stencil, _, inputs, params = by_name[name]
+    ex = soda_tpu_torch.get_executor(
+        stencil, shape, 'sharded', mesh=testing.repeated_mesh(card,
+                                                              mesh_shape))
+    args = ex.prepare(inputs, params)
+    grid = sum(t_.numel() * t_.element_size() for t_ in args[0].tensors.flat)
+    crop = tuple(slice(0, r) for r in shape)
+
+    def gathered(outs):
+      return {n: o.gather()[crop] for n, o in zip(stencil.output_names, outs)}
+
+    want = gathered(ex.fn_eager(*args))
+    first, first_peak = peak(lambda: ex.fn(*args))
+    ex.launches = 0
+    got, replay_peak = peak(lambda: ex.fn(*args))
+    launches = ex.launches
+    if launches != ex.n_shards or ex.replays != 1:
+      raise RuntimeError('%s %s: a sharded replay counted %d launches for '
+                         '%d shards (%d replays)' % (
+                             name, mesh_shape, launches, ex.n_shards,
+                             ex.replays))
+    label = '%s %s sharded' % (name, mesh_shape)
+    testing.check_exact(stencil, shape, gathered(first), want,
+                        label + ': first call vs uncaptured')
+    testing.check_exact(stencil, shape, gathered(got), want,
+                        label + ': replay vs uncaptured')
+    exact = ''
+    if name == FLAGSHIP:
+      check_oracle(gathered(got), label + ' replay')
+      exact = ', bit-exact vs the NumPy oracle'
+    del first, got, want
+    host_c, dev_c = back_to_back(lambda: ex.fn(*args), HOST_CALLS)
+    host_e, dev_e = back_to_back(lambda: ex.fn_eager(*args), HOST_CALLS)
+    log('%-9s sharded %s %s: replay == uncaptured bit for bit%s, %d '
+        'launches a replay; device %.1f us a call captured, %.1f '
+        'uncaptured (%.3fx); host %.1f us captured, %.1f uncaptured; peak '
+        'memory first call %.2f grids, replay %.2f (%.1fs) | %s' % (
+            name, mesh_shape, shape, exact, launches, dev_c, dev_e,
+            dev_c / dev_e, host_c, host_e, first_peak / grid,
+            replay_peak / grid, time.time() - t, smi))
+    del args, ex
+    torch.cuda.empty_cache()
+
+  # fault C2: an input one element into its storage
+  t = time.time()
+  _, shape, stencil, ex, inputs, params = by_name[FLAGSHIP]
+  (aligned,) = ex.prepare(inputs, params)
+  storage = torch.empty(aligned.numel() + 1, dtype=aligned.dtype,
+                        device=aligned.device)
+  x = storage[1:].view(shape)
+  x.copy_(aligned)
+  if not x.data_ptr() % tile_plan.VECTOR_BYTES:
+    raise RuntimeError('the C2 input is aligned')
+  ex.launches = 0
+  got = named(stencil, ex.fn(x))
+  torch.cuda.synchronize()
+  if ex.launches != 1:
+    raise RuntimeError('C2: %d launches' % ex.launches)
+  check_oracle(got, 'blur misaligned (C2)')
+  host_m, dev_m = back_to_back(lambda: ex.fn(x), HOST_CALLS)
+  host_a, dev_a = back_to_back(lambda: ex.fn(aligned), HOST_CALLS)
+  log('C2 blur %s, input at +2 B: bit-exact vs the NumPy oracle, 1 launch; '
+      'device %.1f us a call misaligned, %.1f aligned; host %.1f, %.1f '
+      '(%.1fs) | %s' % (shape, dev_m, dev_a, host_m, host_a,
+                        time.time() - t, smi))
+
+
+def emit_phase(cells, results, kernel_ms, smi, log):
+  """Phase 22: the program ``--emit-torch`` prints for each of the 11
+  corpus cells at its bench shape, run on the card on the kernel's
+  inputs and held against the kernel's outputs (phase 3) on the valid
+  regions: integers bit-exact, floats within the threshold; its cold-L2
+  median beside the kernel's."""
+  import types
+  import torch
+  from soda_tpu_torch import corpus, profiling, testing
+  from soda_tpu_torch.codegen import torch_source
+  for name, shape, stencil, ex, inputs, params in cells:
+    if name not in corpus.CORPUS:
+      continue
+    t = time.time()
+    module = types.ModuleType('emitted_' + name)
+    exec(compile(torch_source.generate(stencil, shape), '<%s>' % name,
+                 'exec'), module.__dict__)
+    args = ex.prepare(inputs, params)
+    got = module.compute(*args)
+    torch.cuda.synchronize()
+    err = testing.check_outputs(stencil, shape, got, results[name],
+                                name + ' emitted vs kernel')
+    del got
+    ms = statistics.median(profiling.cuda_times_ms(
+        lambda: module.compute(*args), reps=EMIT_REPS, warmup=1))
+    log('%-12s %-16s emitted torch program == kernel (max |err| %.3g)  '
+        '%.3f ms (n=%d) against the kernel\'s %.4f ms (%.0fx) (%.1fs) | %s'
+        % (name, shape, err, ms, EMIT_REPS, kernel_ms[name],
+           ms / kernel_ms[name], time.time() - t, smi))
+    del args, module
+    torch.cuda.empty_cache()
+
+
+def examples_phase(examples, card, smi, log):
+  """Phase 23: the three examples at their default sizes on the card,
+  each checked: the image pipeline's edges bit for bit against the
+  NumPy oracle of smooth then edges; the solver's field and sweep count
+  against its own solve over the whole-grid executor (the plain version
+  on the card); the relaxation against the NumPy oracle's 25 batches on
+  the unsharded grid."""
+  import contextlib
+  import io
+  import numpy as np
+  import torch
+  from soda_tpu_torch import build_stencil, testing
+  from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
+
+  def run(name):
+    out = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(out):
+      result = examples[name]['main'](['--device', card.type])
+    torch.cuda.synchronize()
+    for line in out.getvalue().strip().splitlines():
+      log('%s: %s' % (name, line))
+    return result, time.time() - t
+
+  image = examples['image_pipeline']
+  mag, seconds = run('image_pipeline')
+  shape = image['SHAPE']
+  smooth = build_stencil(image['SMOOTH'], tile_size=(shape[1], 0))
+  edges = build_stencil(image['EDGES'], tile_size=(shape[1], 0))
+  s = testing.oracle_run(smooth, {'img': image['make_image'](shape)})['s']
+  want = testing.oracle_run(edges, {'s': s})['mag']
+  if not np.array_equal(mag[4:-4, 4:-4], want[4:-4, 4:-4]):
+    raise RuntimeError('image_pipeline: edges differ from the NumPy oracle')
+  log('image_pipeline %s: edges bit-exact vs the NumPy oracle of smooth '
+      'then edges (%.1fs) | %s' % (shape, seconds, smi))
+
+  solver = examples['iterative_solver']
+  (u, residual, sweeps), seconds = run('iterative_solver')
+  shape = solver['SHAPE']
+  stencil = build_stencil(solver['JACOBI'], tile_size=(shape[1], 0))
+  u0 = torch.zeros(shape, dtype=torch.float32, device=card)
+  u0[:, 0] = 1.0
+  plain_u, plain_residual, plain_sweeps = solver['solve'](
+      WholeGridExecutor(stencil, shape, device=card), u0, solver['BATCH'])
+  if sweeps != plain_sweeps:
+    raise RuntimeError('iterative_solver: %d sweeps, the plain version %d'
+                       % (sweeps, plain_sweeps))
+  err = testing.check_outputs(stencil, shape, {'un': u}, {'un': plain_u},
+                              'iterative_solver vs plain', full=True)
+  log('iterative_solver %s: %d sweeps, residual %.3g, == its solve over the '
+      'plain version (%d sweeps, max |err| %.3g) (%.1fs) | %s' % (
+          shape, sweeps, residual, plain_sweeps, err, seconds, smi))
+
+  relax = examples['multichip_relaxation']
+  u_final, seconds = run('multichip_relaxation')
+  shape = relax['SHAPE']
+  stencil = build_stencil(relax['JACOBI4'], tile_size=(shape[1], 0))
+  u = np.zeros(shape, np.float32)
+  u[:, :4] = 1.0
+  for _ in range(relax['BATCHES']):
+    u = testing.oracle_run(stencil, {'u': u})['un']
+  err = testing.check_outputs(stencil, shape, {'un': u_final}, {'un': u},
+                              'multichip_relaxation vs oracle', full=True)
+  log('multichip_relaxation %s x %d batches on a (%d,) mesh of the card: '
+      '== the NumPy oracle on the whole grid (max |err| %.3g) (%.1fs) | %s'
+      % (shape, relax['BATCHES'], relax['MESH'], err, seconds, smi))
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -672,6 +978,9 @@ def main() -> int:
   # (phase 20)
   sources += deep_sources(stencils[DEEP_CELL], shape_of[DEEP_CELL])
   sources += short_sources(stencils)
+  # the examples' kernels (phase 23)
+  examples = example_modules(here)
+  sources += example_sources(examples, card)
   # exp9's comparison rows (phase 18): the jacobi2d kernel at its block_rows
   exp9_stencil = corpus.build('jacobi2d', tile_size=exp9_layout25d.JACOBI_TILE)
   for block_rows in exp9_layout25d.JACOBI_BLOCK_ROWS:
@@ -1642,6 +1951,22 @@ def main() -> int:
     next(k for k in kernels if k['name'] == 'fused_stencil[%s]' % name
          )['library_ms'] = ms
   say('[short] phase 20 (%.1fs)' % (time.time() - t20))
+
+  # 21. one dispatch per call: chained runs and sharded calls replayed
+  # from CUDA graphs, and fault C2's misaligned input
+  t21 = time.time()
+  graph_phase(by_name, oracle, card, smi, lambda line: say('[graph] ' + line))
+  say('[graph] phase 21 (%.1fs)' % (time.time() - t21))
+
+  # 22. the programs --emit-torch prints, on the card
+  t22 = time.time()
+  emit_phase(cells, results, kernel_ms, smi, lambda line: say('[emit] ' + line))
+  say('[emit] phase 22 (%.1fs)' % (time.time() - t22))
+
+  # 23. the port's examples at their default sizes
+  t23 = time.time()
+  examples_phase(examples, card, smi, lambda line: say('[examples] ' + line))
+  say('[examples] phase 23 (%.1fs)' % (time.time() - t23))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

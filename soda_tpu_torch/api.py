@@ -6,11 +6,14 @@ soda_tpu/api.py:9-39 over the port's own front half.
 
 from __future__ import annotations
 
+from typing import Dict
+
 from soda_tpu_torch import utils
+from soda_tpu_torch.backend import graphs
 from soda_tpu_torch.core.stencil import Stencil
 from soda_tpu_torch.frontend import parser
 
-__all__ = ['build_stencil', 'build_stencil_from_file', 'chained']
+__all__ = ['Chained', 'build_stencil', 'build_stencil_from_file', 'chained']
 
 
 def build_stencil(source: str, **overrides) -> Stencil:
@@ -46,15 +49,14 @@ def build_stencil_from_file(path: str, **overrides) -> Stencil:
     return build_stencil(f.read(), **overrides)
 
 
-def chained(executor, n_steps: int):
-  """Apply the stencil ``n_steps`` times, feeding outputs back as
-  inputs (soda_tpu.api.chained; there a ``lax.fori_loop``, here a Python
-  loop over ``executor.fn`` that keeps every tensor on the device).
+def chained(executor, n_steps: int) -> 'Chained':
+  """Apply the stencil ``n_steps`` times, feeding outputs back as inputs
+  (soda_tpu.api.chained, one jitted ``lax.fori_loop`` there).
 
   Requires as many outputs as inputs with matching types (as
-  ``iterate > 1`` does). Returns a callable with the executor's
-  positional signature ``(*inputs, *params) -> (outputs...)``; prepare
-  arguments with ``executor.prepare``.
+  ``iterate > 1`` does). Returns a ``Chained``, callable with the
+  executor's positional signature ``(*inputs, *params) -> (outputs...)``;
+  prepare arguments with ``executor.prepare``.
   """
   stencil = executor.stencil
   n_in = len(stencil.input_names)
@@ -66,12 +68,57 @@ def chained(executor, n_steps: int):
     raise utils.InputError(
         'chained() needs as many outputs as inputs with matching '
         'types (as iterate > 1 requires)')
+  return Chained(executor, n_steps)
 
-  def run(*args):
-    state = tuple(args[:n_in])
-    pars = tuple(args[n_in:])
-    for _ in range(n_steps):
-      state = tuple(executor.fn(*state, *pars))
+
+class Chained:
+  """``n_steps`` calls of ``executor.fn``, each fed the last one's outputs.
+
+  On a CUDA device the first call for a signature (the arguments'
+  shapes, dtypes, devices and contiguity) runs ``loop`` and records the
+  same ``n_steps`` calls in one CUDA graph (backend/graphs.py); every
+  later call copies its arguments into the graph's fixed buffers,
+  replays it (one dispatch for the whole run, as the JAX package's
+  ``fori_loop`` is) and returns copies of its outputs, which no later
+  call overwrites. ``replays`` counts those calls. A recording that
+  fails raises.
+
+  ``loop`` runs instead, enqueuing each call from Python, on the CPU,
+  where an argument requires grad (autograd does not record through a
+  replay, so gradients flow through the loop's calls as they would
+  without ``chained``), inside a recording already under way (which
+  records the loop's work itself), and for an executor whose
+  ``recordable`` is false (the whole-grid executor, plain PyTorch that
+  may wait on the host, and a sharded one that records nothing).
+  """
+
+  def __init__(self, executor, n_steps: int):
+    self.executor = executor
+    self.n_steps = n_steps
+    self.n_in = len(executor.stencil.input_names)
+    self.replays = 0
+    self._graphs: Dict[tuple, graphs.Captured] = {}
+
+  def loop(self, *args):
+    """The ``n_steps`` calls enqueued from Python, one after another."""
+    state = tuple(args[:self.n_in])
+    pars = tuple(args[self.n_in:])
+    for _ in range(self.n_steps):
+      state = tuple(self.executor.fn(*state, *pars))
     return state
 
-  return run
+  def __call__(self, *args):
+    if not (getattr(self.executor, 'recordable', True) and
+            graphs.capturable(args)):
+      return self.loop(*args)
+    key = graphs.signature(args)
+    captured = self._graphs.get(key)
+    if captured is None:
+      outs = self.loop(*args)
+      fixed = tuple(graphs.clone(arg) for arg in args)
+      self._graphs[key] = graphs.Captured(lambda: self.loop(*fixed),
+                                          graphs.leaves(fixed))
+      return outs
+    outs = captured.replay(graphs.leaves(args))
+    self.replays += 1
+    return tuple(graphs.clone(out) for out in outs)

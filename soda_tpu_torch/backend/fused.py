@@ -35,7 +35,7 @@ from soda_tpu_torch import utils
 from soda_tpu_torch.backend import c_semantics as oracle
 from soda_tpu_torch.ir import nodes as ir
 
-from soda_tpu_torch.backend import cuda_source, semantics, tile_plan
+from soda_tpu_torch.backend import cuda_source, graphs, semantics, tile_plan
 from soda_tpu_torch.backend.border import preserve_border_fixup
 from soda_tpu_torch.core.stencil import Stencil
 from soda_tpu_torch.backend.tile_plan import (TilePlan, kernel_plan,
@@ -739,7 +739,8 @@ class FusedExecutor:
   ``streamed_stencil_plain`` whenever ``stream_loop`` is, else
   ``fused_stencil_plain`` over the plan's tiles.
 
-  ``launches`` counts kernel launches made by ``fn``.
+  ``launches`` counts kernel launches made by ``fn`` (and by the replays
+  of a CUDA graph that recorded its calls: backend/graphs.py).
   """
 
   def __init__(self, stencil, shape: Sequence[int], device='cuda',
@@ -792,16 +793,18 @@ class FusedExecutor:
           torch.empty(self.batch_shape, device=self.device,
                       dtype=semantics.storage_dtype(stencil.symbol_table[n]))
           for n in stencil.output_names)
-      pointers = [t.data_ptr() for t in (*args, *outs)]
       if self.plan.short is not None and self.plan.short.vec > 1 and any(
-          t.data_ptr() % tile_plan.VECTOR_BYTES for t in (*ins, *outs)):
-        raise utils.InputError(
-            'the kernel copies 16 bytes at a time: every input and output '
-            'must start on a 16-byte boundary')
+          t.data_ptr() % tile_plan.VECTOR_BYTES for t in ins):
+        # the kernel copies 16 bytes at a time: an input that does not
+        # start on a 16-byte boundary is copied into fresh memory, which
+        # the allocator aligns (as it does the outputs above)
+        ins = tuple(t.clone() if t.data_ptr() % tile_plan.VECTOR_BYTES
+                    else t for t in ins)
+      pointers = [t.data_ptr() for t in (*ins, *pars, *outs)]
       with torch.cuda.device(self.device):  # restores the caller's device
         stream = torch.cuda.current_stream().cuda_stream
         self.kernel.launch(pointers, self.replicas or 1, stream)
-      self.launches += 1
+      graphs.count_launch(self)
     if stencil.preserve_border and self.apply_preserve_border:
       outs = fix_border(stencil, self.shape, ins, outs)
     return outs

@@ -43,9 +43,13 @@ class WholeGridExecutor:
 
   The same ``prepare``/``fn``/``__call__`` contract as FusedExecutor.
   ``launches`` is always 0: no kernel of this package runs.
+  ``recordable`` is false: ``chained`` runs its calls from Python, since
+  some plain operations wait on the host, which a CUDA graph cannot
+  record.
   """
 
   launches = 0
+  recordable = False
 
   def __init__(self, stencil, shape: Sequence[int],
                cluster: Optional[str] = None, device='cuda',

@@ -175,5 +175,12 @@ class Replicated:
       if device not in self.copies:
         self.copies[device] = tensor.to(device)
 
+  @classmethod
+  def of(cls, copies: Dict[torch.device, torch.Tensor]) -> 'Replicated':
+    """A Replicated holding ``copies`` (device -> tensor) as they are."""
+    out = cls(torch.empty(0), ())
+    out.copies = dict(copies)
+    return out
+
   def on(self, device: torch.device) -> torch.Tensor:
     return self.copies[device]

@@ -39,6 +39,12 @@ boundary, from each shard's mesh position. ``overlap='on'`` is accepted
 where the JAX package accepts it and runs the same exchange as 'off'
 (the outputs are the same): on a mesh that repeats one card there is
 nothing to overlap, and distinct cards are not measured yet.
+
+The JAX package's sharded call is one jitted ``shard_map``, one
+dispatch. Here, on a mesh that repeats one card with a kernel inner, a
+call after the first replays a CUDA graph of the exchange and the
+per-shard launches (``fn``); ``fn_eager`` enqueues them from Python.
+The 'xla' inner (and so ``overlap='on'``) is not recorded.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ import torch
 
 from soda_tpu_torch import utils
 from soda_tpu_torch.backend import c_semantics as oracle
-from soda_tpu_torch.backend import semantics
+from soda_tpu_torch.backend import graphs, semantics
 from soda_tpu_torch.backend.border import border_base, paired_input
 from soda_tpu_torch.backend.fused import (FusedExecutor, check_stencil,
                                           resolve_device)
@@ -164,7 +170,9 @@ class ShardedExecutor:
   padded global shape), so ``chained`` feeds outputs back as inputs;
   ``__call__`` gathers each output onto the mesh's first device and
   crops it. ``launches`` is the sum over the inner executors (one per
-  distinct device).
+  distinct device); ``replays`` counts the calls ``fn`` made as one
+  replay of its recorded graph; ``recordable`` says whether it records
+  one (see ``fn``).
   """
 
   def __init__(self, stencil, global_shape: Sequence[int], mesh=None,
@@ -218,6 +226,12 @@ class ShardedExecutor:
     self._inner = {d: INNERS[inner](stencil, self.ext_shape, device=d,
                                     apply_preserve_border=False, **opts)
                    for d in self.distinct}
+    # whether fn (and a chained run over it) records its work in a CUDA
+    # graph: kernels on one card
+    self.recordable = (inner != 'xla' and len(self.distinct) == 1 and
+                       self.device.type == 'cuda')
+    self._graph: Optional[graphs.Captured] = None
+    self.replays = 0
 
   @property
   def n_shards(self) -> int:
@@ -312,16 +326,58 @@ class ShardedExecutor:
   def fn(self, *args) -> Tuple[Shards, ...]:
     """Positional ``fn(*inputs, *params) -> (outputs...)``: inputs and
     outputs are ``Shards`` of the padded global shape, params
-    ``Replicated``."""
-    stencil = self.stencil
+    ``Replicated``.
+
+    On a mesh that repeats one card, with the 'fused' or 'grouped'
+    inner, the first call runs ``fn_eager``'s path and records its halo
+    exchange and per-shard launches in a CUDA graph
+    (backend/graphs.py); a later call copies each argument shard into
+    the interior of its halo-extended buffer, replays the graph (one
+    dispatch; ``replays`` counts them), then crops each shard's outputs
+    into fresh tensors and applies ``border: preserve``. The crop stays
+    outside the graph because it is what makes outputs that no later
+    call overwrites: inside, it would need a copy after it, one more
+    pass over memory. (Along axis 0 alone the eager crop is a view, so
+    there the recorded call copies the outputs once more than
+    ``fn_eager``; its copy into the buffers replaces the eager path's
+    concatenation.) The 'xla' inner (plain PyTorch, which waits on the
+    host at times), distinct cards (ROADMAP A13), arguments that
+    require grad and a call inside another recording take
+    ``fn_eager``'s path."""
     ins, params = self._check(args)
+    if not (self.recordable and graphs.capturable(args)):
+      return self._eager(ins, params)
+    if self._graph is None:
+      outs = self._eager(ins, params)
+      self._graph = self._record(ins, params)
+      return outs
+    got = self._graph.replay(self._sources(ins, params))
+    self.replays += 1
+    return self._finish(got, ins, copy=True)
+
+  def fn_eager(self, *args) -> Tuple[Shards, ...]:
+    """``fn`` with every copy, launch and crop enqueued from Python (the
+    work a recording holds, and what ``fn`` does where it records
+    nothing)."""
+    return self._eager(*self._check(args))
+
+  def _crops(self) -> Tuple[slice, ...]:
+    return tuple(slice(self._halos[a][0], self._halos[a][0] +
+                       self.local_shape[a]) for a in range(len(self._axes)))
+
+  def _eager(self, ins, params) -> Tuple[Shards, ...]:
     ext = {}
     for name, arr in ins.items():
       for axis in range(len(self._axes)):
         arr = self._exchange(arr, axis)
       ext[name] = arr
-    crops = tuple(slice(self._halos[a][0], self._halos[a][0] +
-                        self.local_shape[a]) for a in range(len(self._axes)))
+    return self._finish(self._launch(ext, params), ins)
+
+  def _launch(self, ext: Mapping[str, np.ndarray], params
+              ) -> Dict[str, np.ndarray]:
+    """The inner executor on every halo-extended shard: output name ->
+    the shards' uncropped outputs."""
+    stencil = self.stencil
     outs = {name: np.empty(self.devices.shape, dtype=object)
             for name in stencil.output_names}
     for pos in np.ndindex(*self.devices.shape):
@@ -329,15 +385,81 @@ class ShardedExecutor:
       got = self._inner[device].fn(*[ext[n][pos] for n in stencil.input_names],
                                    *params[device])
       for name, out in zip(stencil.output_names, got):
-        outs[name][pos] = out[crops].contiguous()
+        outs[name][pos] = out
+    return outs
+
+  def _finish(self, got: Mapping[str, np.ndarray], ins, copy: bool = False
+              ) -> Tuple[Shards, ...]:
+    """Each shard's outputs cropped to its local extent, with the global
+    ``border: preserve``. A crop along axis 0 alone is a contiguous view
+    of the shard's output; ``copy`` (outputs a replay overwrites) makes
+    it fresh memory, as ``border: preserve`` does anyway."""
+    crops = self._crops()
+    copy = copy and not self.stencil.preserve_border
     results = []
-    for name in stencil.output_names:
-      arr = outs[name]
-      if stencil.preserve_border:
+    for name in self.stencil.output_names:
+      arr = _map(lambda _, out: out[crops].clone(
+          memory_format=torch.contiguous_format) if copy else
+                 out[crops].contiguous(), got[name])
+      if self.stencil.preserve_border:
         arr = _map(lambda pos, out: self._preserve(
             pos, name, out, {n: a[pos] for n, a in ins.items()}), arr)
       results.append(Shards(arr, self.padded_shape))
     return tuple(results)
+
+  # -- the recorded call ------------------------------------------------------
+
+  def _record(self, ins, params) -> graphs.Captured:
+    """A graph of one call over fixed buffers: per input, its shards'
+    halo-extended tensors (zero where no neighbour's halo lands), whose
+    interiors take the arguments; a copy of each param. It holds the
+    exchange between those buffers and the per-shard launches."""
+    crops = self._crops()
+    ext, interiors = {}, []
+    for name, arr in ins.items():
+      ext[name] = _map(lambda _, t: torch.zeros(
+          self.ext_shape, dtype=bits(t).dtype, device=t.device).view(t.dtype),
+                       arr)
+      interiors += [e[crops] for e in ext[name].flat]
+    fixed = {d: [p.clone() for p in ps] for d, ps in params.items()}
+
+    def call():
+      for arr in ext.values():
+        self._exchange_in_place(arr)
+      return self._launch(ext, fixed)
+
+    return graphs.Captured(
+        call, interiors + [p for ps in fixed.values() for p in ps])
+
+  def _sources(self, ins, params) -> List[torch.Tensor]:
+    """A call's tensors in the order of ``_record``'s buffers."""
+    return ([t for arr in ins.values() for t in arr.flat] +
+            [p for d in self.distinct for p in params[d]])
+
+  def _exchange_in_place(self, ext: np.ndarray) -> None:
+    """``_exchange`` over every sharded axis, within the halo-extended
+    buffers of one input: each halo takes its neighbour's edge cells
+    (axis 0 first, over the interior of later axes; then axis 1 over the
+    extended axis 0, which carries the corners)."""
+    crops = self._crops()
+    for axis in range(len(crops)):
+      lo, hi = self._halos[axis]
+      n = self.local_shape[axis]
+
+      def box(start, stop, _axis=axis):
+        return tuple(slice(start, stop) if a == _axis else
+                     slice(None) if a < _axis else crop
+                     for a, crop in enumerate(crops))
+
+      for pos in np.ndindex(*ext.shape):
+        before, after = list(pos), list(pos)
+        before[axis] -= 1
+        after[axis] += 1
+        if lo and pos[axis] > 0:
+          bits(ext[pos])[box(0, lo)] = bits(ext[tuple(before)])[box(n, n + lo)]
+        if hi and pos[axis] + 1 < ext.shape[axis]:
+          bits(ext[pos])[box(lo + n, lo + n + hi)] = \
+              bits(ext[tuple(after)])[box(lo, lo + hi)]
 
   def shard(self, array: np.ndarray) -> Shards:
     """A numpy array of the padded global shape -> ``Shards`` on the

@@ -6,6 +6,8 @@ The counterpart of soda_tpu/sodac.py: parse a .soda program (file or
 stdin), apply directive overrides and optimizations, construct the
 Stencil, and act on it:
 
+  --emit-torch FILE a standalone PyTorch program (- for stdout)
+  --emit-numpy FILE a standalone NumPy program, the printed oracle
   --emit-dot FILE   graphviz of the fusion plan
   --run             execute on seeded inputs and self-test against the
                     NumPy oracle (the reference's SODA_TEST_MAIN)
@@ -43,12 +45,15 @@ from soda_tpu_torch import utils
 
 PROG = 'python -m soda_tpu_torch'
 
-# flags of the JAX CLI not ported yet -> ROADMAP item
+# flags of the JAX CLI the port does not have -> why, naming a ROADMAP item
 _NOT_PORTED_FLAGS = (
-    ('emit_jax', '--emit-jax', 'ROADMAP A10 (--emit-torch)'),
-    ('emit_numpy', '--emit-numpy', 'ROADMAP A10 (--emit-torch)'),
-    ('estimate', '--estimate', 'ROADMAP A12 (H100 cost model)'),
-    ('model_file', '--model-file', 'ROADMAP A12 (H100 cost model)'),
+    ('emit_jax', '--emit-jax', 'the port prints no JAX program; its '
+     'counterpart is --emit-torch, a standalone PyTorch program (ROADMAP '
+     'A10)'),
+    ('estimate', '--estimate', 'not ported yet: ROADMAP A12 (H100 cost '
+     'model)'),
+    ('model_file', '--model-file', 'not ported yet: ROADMAP A12 (H100 cost '
+     'model)'),
 )
 _NOT_PORTED_BACKENDS = {
     'pallas': 'ROADMAP A4 (the TPU kernel; its port is --backend fused)',
@@ -108,6 +113,13 @@ def _build_parser() -> argparse.ArgumentParser:
   backend = parser.add_argument_group('backends')
   backend.add_argument('--emit-dot', metavar='FILE',
                        help='dump the fusion-plan DAG as graphviz')
+  backend.add_argument('--emit-torch', metavar='FILE',
+                       help='write a standalone PyTorch program (- for '
+                            'stdout); its main() runs on --device cuda '
+                            'or cpu')
+  backend.add_argument('--emit-numpy', metavar='FILE',
+                       help='write a standalone NumPy program, the printed '
+                            'oracle (- for stdout)')
   backend.add_argument('--run', action='store_true',
                        help='execute and self-test against the oracle')
   backend.add_argument('--bench', action='store_true',
@@ -150,7 +162,7 @@ def _build_parser() -> argparse.ArgumentParser:
                             '(- for stdout)')
 
   unported = parser.add_argument_group(
-      'not ported yet', 'flags of the JAX CLI; each exits nonzero naming '
+      'not in the port', 'flags of the JAX CLI; each exits nonzero naming '
       'its ROADMAP item')
   for _, flag, _ in _NOT_PORTED_FLAGS:
     unported.add_argument(flag, metavar='ARG')
@@ -231,7 +243,7 @@ def _main(argv: Optional[list] = None) -> int:
     raise utils.InputError('--mesh applies to --backend sharded')
   for key, flag, item in _NOT_PORTED_FLAGS:
     if getattr(args, key):
-      raise NotPorted('%s is not ported yet: %s' % (flag, item))
+      raise NotPorted('%s: %s' % (flag, item))
   if args.backend in _NOT_PORTED_BACKENDS:
     raise NotPorted('--backend %s is not ported yet: %s' %
                     (args.backend, _NOT_PORTED_BACKENDS[args.backend]))
@@ -285,6 +297,19 @@ def _main(argv: Optional[list] = None) -> int:
     raise utils.InputError('invalid SODA program: %s' % e) from None
 
   did_something = False
+  for emit_arg, target in ((args.emit_torch, 'torch'),
+                           (args.emit_numpy, 'numpy')):
+    if not emit_arg:
+      continue
+    from soda_tpu_torch.codegen import torch_source
+    shape = _parse_ints(args.shape) if args.shape else None
+    if emit_arg == '-':
+      torch_source.print_code(stencil, sys.stdout, shape, target)
+    else:
+      with open(emit_arg, 'w') as f:
+        torch_source.print_code(stencil, f, shape, target)
+    did_something = True
+
   if args.emit_dot:
     from soda_tpu_torch.backend.plan import make_plan
     text = make_plan(stencil).dot()
@@ -316,7 +341,8 @@ def _main(argv: Optional[list] = None) -> int:
       return code
 
   if not did_something:
-    parser.error('no action requested (--emit-dot/--compile-stats/--run)')
+    parser.error('no action requested (--emit-torch/--emit-numpy/--emit-dot/'
+                 '--compile-stats/--run)')
   return 0
 
 

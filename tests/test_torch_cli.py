@@ -100,7 +100,6 @@ def test_invalid_program_exits_1(tmp_path, capsys):
 
 @pytest.mark.parametrize('flags,item', [
     (['--emit-jax', '-'], 'A10'),
-    (['--emit-numpy', '-'], 'A10'),
     (['--estimate', '-'], 'A12'),
     (['--model-file', 'm.json'], 'A12'),
     (['--run', '--backend', 'pallas'], 'A4'),
@@ -112,6 +111,46 @@ def test_unported_flags_name_their_roadmap_item(flags, item, tmp_path,
   code, out = _main([str(soda), '--device', 'cpu', *flags], capsys)
   assert code != 0
   assert 'ROADMAP %s' % item in out.err
+  if '--emit-jax' in flags:  # refused, naming the port's counterpart
+    assert 'its counterpart is --emit-torch' in out.err
+
+
+@pytest.mark.parametrize('name', ['blur', 'denoise2d', 'heat3d'])
+def test_emit_torch_and_numpy_print_runnable_programs(name, tmp_path,
+                                                      capsys):
+  """``--emit-torch -`` and ``--emit-numpy -`` print standalone
+  programs whose self-tests agree; the torch one runs as a script from a
+  directory without the repository, on ``--device cpu``."""
+  soda = tmp_path / ('%s.soda' % name)
+  soda.write_text(corpus.CORPUS[name])
+  shape = ','.join(map(str, corpus.TEST_DIMS[name]))
+  sums = {}
+  for flag in ('--emit-torch', '--emit-numpy'):
+    code, out = _main([str(soda), flag, '-', '--shape', shape], capsys)
+    assert code == 0, out.err
+    program = tmp_path / ('%s.py' % flag.lstrip('-').replace('-', '_'))
+    program.write_text(out.out)
+    args = ['--device', 'cpu'] if flag == '--emit-torch' else []
+    r = subprocess.run([sys.executable, str(program), *args],
+                       capture_output=True, text=True, cwd=str(tmp_path),
+                       env=dict(os.environ, PYTHONPATH=''), timeout=300)
+    assert r.returncode == 0, r.stderr
+    sums[flag] = r.stdout.split()
+  assert sums['--emit-torch'][::3] == sums['--emit-numpy'][::3]
+  for mine, theirs in zip(sums['--emit-torch'][2::3],
+                          sums['--emit-numpy'][2::3]):
+    assert float(mine) == pytest.approx(float(theirs), rel=1e-5)
+
+
+def test_emit_torch_writes_a_file(tmp_path, capsys):
+  soda = tmp_path / 'blur.soda'
+  soda.write_text(corpus.CORPUS['blur'])
+  target = tmp_path / 'blur_torch.py'
+  code, out = _main([str(soda), '--emit-torch', str(target)], capsys)
+  assert code == 0 and out.out == ''
+  src = target.read_text()
+  assert src.startswith('"""Generated by soda-tpu; standalone PyTorch')
+  assert 'shape = (512, 2000)' in src
 
 
 def test_same_verdict_as_the_jax_cli_sharded(tmp_path):

@@ -21,7 +21,9 @@ version and the oracle, the layout forms (value stages in registers,
 transposed regions, packed 16-bit stages, chunked stage loops) and the
 JAX package's 24 seed configurations against theirs and the oracle,
 contrast's many-stage form and the other cells' short form element by
-element against the default form (and a misaligned argument refused),
+element against the default form (and a misaligned argument computed),
+the recorded calls (``chained`` and a sharded call replayed from a CUDA
+graph) bit for bit against their loops,
 compiled statistics read from the card, and the tuner end to end. Integers bit-exact, floats within the reference
 threshold (tests/checks.py). Last, the experiment probes' kernels
 (streaming, chain, narrow, copy-shift and 2.5-D jacobi) against their
@@ -446,17 +448,148 @@ def test_short_form_on_the_card(name, shape, tile, elements, monkeypatch):
 
 
 @pytest.mark.gpu
-def test_short_form_refuses_misaligned_arguments():
-  """The 16-byte copies need every input and output on a 16-byte
-  boundary: a view one element in raises instead of faulting."""
+def test_short_form_computes_misaligned_arguments():
+  """The 16-byte copies need every input on a 16-byte boundary: a view
+  one element into its storage is copied to fresh memory inside ``fn``
+  and computed (the JAX executor takes any array of the compiled
+  shape)."""
   _need_gpu()
-  from soda_tpu_torch import utils
   stencil = build_stencil(corpus.CORPUS['blur'], tile_size=(64, 0))
-  ex = FusedExecutor(stencil, (40, 64), device='cuda')
+  shape = (40, 64)
+  ex = FusedExecutor(stencil, shape, device='cuda')
   assert ex.plan.short.vec > 1
-  x = torch.zeros(40 * 64 + 1, dtype=torch.uint16, device='cuda')[1:]
-  with pytest.raises(utils.InputError, match='16-byte'):
-    ex.fn(x.view(40, 64))
+  inputs = reference.make_test_inputs(stencil, shape)
+  (aligned,) = ex.prepare(inputs)
+  storage = torch.zeros(40 * 64 + 1, dtype=torch.uint16, device='cuda')
+  x = storage[1:].view(shape)
+  x.copy_(aligned)
+  assert x.data_ptr() % tile_plan.VECTOR_BYTES
+  got = dict(zip(stencil.output_names, ex.fn(x)))
+  torch.cuda.synchronize()
+  assert ex.launches == 1
+  check_outputs(stencil, shape, got, reference.run(stencil, inputs),
+                'blur misaligned on gpu')
+  check_exact(stencil, shape, got, ex(inputs), 'blur misaligned == aligned')
+
+
+# (cell, overrides, shape) of the recorded-call tests at small shapes
+CHAINED_CARD = (('blur', {'tile_size': (64, 0)}, (40, 64)),
+                ('jacobi2d', {}, (24, 32)),
+                ('heat3d', {}, (12, 32, 32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,overrides,shape', CHAINED_CARD,
+                         ids=[c[0] for c in CHAINED_CARD])
+def test_chained_replays_equal_the_loop(name, overrides, shape):
+  """After the first call, each call is one replay of a CUDA graph of the
+  n calls, bit for bit equal to the Python loop; a replay counts the n
+  launches it holds; outputs are copies no later call overwrites."""
+  _need_gpu()
+  from soda_tpu_torch.api import chained
+  stencil = corpus.build(name, **overrides)
+  ex = FusedExecutor(stencil, shape, device='cuda')
+  run = chained(ex, 5)
+  calls = [ex.prepare(reference.make_test_inputs(stencil, shape, seed=k))
+           for k in range(3)]
+  outs = []
+  for k, args in enumerate(calls):
+    ex.launches = 0
+    outs.append(run(*args))
+    torch.cuda.synchronize()
+    assert ex.launches == 5 and run.replays == k
+  kept = [o.clone() for o in outs[1]]
+  for args, got in zip(calls, outs):
+    want = run.loop(*args)
+    check_exact(stencil, shape, dict(zip(stencil.output_names, got)),
+                dict(zip(stencil.output_names, want)), name + ' replay')
+  assert all(torch.equal(a, b) for a, b in zip(outs[1], kept))
+  assert run.replays == 2
+
+
+@pytest.mark.gpu
+def test_chained_grad_path_is_not_recorded():
+  """Autograd does not record through a replay: a call whose argument
+  requires grad runs the loop on the card; the same call without grad
+  is recorded and replayed, with the same result. The whole-grid
+  executor (plain PyTorch, which may wait on the host) is never
+  recorded, and gradients flow through its loop."""
+  _need_gpu()
+  from soda_tpu_torch.api import chained
+  stencil = corpus.build('jacobi2d')
+  shape = (24, 32)
+  run = chained(FusedExecutor(stencil, shape, device='cuda'), 3)
+  x = torch.rand(shape, device='cuda', requires_grad=True)
+  looped = [run(x)[0] for _ in range(2)]
+  assert run.replays == 0
+  replayed = [run(x.detach())[0] for _ in range(2)]
+  torch.cuda.synchronize()
+  assert run.replays == 1
+  assert all(torch.equal(y, looped[0]) for y in looped + replayed)
+  whole = chained(WholeGridExecutor(stencil, shape, device='cuda'), 3)
+  for _ in range(2):
+    torch.sum(whole(x)[0]).backward()
+    whole(x.detach())
+  assert whole.replays == 0 and bool(torch.any(x.grad != 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name,mesh_shape,inner,border', [
+    ('blur', (4,), 'fused', 'ignore'),
+    ('heat3d', (2, 2), 'fused', 'ignore'),
+    ('denoise2d', (4,), 'grouped', 'ignore'),
+    ('jacobi2d', (2, 2), 'fused', 'preserve'),
+], ids=['blur-4', 'heat3d-2x2', 'denoise2d-grouped-4', 'jacobi2d-preserve'])
+def test_sharded_replay_equals_the_eager_call(name, mesh_shape, inner,
+                                              border):
+  """On a mesh that repeats the card a sharded call after the first is
+  one replay (its exchange and per-shard launches), bit for bit equal to
+  ``fn_eager``, counting the launches it holds."""
+  _need_gpu()
+  stencil = corpus.build(name, border=border,
+                         cluster='coarse' if inner == 'grouped' else 'none')
+  shape = corpus.TEST_DIMS[name]
+  ex = ShardedExecutor(stencil, shape, inner=inner,
+                       mesh=repeated_mesh('cuda', mesh_shape))
+  calls = [ex.prepare(reference.make_test_inputs(stencil, shape, seed=k))
+           for k in range(3)]
+  results = []
+  for args in calls:
+    ex.launches = 0
+    results.append(ex.fn(*args))
+    torch.cuda.synchronize()
+    assert ex.launches == 4 * {'fused': 1, 'grouped': 8}[inner]
+  assert ex.replays == 2
+  crop = tuple(slice(0, r) for r in shape)
+  for k, (args, got) in enumerate(zip(calls, results)):
+    want = ex.fn_eager(*args)
+    check_exact(stencil, shape,
+                {n: g.gather()[crop] for n, g in
+                 zip(stencil.output_names, got)},
+                {n: w.gather()[crop] for n, w in
+                 zip(stencil.output_names, want)},
+                '%s %s replay %d' % (name, mesh_shape, k))
+
+
+@pytest.mark.gpu
+def test_chained_over_a_sharded_call_is_one_recording():
+  """``chained`` over a sharded executor records every step's exchange,
+  launches and crop in one graph (the relaxation example's path)."""
+  _need_gpu()
+  from soda_tpu_torch.api import chained
+  stencil = corpus.build('jacobi2d', border='preserve')
+  shape = (64, 32)
+  ex = ShardedExecutor(stencil, shape, mesh=repeated_mesh('cuda', (4,)))
+  run = chained(ex, 4)
+  args = ex.prepare(reference.make_test_inputs(stencil, shape))
+  first = run(*args)
+  ex.launches = 0
+  second = run(*args)
+  torch.cuda.synchronize()
+  assert run.replays == 1 and ex.launches == 16
+  want = run.loop(*args)
+  for got in (first, second):
+    assert torch.equal(got[0].gather(), want[0].gather())
 
 
 @pytest.mark.gpu
