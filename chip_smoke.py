@@ -224,6 +224,20 @@ seconds:
    plain version on the card, the relaxation against the NumPy oracle's
    25 batches on the unsharded grid.
 
+24. estimate: the H100 cost model (``soda_tpu_torch.model.estimate``)
+   against the 12 cells' default kernels (phase 2's executors): each
+   cell's device µs a call back to back (a settle run, then 200 calls
+   replayed from one CUDA graph, ``profiling.replay_us``: the host
+   enqueues a call in about as long as the fastest kernels run; the
+   times from Python beside them) beside the estimate's ``est_time_s`` (within ``EST_RANGE`` of it), its
+   share of the bound beside ``ceiling_frac`` (at most the ceiling x
+   ``CEILING_SLACK``), the plan's resident CTAs beside the card's
+   (``model/compiled.py``), and the estimate's form, tile and shared
+   memory equal to the built executor's plan; then ``--estimate -`` of
+   the command line (blur at its bench shape) and ``python -m
+   soda_tpu_torch.tools.perf_report --json`` (12 rows, a geomean over 11)
+   once each.
+
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``: the fused kernel's per cell, mode and layout row, and each
@@ -296,6 +310,20 @@ GRAPH_SHARDED = (('blur', (4,)), ('heat3d', (2, 2)))
 EMIT_REPS = 5
 # phase 23: the port's examples (examples/torch_<name>.py)
 EXAMPLES = ('image_pipeline', 'iterative_solver', 'multichip_relaxation')
+# phase 24: the estimate's time against the measured one, and the slack a
+# measured share may take over the model's ceiling
+EST_RANGE = (0.67, 1.5)
+CEILING_SLACK = 1.03
+# the keys --estimate prints (the JAX package's, but for its TPU-only ones)
+ESTIMATE_KEYS = (
+    'device', 'peak_hbm_gbps', 'peak_gops', 'cells', 'hbm_bytes',
+    'arithmetic_intensity', 'ops_per_cell', 'bound', 'op_model',
+    'model_roofline_frac', 'ceiling_frac', 'ideal_time_s',
+    'ideal_cells_per_s', 'ideal_effective_gbps', 'est_time_s',
+    'est_roofline_frac', 'halo', 'stages', 'total_reuse_distance', 'form',
+    'tile', 'smem_bytes', 'smem_ok', 'ctas_per_sm', 'tiles', 'waves',
+    'evaluations_per_output', 'fills_per_output', 'barriers_per_tile',
+    'launches')
 
 
 def say(*parts):
@@ -446,21 +474,23 @@ def composed_table(stencil, dim):
 
 def library_call(name, stencil, shape, x):
   """(fn, region) of the one PyTorch call that computes cell ``name``'s
-  function on input ``x`` (``fn()`` gives the output's valid region),
-  or None (NO_LIBRARY says why)."""
+  function on input ``x`` (``fn()`` gives the output's valid region; an
+  ``x`` with a leading replica axis, each replica's, as one batched
+  call), or None (NO_LIBRARY says why)."""
   import torch
   from soda_tpu_torch import testing
   region = testing.output_valid_slices(stencil, shape,
                                        stencil.output_names[0])
+  pick = (slice(None), 0) if x.dim() > len(shape) else (0, 0)
   if name in LINEAR:
     w = composed_table(stencil, len(shape)).to(x.device)[None, None]
     conv = (torch.nn.functional.conv2d if len(shape) == 2 else
             torch.nn.functional.conv3d)
-    xb = x.reshape((1, 1) + tuple(shape))
-    return (lambda: conv(xb, w)[0, 0]), region
+    xb = x.reshape((-1, 1) + tuple(shape))
+    return (lambda: conv(xb, w)[pick]), region
   if name == 'erosion':
-    xf = x.float().reshape((1, 1) + tuple(shape))
-    return (lambda: -torch.nn.functional.max_pool2d(-xf, 19, stride=1)[0, 0]
+    xf = x.float().reshape((-1, 1) + tuple(shape))
+    return (lambda: -torch.nn.functional.max_pool2d(-xf, 19, stride=1)[pick]
             ), region
   return None
 
@@ -840,6 +870,89 @@ def examples_phase(examples, card, smi, log):
   log('multichip_relaxation %s x %d batches on a (%d,) mesh of the card: '
       '== the NumPy oracle on the whole grid (max |err| %.3g) (%.1fs) | %s'
       % (shape, relax['BATCHES'], relax['MESH'], err, seconds, smi))
+
+
+def estimate_phase(cells, here, env, smi, log):
+  """Phase 24: the cost model against the default kernels phase 2 built
+  (``cells``), then the command line's --estimate and perf_report once
+  each. Raises where an estimate's plan differs from the built one, a
+  measured share exceeds the ceiling x CEILING_SLACK, or an estimate
+  lies outside EST_RANGE of the measured time."""
+  import torch
+  from soda_tpu_torch import profiling
+  from soda_tpu_torch.model import estimate as est
+  from soda_tpu_torch.model.compiled import compiled_stats
+  bad = []
+  for name, shape, stencil, ex, inputs, params in cells:
+    t = time.time()
+    e = est.estimate(stencil, shape, 'cuda')
+    args = ex.prepare(inputs, params)
+    profiling.settle(lambda: ex.fn(*args))
+    us = profiling.replay_us(lambda: ex.fn(*args), calls=HOST_CALLS)
+    host_us, python_us = profiling.back_to_back_us(lambda: ex.fn(*args),
+                                                   calls=HOST_CALLS)
+    share = e['ideal_time_s'] * 1e6 / us
+    ratio = e['est_time_s'] * 1e6 / us
+    card_ctas = compiled_stats(ex)['kernels'][0]['ctas_per_sm']
+    plan = ex.plan
+    same = (e['form'], tuple(e['tile']), e['smem_bytes']) == (
+        est.form(plan), plan.tile, plan.smem_bytes)
+    log('%-12s %-10s tile %-14s estimate %9.2f us, measured %9.2f us back to '
+        'back replayed (%.3fx; from Python: device %.2f, host %.2f us); '
+        'share %.3f, ceiling %.3f; %d CTA(s)/SM planned, card %s; %d '
+        'barriers a tile, %.2f evaluations an output; plan %s (%.1fs) | %s'
+        % (name, e['form'], tuple(e['tile']), e['est_time_s'] * 1e6, us,
+           ratio, python_us, host_us, share, e['ceiling_frac'],
+           e['ctas_per_sm'], card_ctas,
+            e['barriers_per_tile'], e['evaluations_per_output'],
+            '== the built one' if same else 'DIFFERS from the built one',
+            time.time() - t, smi))
+    if not same:
+      bad.append('%s: the estimate plans %s, the executor built %s' % (
+          name, (e['form'], e['tile'], e['smem_bytes']),
+          (est.form(plan), plan.tile, plan.smem_bytes)))
+    if share > e['ceiling_frac'] * CEILING_SLACK:
+      bad.append('%s: measured share %.3f over the ceiling %.3f' % (
+          name, share, e['ceiling_frac']))
+    if not EST_RANGE[0] <= ratio <= EST_RANGE[1]:
+      bad.append('%s: estimate %.2fx the measured time' % (name, ratio))
+  if bad:
+    raise RuntimeError('estimate: %s' % '; '.join(bad))
+  from soda_tpu_torch import corpus, testing
+  t = time.time()
+  name, shape, _ = testing.CELLS[0]
+  path = os.path.join(here, 'build', 'chip_smoke', name + '.soda')
+  with open(path, 'w') as f:
+    f.write(corpus.CORPUS[name])
+  out = subprocess.run(
+      [sys.executable, '-m', 'soda_tpu_torch', path, '--estimate', '-',
+       '--shape', ','.join(map(str, shape)), '--tile-size', str(shape[1])],
+      cwd=here, env=env, stdout=subprocess.PIPE, text=True, check=True,
+      timeout=300).stdout
+  got = json.loads(out)
+  missing = [k for k in ESTIMATE_KEYS if k not in got]
+  if missing or got['device'] != torch.cuda.get_device_name(0):
+    raise RuntimeError('--estimate -: keys missing %s, device %r' % (
+        missing, got['device']))
+  log('--estimate - (%s %s): %d keys, device %s, estimate %.2f us, bound '
+      '%.2f us (%s), ceiling %.3f, form %s, tile %s (%.1fs)' % (
+          name, shape, len(got), got['device'], got['est_time_s'] * 1e6,
+          got['ideal_time_s'] * 1e6, got['bound'], got['ceiling_frac'],
+          got['form'], got['tile'], time.time() - t))
+  t = time.time()
+  out = subprocess.run(
+      [sys.executable, '-m', 'soda_tpu_torch.tools.perf_report', '--json'],
+      cwd=here, env=env, stdout=subprocess.PIPE, text=True, check=True,
+      timeout=300).stdout
+  report = json.loads(out)
+  if len(report['rows']) != len(testing.CELLS) or \
+      report['geomean_cells'] != len(testing.CELLS) - 1:
+    raise RuntimeError('perf_report --json: %d rows, geomean over %d' % (
+        len(report['rows']), report['geomean_cells']))
+  log('perf_report --json: %d rows of %s (%s), geomean %.4f over %d cells '
+      '(%.1fs)' % (len(report['rows']), report['record'], report['device'],
+                   report['geomean'], report['geomean_cells'],
+                   time.time() - t))
 
 
 def main() -> int:
@@ -1950,6 +2063,32 @@ def main() -> int:
   for name, ms in lib.items():
     next(k for k in kernels if k['name'] == 'fused_stencil[%s]' % name
          )['library_ms'] = ms
+  # the same function on the same inputs for the paths that compute a
+  # cell's function (kernel modes, layout forms, groups, shards), and
+  # one batched call for the replicas
+  lib[DEEP_CELL] = lib_ms
+  for k in kernels:
+    found = re.match(r'fused_stencil_(grouped|mode|layout|sharded)'
+                     r'\[([^\s\]]+)', k['name'])
+    if found and lib.get(found.group(2)) is not None:
+      k['library_ms'] = lib[found.group(2)]
+  for name, (stencil, shape, ex, batch, params, r) in reps.items():
+    call = library_call(name, stencil, shape,
+                        ex.prepare(batch, params)[0])
+    if call is None:
+      continue
+    fn = call[0]
+    single = library_call(name, stencil, shape,
+                          ex.prepare(batch, params)[0][0])[0]
+    first, want = fn()[0].double(), single().double()
+    if float((first - want).abs().max()) > 1e-5 * float(want.abs().max()):
+      raise RuntimeError('%s: the batched library call differs from the '
+                         'single one' % name)
+    ms = statistics.median(profiling.cuda_times_ms(fn, reps=KERNEL_REPS))
+    next(k for k in kernels if k['name'] == 'fused_stencil_replicated[%s]'
+         % name)['library_ms'] = ms
+    say('[short] %-12s library, R=%d replicas in one batched call: %.4f ms '
+        'cold | %s' % (name, r, ms, smi))
   say('[short] phase 20 (%.1fs)' % (time.time() - t20))
 
   # 21. one dispatch per call: chained runs and sharded calls replayed
@@ -1967,6 +2106,13 @@ def main() -> int:
   t23 = time.time()
   examples_phase(examples, card, smi, lambda line: say('[examples] ' + line))
   say('[examples] phase 23 (%.1fs)' % (time.time() - t23))
+
+  # 24. the cost model against the default kernels, --estimate and
+  # perf_report
+  t24 = time.time()
+  estimate_phase(cells, here, env, smi, lambda line: say('[estimate] ' +
+                                                          line))
+  say('[estimate] phase 24 (%.1fs)' % (time.time() - t24))
 
   no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

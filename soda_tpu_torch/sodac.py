@@ -24,6 +24,10 @@ Stencil, and act on it:
                     and cache the winner (tools/autotune.py)
   --compile-stats   FILE or -: each kernel's registers, shared memory,
                     spills and CTAs per SM, and its plan (JSON)
+  --estimate        FILE or -: the analytic H100 cost model's estimate of
+                    the fused kernel (JSON; model/estimate.py), pinned by
+                    --kernel-opt; --model-file JSON overrides its device
+                    rates and prices
 
 ``--device`` is explicit (default ``cuda``): without a usable GPU the
 run fails; ``--device cpu`` runs the kernels' plain PyTorch versions.
@@ -36,7 +40,6 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-import statistics
 import sys
 import time
 from typing import Optional
@@ -50,10 +53,6 @@ _NOT_PORTED_FLAGS = (
     ('emit_jax', '--emit-jax', 'the port prints no JAX program; its '
      'counterpart is --emit-torch, a standalone PyTorch program (ROADMAP '
      'A10)'),
-    ('estimate', '--estimate', 'not ported yet: ROADMAP A12 (H100 cost '
-     'model)'),
-    ('model_file', '--model-file', 'not ported yet: ROADMAP A12 (H100 cost '
-     'model)'),
 )
 _NOT_PORTED_BACKENDS = {
     'pallas': 'ROADMAP A4 (the TPU kernel; its port is --backend fused)',
@@ -156,6 +155,16 @@ def _build_parser() -> argparse.ArgumentParser:
                             'to the auto/fused/replicated backends and, '
                             'with --backend sharded, to the per-shard '
                             'kernel; mutually exclusive with --tune')
+  backend.add_argument('--estimate', metavar='FILE',
+                       help='write the analytic H100 estimate of the fused '
+                            'kernel as JSON (- for stdout); analytic, so '
+                            'it runs with --device cpu too')
+  backend.add_argument('--model-file', metavar='FILE',
+                       help='JSON overriding the model for --estimate: '
+                            'hbm_gbps, gops, name and any price constant '
+                            'of model/estimate.py by its name (the analog '
+                            'of the reference --model-file, '
+                            'model/xilinx.py)')
   backend.add_argument('--compile-stats', metavar='FILE',
                        help='write each kernel\'s registers, shared memory, '
                             'spills and CTAs per SM, and its plan, as JSON '
@@ -241,6 +250,8 @@ def _main(argv: Optional[list] = None) -> int:
                            'xla backend has no such knobs')
   if args.mesh and args.backend != 'sharded':
     raise utils.InputError('--mesh applies to --backend sharded')
+  if args.model_file and not args.estimate:
+    raise utils.InputError('--model-file applies to --estimate')
   for key, flag, item in _NOT_PORTED_FLAGS:
     if getattr(args, key):
       raise NotPorted('%s: %s' % (flag, item))
@@ -320,6 +331,10 @@ def _main(argv: Optional[list] = None) -> int:
         f.write(text + '\n')
     did_something = True
 
+  if args.estimate:
+    _estimate(stencil, args, kernel_opts)
+    did_something = True
+
   if args.compile_stats:
     import json
 
@@ -342,8 +357,36 @@ def _main(argv: Optional[list] = None) -> int:
 
   if not did_something:
     parser.error('no action requested (--emit-torch/--emit-numpy/--emit-dot/'
-                 '--compile-stats/--run)')
+                 '--estimate/--compile-stats/--run)')
   return 0
+
+
+def _estimate(stencil, args, kernel_opts) -> None:
+  """--estimate: the cost model's JSON for the kernel at --shape (or the
+  default shape) on --device's card (the table's H100 row, said to be
+  assumed, on the CPU or where no card is found)."""
+  import json
+
+  from soda_tpu_torch.model import estimate as model
+  shape = _parse_ints(args.shape) if args.shape else _default_shape(stencil)
+  model_params = None
+  if args.model_file:
+    try:
+      with open(args.model_file) as f:
+        model_params = json.load(f)
+    except (OSError, ValueError) as e:
+      raise utils.InputError('--model-file %s: %s' % (args.model_file, e)
+                             ) from None
+    if not isinstance(model_params, dict):
+      raise utils.InputError('--model-file %s: expected a JSON object' %
+                             args.model_file)
+  if args.estimate == '-':
+    model.print_estimation(stencil, shape, sys.stdout, args.device,
+                           model_params, kernel_opts)
+  else:
+    with open(args.estimate, 'w') as f:
+      model.print_estimation(stencil, shape, f, args.device, model_params,
+                             kernel_opts)
 
 
 def _executor(stencil, shape, args, kernel_opts):
@@ -465,16 +508,7 @@ def _run(stencil, args, kernel_opts) -> int:
   if args.bench:
     # CUDA events, each call from a cold L2 (median); the TPU CLI's
     # chained slope timing is for remote-attached TPUs only
-    batch = getattr(executor, 'replication_factor', 1)
-    positional = executor.prepare(inputs, params)
-    dt = statistics.median(profiling.cuda_times_ms(
-        lambda: executor.fn(*positional))) / 1e3
-    in_b, out_b = profiling.stream_bytes(stencil, shape)
-    print('Effective HBM bandwidth: %.1f GB/s' %
-          ((in_b + out_b) * batch / dt / 1e9))
-    # same surface as the generated hosts (reference host.py:816-823)
-    print('Kernel execution time: %.3f ms' % (dt * 1e3))
-    print('Kernel throughput: %.6f pixel/ns' % (cells * batch / dt / 1e9))
+    profiling.measure(executor, inputs, params).report()
     print('Device: %s' % profiling.nvidia_smi_line())
   return 1 if errors else 0
 

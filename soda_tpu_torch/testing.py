@@ -43,7 +43,7 @@ from soda_tpu_torch.parallel.mesh import Mesh
 from soda_tpu_torch.utils import threshold_for
 
 __all__ = ['CELLS', 'CONV_PARAM', 'SHARDED', 'repeated_mesh', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
-           'GEOMETRY_CASES', 'LAYOUT_CASES', 'LAYOUT_EXTRA', 'MODE_CASES',
+           'GEOMETRY_CASES', 'LAYOUT_CASES', 'StepClock', 'build_cell_stepped', 'LAYOUT_EXTRA', 'MODE_CASES',
            'MODE_CELLS', 'MULTI_OUTPUT', 'NARROW_PAIRS', 'SEED_CONFIGS',
            'build_cell', 'check_exact', 'check_outputs', 'gen_program',
            'make_inputs', 'make_test_inputs', 'make_test_params',
@@ -328,6 +328,34 @@ def build_cell(name: str, overrides: Mapping):
   """The Stencil of a cell: its corpus kernel (``name`` up to the first
   ``_``) with the cell's overrides."""
   return build_stencil(CORPUS[name.split('_')[0]], **overrides)
+
+
+class StepClock:
+  """A stand-in for the ``time`` module whose clock advances a fixed
+  step per reading: the computation-reuse schedulers' time budgets then
+  end after the same number of steps on every machine."""
+
+  def __init__(self, step=0.5):
+    self.now, self.step = 0.0, step
+
+  def monotonic(self):
+    self.now += self.step
+    return self.now
+
+
+def build_cell_stepped(name: str, overrides: Mapping):
+  """``build_cell`` as every machine builds it: the in-process
+  computation-reuse scheduler (no external binary) under StepClock.
+  The external binary and a real clock's budgets give contrast other
+  stage graphs (31-34 barriers a tile seen on an H100's host)."""
+  from soda_tpu_torch.optimization import cr_schedules
+  saved = cr_schedules.find_external_cr, cr_schedules.time
+  cr_schedules.find_external_cr = lambda: None
+  cr_schedules.time = StepClock()
+  try:
+    return build_cell(name, overrides)
+  finally:
+    cr_schedules.find_external_cr, cr_schedules.time = saved
 
 
 def _numpy(value) -> np.ndarray:

@@ -124,17 +124,25 @@ def sweep(name: str, smi: str) -> None:
               '  <- default' if tile == default else '', smi), flush=True)
 
 
-def deep_sweep(name: str, smi: str) -> None:
-  shape, overrides = next((s, o) for n, s, o in testing.CELLS if n == name)
-  stencil = testing.build_cell(name, overrides)
-  inputs = testing.make_test_inputs(stencil, shape)
-  params = testing.make_test_params(stencil)
+def deep_runs(stencil, shape):
+  """The many-stage form's plans ``--deep`` times: for each tile of
+  DEEP_TILES that leaves a resident CTA under every schedule, one plan a
+  schedule of ``deep_schedules``."""
   rows = []
   for tile in DEEP_TILES:
     plans = [make_tile_plan(stencil, shape, tile, _deep=elements)
              for elements in deep_schedules()]
     if min(p.deep.ctas for p in plans) >= 1:
       rows.append(plans)
+  return rows
+
+
+def deep_sweep(name: str, smi: str) -> None:
+  shape, overrides = next((s, o) for n, s, o in testing.CELLS if n == name)
+  stencil = testing.build_cell(name, overrides)
+  inputs = testing.make_test_inputs(stencil, shape)
+  params = testing.make_test_params(stencil)
+  rows = deep_runs(stencil, shape)
   default = make_tile_plan(stencil, shape, _deep=())
   build.build_all([cuda_source.generate(p)
                    for p in [default] + [p for r in rows for p in r]])

@@ -8,7 +8,8 @@ and ``--backend sharded`` (``--mesh`` over distinct visible devices)
 pass there too, and so do runs with the fused kernel's modes and layout
 keys (``--kernel-opt``, the JAX CLI's own example among them) and
 ``--compile-stats`` (the plan's fields; the
-card's are null there). ``--tune`` needs the card. Flags of the JAX CLI
+card's are null there), and ``--estimate``/``--model-file`` (the
+analytic H100 cost model). ``--tune`` needs the card. Flags of the JAX CLI
 that the port does not have yet exit nonzero naming their ROADMAP item.
 """
 
@@ -98,10 +99,32 @@ def test_invalid_program_exits_1(tmp_path, capsys):
   assert 'invalid SODA program' in out.err and len(out.err.splitlines()) == 1
 
 
+@pytest.mark.parametrize('flag', ['--estimate', '--model-file'])
+def test_estimate_flags_run_on_the_cpu(flag, tmp_path, capsys):
+  """--estimate (the H100 cost model's JSON) and --model-file (its
+  overrides) run with --device cpu on a machine without a card."""
+  soda = tmp_path / 'blur.soda'
+  soda.write_text(corpus.CORPUS['blur'])
+  model = tmp_path / 'm.json'
+  model.write_text(json.dumps({'hbm_gbps': 1000.0}))
+  extra = ['--model-file', str(model)] if flag == '--model-file' else []
+  code, out = _main([str(soda), '--device', 'cpu', '--estimate', '-',
+                     '--shape', '512,2048', '--tile-size', '2048', *extra],
+                    capsys)
+  assert code == 0, out.err
+  got = json.loads(out.out)
+  assert got['form'] == 'short' and got['tile'] == [64, 256]
+  assert got['peak_hbm_gbps'] == (1000.0 if extra else 3350.0)
+  assert 'assumed' in got['device']
+  if extra:  # the JAX model file's key is not the port's: exit 1, naming it
+    model.write_text(json.dumps({'vpu_gflops': 3850.0}))
+    code, out = _main([str(soda), '--device', 'cpu', '--estimate', '-',
+                       *extra], capsys)
+    assert code == 1 and 'vpu_gflops' in out.err and 'gops' in out.err
+
+
 @pytest.mark.parametrize('flags,item', [
     (['--emit-jax', '-'], 'A10'),
-    (['--estimate', '-'], 'A12'),
-    (['--model-file', 'm.json'], 'A12'),
     (['--run', '--backend', 'pallas'], 'A4'),
 ], ids=lambda v: v if isinstance(v, str) else v[-2].lstrip('-') + '-' + v[-1])
 def test_unported_flags_name_their_roadmap_item(flags, item, tmp_path,
