@@ -9,7 +9,8 @@ front half: parser, passes, fusion plan) -> soda_tpu_torch.get_executor
 execution (``cluster: coarse``: one kernel per stage group), replicated
 execution (R grids in one launch), the command line, the whole-grid
 executor, sharded execution over a device mesh (the fused kernel per
-halo-extended shard), the kernel's modes and layout forms and the
+halo-extended shard; in one process, and one process a shard over
+``torch.distributed``), the kernel's modes and layout forms and the
 tools. Phases, each printing one line per step with its
 seconds:
 
@@ -237,12 +238,33 @@ seconds:
    the command line (blur at its bench shape) and ``python -m
    soda_tpu_torch.tools.perf_report --json`` (12 rows, a geomean over 11)
    once each.
+25. ranks: the sharded executor's rank form
+   (``parallel/distributed.py``, one process a shard over
+   ``torch.distributed``). (a) Four gloo ranks on the card
+   (``parallel/launch.py``; halos staged through host memory), and on a
+   machine with four cards also four NCCL ranks, one a card, run the
+   nine configs of the JAX package's ``dryrun_multichip``
+   (``parallel/dryrun.py``) and the ``testing.SHARDED`` cells at the
+   benchmark shapes: every output bit for bit equal to the
+   single-controller form on a mesh repeating the card (on its valid
+   region; everywhere under ``border: preserve``), the nine against
+   the oracle (floats within 1e-4), the cells against the unsharded plain
+   version (blur bit-exact against the NumPy oracle), overlap 'on' (the
+   real overlapped step) equal to 'off'; each rank's launches (one a
+   shard, a group's count for 'grouped'); each rank's device and host µs
+   a call back to back, its kernel inner's alone (replayed from a CUDA
+   graph, one rank at a time) and its halo bytes a call, beside the
+   single-controller call's. (b) NCCL at
+   one rank a card, through ``torchrun --standalone`` and the dry run's
+   own spawn: the nine configs against the oracle. A rank that fails
+   fails the run.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``: the fused kernel's per cell, mode and layout row, and each
 probe case and body, ``probe_stream``, ``probe_chain``,
-``probe_narrow``, ``probe_copy`` and ``probe_25d``), and ``{"ok": true,
+``probe_narrow``, ``probe_copy`` and ``probe_25d``, and the rank form's
+kernel cells), and ``{"ok": true,
 "device": ...}``. Any failure raises and exits nonzero. Inputs are made from seeded numpy (make_test_inputs).
 """
 
@@ -310,6 +332,8 @@ GRAPH_SHARDED = (('blur', (4,)), ('heat3d', (2, 2)))
 EMIT_REPS = 5
 # phase 23: the port's examples (examples/torch_<name>.py)
 EXAMPLES = ('image_pipeline', 'iterative_solver', 'multichip_relaxation')
+# phase 25: the rank form's ranks on the card (gloo)
+RANKS = 4
 # phase 24: the estimate's time against the measured one, and the slack a
 # measured share may take over the model's ceiling
 EST_RANGE = (0.67, 1.5)
@@ -328,12 +352,6 @@ ESTIMATE_KEYS = (
 
 def say(*parts):
   print(*parts, flush=True)
-
-
-def no_jax_loaded():
-  for name in ('jax', 'soda_tpu'):
-    if name in sys.modules:
-      raise RuntimeError('the port loaded %s' % name)
 
 
 def deep_steps():
@@ -955,6 +973,197 @@ def estimate_phase(cells, here, env, smi, log):
                    time.time() - t))
 
 
+def record(name, source, replaces, launches, err, ms, plain_ms, stencil,
+           shape, grids=1):
+  """One entry of the ``{"kernels": ...}`` line (``library_ms`` None
+  until a library call is timed)."""
+  from soda_tpu_torch import profiling
+  bound, bound_by = profiling.bound_ms(stencil, shape, grids)
+  return {'name': name, 'route': 'cuda', 'source': source,
+          'replaces': replaces, 'launches': launches, 'max_abs_err': err,
+          'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+          'bound_by': bound_by, 'library_ms': None}
+
+
+def sharded_cases(sharded_stencil, shape_of, calls=0):
+  """The ``testing.SHARDED`` cells as the rank form's cases at their
+  benchmark shapes (``calls``: back-to-back calls to time)."""
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.parallel import dryrun
+  return [dryrun.Case('%s %s %s%s' % (name, mesh_shape, inner,
+                                      ' overlap' if overlap == 'on' else ''),
+                      sharded_stencil(name, inner), shape_of[name],
+                      mesh_shape, inner=inner, overlap=overlap, calls=calls)
+          for name, mesh_shape, inner, overlap in testing.SHARDED]
+
+
+def ranks_phase(by_name, sharded_stencil, plains, plain_ms_of, oracle, card,
+                lib, here, env, smi, log):
+  """Phase 25: the sharded executor's rank form, one process a shard.
+  (a) ``RANKS`` gloo ranks on ``card`` (``dryrun.collect_world``; halos
+  through host memory), and where the machine has ``RANKS`` cards also
+  ``RANKS`` NCCL ranks, one a card, run the nine ``dryrun.configs`` and
+  the ``testing.SHARDED`` cells at their shapes: each output bit for bit
+  equal to the single-controller form on a mesh repeating ``card`` (the
+  same kernels and halos; on its valid region, everywhere under
+  ``border: preserve``), the nine against the oracle by the dryrun's
+  rule, the cells against the unsharded plain version (blur against the
+  oracle too), overlap on equal to off; each rank's launches (1 a shard
+  for 'fused', a group's count for 'grouped'); each rank's device and
+  host µs a call back to back, its kernel inner's alone (replayed from
+  a CUDA graph, one rank at a time) and its halo bytes a call, beside
+  the single-controller call's. (b)
+  NCCL at one rank a card, through ``torchrun`` and through the command
+  line's own spawn, the nine configs. Returns the kernel records of
+  (a)'s kernel cells: ``ms`` is the sum of the ranks' inners alone, the
+  card time of one call's launches over the whole grid without the host
+  and the exchange."""
+  import torch
+  from soda_tpu_torch import profiling
+  from soda_tpu_torch.parallel import dryrun, spmd
+  from soda_tpu_torch.parallel.distributed import rank_mesh
+
+  nine = dryrun.configs(RANKS)
+  cases = nine + sharded_cases(sharded_stencil,
+                               {n: c[1] for n, c in by_name.items()},
+                               HOST_CALLS)
+  # the single-controller form of each case on a mesh repeating the
+  # card: its outputs, and each cell's back-to-back µs a call
+  t = time.time()
+  single, single_us = {}, {}
+  for case in cases:
+    ex = spmd.ShardedExecutor(
+        case.stencil, case.shape, inner=case.inner, dim_axes=case.dim_axes,
+        mesh=rank_mesh(case.mesh_shape, case.axis_names, [card] * RANKS),
+        inner_opts=case.inner_opts, overlap=case.overlap)
+    args = ex.prepare(*dryrun.inputs_of(case))
+    single[case.label] = {
+        n: o.gather()[tuple(slice(0, r) for r in case.shape)].cpu().numpy()
+        for n, o in zip(case.stencil.output_names, ex.fn(*args))}
+    if case.calls:
+      profiling.settle(lambda: ex.fn(*args))
+      single_us[case.label] = profiling.back_to_back_us(
+          lambda: ex.fn(*args), calls=HOST_CALLS)
+    del ex, args
+  torch.cuda.synchronize()
+  torch.cuda.empty_cache()
+  log('single-controller form on meshes repeating %s: %d cases (%.1fs)' % (
+      card, len(cases), time.time() - t))
+
+  worlds = [('gloo', [card] * RANKS)]
+  if torch.cuda.device_count() >= RANKS:
+    worlds.append(('nccl', [torch.device('cuda', i) for i in range(RANKS)]))
+  records = []
+  for backend, devices in worlds:
+    t = time.time()
+    # gloo ranks share the one card; a NCCL rank takes cuda:LOCAL_RANK
+    ranks = dryrun.collect_world(cases, RANKS, backend,
+                                 card if backend == 'gloo' else None)
+    log('(a) %d %s ranks on %s: %d cases run (%.1fs) | %s' % (
+        RANKS, backend, '/'.join(str(d) for d in devices), len(cases),
+        time.time() - t, ranks[0][0]['repr']))
+    records += ranks_checked(cases, nine, ranks, backend, single, single_us,
+                             plains, plain_ms_of, oracle, lib, smi, log)
+    del ranks
+  del single
+
+  # (b) NCCL, one rank a card: torchrun, and the command line's spawn
+  n = torch.cuda.device_count()
+  gate = ['-m', 'soda_tpu_torch.parallel.dryrun', '--backend', 'nccl']
+  for how, cmd in (('torchrun', ['-m', 'torch.distributed.run',
+                                 '--standalone', '--nproc-per-node', str(n)]
+                    + gate),
+                   ('spawn', gate + ['--nproc', str(n)])):
+    t = time.time()
+    proc = subprocess.run([sys.executable] + cmd, cwd=here, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=600)
+    want = 'dryrun_multichip OK on %d ranks' % n
+    if proc.returncode != 0 or want not in proc.stdout:
+      raise RuntimeError('(b) NCCL %s: exit %d\n%s' % (
+          how, proc.returncode, proc.stdout[-3000:]))
+    log('(b) NCCL through %s: %s, the nine configs against the oracle '
+        '(%.1fs)' % (how, want, time.time() - t))
+  return records
+
+
+def ranks_checked(cases, nine, ranks, backend, single, single_us, plains,
+                  plain_ms_of, oracle, lib, smi, log):
+  """Phase 25 (a)'s checks of one world's results (``ranks``: per rank,
+  its results in case order) and its kernel records."""
+  import numpy as np
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.backend import grouped
+  from soda_tpu_torch.parallel import dryrun, spmd
+
+  records, offs = [], {}
+  for i, case in enumerate(cases):
+    results = [r[i] for r in ranks]
+    got, stencil = results[0]['outputs'], case.stencil
+    # bit for bit on the valid regions (everywhere under border:
+    # preserve); a kernel need not write the cells outside them
+    testing.check_exact(stencil, case.shape, got, single[case.label],
+                        case.label + ': rank form vs single-controller form')
+    if stencil.preserve_border and not all(
+        np.array_equal(got[out], single[case.label][out])
+        for out in stencil.output_names):
+      raise RuntimeError('%s: the rank form differs from the '
+                         'single-controller form outside the valid region'
+                         % case.label)
+    launches = [r['launches'] for r in results]
+    per_rank = {'fused': 1, 'xla': 0, 'grouped': len(
+        grouped.group_stencils(stencil)[1])}[case.inner]
+    if launches != [per_rank] * RANKS:
+      raise RuntimeError('%s: launches %s, want %d a rank' % (
+          case.label, launches, per_rank))
+    if i < len(nine):
+      inputs, params = dryrun.inputs_of(case)
+      dryrun.check(case, got, testing.oracle_run(stencil, inputs, params))
+      log('%-28s == single-controller form bit for bit, oracle within %g; '
+          'launches %s' % (case.label, dryrun.TOLERANCE, launches))
+      continue
+    cell = case.label.split()[0]
+    err = testing.check_outputs(stencil, case.shape, got, plains[cell],
+                                case.label + ' ranks vs unsharded plain')
+    exact = ''
+    if cell == FLAGSHIP:
+      testing.check_outputs(stencil, case.shape, got, oracle,
+                            case.label + ' ranks vs oracle')
+      exact = ', bit-exact vs the NumPy oracle'
+    if case.inner == 'xla' and case.overlap == 'off':
+      offs[cell] = got
+    elif case.inner == 'xla':
+      for out in stencil.output_names:
+        if not np.array_equal(got[out], offs[cell][out]):
+          raise RuntimeError('%s:%s: overlap on differs from off' % (
+              case.label, out))
+      exact = ', == overlap off bit for bit'
+    device_us = [r['device_us'] for r in results]
+    host_us = [r['host_us'] for r in results]
+    halo = [r['halo_bytes'] for r in results]
+    inner_us = [r['inner_us'] for r in results]
+    s_host, s_dev = single_us[case.label]
+    per_rank_us = ['/'.join('-' if v is None else '%.1f' % v for v in vs)
+                   for vs in (device_us, host_us, inner_us)]
+    log('%-28s %s == single-controller form bit for bit, == unsharded plain '
+        '(max |err| %.3g)%s; launches %s; per rank back to back (n=%d): '
+        'device %s us a call, host %s us, the kernel inner alone (replayed, '
+        'one rank at a time) %s us, halo bytes a call %s; single-controller form device '
+        '%.1f us, host %.1f us | %s' % (
+            case.label, backend, err, exact, launches, HOST_CALLS,
+            *per_rank_us, '/'.join(str(v) for v in halo), s_dev, s_host,
+            smi))
+    if case.inner != 'xla':
+      records.append(record(
+          'fused_stencil_sharded[%s %s ranks%s]' % (
+              cell, case.mesh_shape, '' if backend == 'gloo' else ' nccl'),
+          'soda_tpu_torch/parallel/distributed.py', spmd.REPLACES,
+          sum(launches), err, sum(inner_us) / 1e3, plain_ms_of[cell],
+          stencil, case.shape))
+      records[-1]['library_ms'] = lib.get(cell)
+  return records
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -987,26 +1196,18 @@ def main() -> int:
                                           layout25d, narrow)
   from soda_tpu_torch.experiments import probes as exp_probes
   from soda_tpu_torch.model.compiled import compiled_stats
-  from soda_tpu_torch.parallel import replicate, spmd
+  from soda_tpu_torch.parallel import dryrun, launch, replicate, spmd
   from soda_tpu_torch.tools import autotune, gpu_validate
 
   # 1. device
   t0 = t_start = time.time()
   report = profiling.device_report()
-  no_jax_loaded()
+  launch.no_jax_loaded()
   say('[device] %s | torch %s | cuda %s | %s (%.1fs)' % (
       report['device'], report['torch'], report['cuda'], report['nvcc'],
       time.time() - t0))
   smi = report['nvidia_smi']
   say(smi)
-
-  def record(name, source, replaces, launches, err, ms, plain_ms, stencil,
-             shape, grids=1):
-    bound, bound_by = profiling.bound_ms(stencil, shape, grids)
-    return {'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': launches, 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': bound_by, 'library_ms': None}
 
   def times(fn, plain):
     k_ms = profiling.cuda_times_ms(fn, reps=KERNEL_REPS)
@@ -1039,16 +1240,7 @@ def main() -> int:
   def sharded_stencil(name, inner):
     return coarse[name] if inner == 'grouped' else stencils[name]
 
-  for name, mesh_shape, inner, _ in testing.SHARDED:
-    if inner == 'xla':
-      continue
-    stencil = sharded_stencil(name, inner)
-    ext = spmd.geometry(stencil, shape_of[name],
-                        testing.repeated_mesh(card, mesh_shape))[-1]
-    subs = (grouped.group_stencils(stencil)[1] if inner == 'grouped'
-            else [stencil])
-    sources += [cuda_source.generate(make_tile_plan(sub, ext))
-                for sub in subs]
+  sources += dryrun.kernel_sources(sharded_cases(sharded_stencil, shape_of))
   # the kernel modes, and every configuration the tuner probes
   sources += [cuda_source.generate(kernel_plan(stencils[name], shape_of[name],
                                                **opts))
@@ -1101,6 +1293,10 @@ def main() -> int:
         kernel_plan(exp9_stencil, exp9_layout25d.JACOBI_SHAPE,
                     block_rows=block_rows) if block_rows else
         make_tile_plan(exp9_stencil, exp9_layout25d.JACOBI_SHAPE)))
+  # the rank form's kernel inners (phase 25): the nine dryrun configs at
+  # RANKS ranks and at one rank a card
+  sources += dryrun.kernel_sources(dryrun.configs(RANKS) +
+                                   dryrun.configs(torch.cuda.device_count()))
   sources = list({src.digest: src for src in sources}.values())
   t = time.time()
   build.build_all(sources)
@@ -2114,13 +2310,20 @@ def main() -> int:
                                                           line))
   say('[estimate] phase 24 (%.1fs)' % (time.time() - t24))
 
-  no_jax_loaded()
+  # 25. the rank form: one process a shard over torch.distributed
+  t25 = time.time()
+  kernels += ranks_phase(by_name, sharded_stencil, plains, plain_ms_of, oracle,
+                         card, lib, here, env, smi,
+                         lambda line: say('[ranks] ' + line))
+  say('[ranks] phase 25 (%.1fs)' % (time.time() - t25))
+
+  launch.no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))
   say(smi)
   say(json.dumps({'kernels': kernels}))
   say(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-      'count': 1}}))
+      'count': torch.cuda.device_count()}}))
   return 0
 
 

@@ -10,7 +10,8 @@
 - replicated: R independent grids per call, one launch per kernel
   (soda_tpu_torch.parallel.replicate.ReplicatedExecutor)
 - sharded: the grid split over a device mesh with a halo exchange
-  (soda_tpu_torch.parallel.spmd.ShardedExecutor)
+  (soda_tpu_torch.parallel.spmd.ShardedExecutor), or its rank form, one
+  process per shard (soda_tpu_torch.parallel.distributed)
 - get_executor: dispatch (the counterpart of soda_tpu/backend/__init__.py)
 
 The NumPy oracle is backend/reference.py.
@@ -34,7 +35,10 @@ def get_executor(stencil, shape: Tuple[int, ...], backend: str = 'auto',
   PyTorch, no kernel). 'replicated': ReplicatedExecutor
   (``replication_factor``, ``mesh``, ``backend``; inputs of shape
   ``(R, *shape)``). 'sharded': ShardedExecutor (``mesh``, ``inner``,
-  ``dim_axes``, ``inner_opts``, ``overlap``).
+  ``dim_axes``, ``inner_opts``, ``overlap``); given a ``mesh_shape``
+  (a shape of ranks, not devices), the rank form
+  DistributedShardedExecutor (``axis_names`` and the same options),
+  built on every rank of the default process group.
 
   ``device`` is explicit: 'cuda' (the default) raises when no usable
   GPU exists; pass 'cpu' to run the kernels' plain versions.
@@ -42,8 +46,13 @@ def get_executor(stencil, shape: Tuple[int, ...], backend: str = 'auto',
   if backend == 'replicated':
     from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
     return ReplicatedExecutor(stencil, shape, device=device, **kwargs)
+  if backend == 'sharded' and kwargs.get('mesh_shape') is not None:
+    from soda_tpu_torch.parallel.distributed import \
+        DistributedShardedExecutor
+    return DistributedShardedExecutor(stencil, shape, device=device, **kwargs)
   if backend == 'sharded':
     from soda_tpu_torch.parallel.spmd import ShardedExecutor
+    kwargs.pop('mesh_shape', None)
     return ShardedExecutor(stencil, shape, device=device, **kwargs)
   if backend == 'xla':
     from soda_tpu_torch.backend.whole_grid import WholeGridExecutor

@@ -108,13 +108,14 @@ def axis_groups(mesh: Mesh, dim_axes) -> Tuple[Tuple[str, ...], ...]:
   return tuple(groups)
 
 
-def shard_devices(mesh: Mesh, axes: Tuple[Tuple[str, ...], ...]
-                  ) -> np.ndarray:
-  """The device of each shard: an object ndarray with one axis per
-  sharded array axis, of the size of its mesh-axis group. A shard's
-  index on an array axis is its position on the group's flattened ring
-  (outer axis major); mesh axes that shard nothing are replicas of the
-  same shard, and the one at index 0 computes it."""
+def shard_coords(mesh: Mesh, axes: Tuple[Tuple[str, ...], ...]
+                 ) -> np.ndarray:
+  """The mesh coordinate of each shard: an object ndarray with one axis
+  per sharded array axis, of the size of its mesh-axis group, holding
+  tuples. A shard's index on an array axis is its position on the
+  group's flattened ring (outer axis major); mesh axes that shard
+  nothing take coordinate 0 (their other entries are replicas of the
+  same shard)."""
   sizes = [[mesh.shape[n] for n in group] for group in axes]
   grid = tuple(int(np.prod(s)) for s in sizes)
   where = {name: k for k, name in enumerate(mesh.axis_names)}
@@ -124,7 +125,19 @@ def shard_devices(mesh: Mesh, axes: Tuple[Tuple[str, ...], ...]
     for group, size, i in zip(axes, sizes, pos):
       for name, c in zip(group, np.unravel_index(i, size)):
         coord[where[name]] = int(c)
-    out[pos] = mesh.devices[tuple(coord)]
+    out[pos] = tuple(coord)
+  return out
+
+
+def shard_devices(mesh: Mesh, axes: Tuple[Tuple[str, ...], ...]
+                  ) -> np.ndarray:
+  """The device of each shard, at its ``shard_coords`` coordinate: an
+  object ndarray with one axis per sharded array axis; where a mesh axis
+  shards nothing, the entry at index 0 computes the shard."""
+  coords = shard_coords(mesh, axes)
+  out = np.empty(coords.shape, dtype=object)
+  for pos in np.ndindex(*coords.shape):
+    out[pos] = mesh.devices[coords[pos]]
   return out
 
 

@@ -38,7 +38,16 @@ back. ``border: preserve`` is applied after the crop against the global
 boundary, from each shard's mesh position. ``overlap='on'`` is accepted
 where the JAX package accepts it and runs the same exchange as 'off'
 (the outputs are the same): on a mesh that repeats one card there is
-nothing to overlap, and distinct cards are not measured yet.
+nothing to overlap. The real overlap (the interior computing while the
+halos fly) and distinct cards live in the rank form,
+parallel/distributed.py: one process per shard over
+``torch.distributed``, as the JAX package runs one program per device.
+This form is the one for a mesh that repeats one card, where it replays
+a graph and no process waits on another. A mesh of distinct cards (the
+default mesh on a host with several) still runs here, one process
+enqueuing every card's work through ``fn_eager``'s peer copies, for a
+caller with no process group; it is kept correct and not tuned: work on
+distinct cards goes to the rank form.
 
 The JAX package's sharded call is one jitted ``shard_map``, one
 dispatch. Here, on a mesh that repeats one card with a kernel inner, a
@@ -140,6 +149,109 @@ def geometry(stencil, global_shape: Sequence[int], mesh: Mesh, dim_axes=None):
   return axes, tuple(padded), tuple(local), tuple(halos), ext
 
 
+def inner_options(inner: str, inner_opts: Optional[Mapping]
+                  ) -> Tuple[str, Dict]:
+  """The inner's name ('pallas' and 'auto' resolved to 'fused') and its
+  executor's keyword arguments, ``apply_preserve_border`` dropped (it
+  belongs to the sharded layer); raises on an unknown inner and on
+  options given to the 'xla' inner."""
+  inner = ALIASES.get(inner, inner)
+  if inner not in INNERS:
+    raise ValueError('unknown inner %r (one of %s)' %
+                     (inner, ', '.join(list(INNERS) + list(ALIASES))))
+  opts = dict(inner_opts or {})
+  opts.pop('apply_preserve_border', None)
+  if inner == 'xla' and opts:
+    raise utils.InputError('the xla inner takes no inner_opts, got %s'
+                           % sorted(opts))
+  return inner, opts
+
+
+def check_overlap(overlap: str, n_axes: int, inner: str,
+                  halos: Sequence[Tuple[int, int]],
+                  local_shape: Sequence[int]) -> None:
+  """Raise utils.InputError where ``overlap`` does not apply, by the JAX
+  package's conditions (spmd.py:290-301): one sharded axis, the 'xla'
+  inner, and a local extent no smaller than the total halo."""
+  if overlap not in ('off', 'on'):
+    raise utils.InputError("overlap must be 'off' or 'on'")
+  if overlap == 'on' and (n_axes != 1 or inner != 'xla'):
+    raise utils.InputError(
+        'overlap applies to single-axis sharding with the xla inner '
+        '(edge bands are narrow shapes the fused kernel is not built '
+        'for)')
+  if overlap == 'on' and sum(halos[0]) > local_shape[0]:
+    raise utils.InputError(
+        'overlap needs local extent %d > total halo %d (edge bands '
+        'would cover the whole shard); use overlap=off' %
+        (local_shape[0], sum(halos[0])))
+
+
+def valid_box(plan, shape: Sequence[int], local_shape: Sequence[int],
+              n_axes: int, name: str, pos: Sequence[int]
+              ) -> Tuple[slice, ...]:
+  """Local slices of the shard at ``pos`` (on ``n_axes`` sharded axes)
+  inside output ``name``'s global valid region over ``shape`` (a box:
+  the product of one interval per axis)."""
+  dim = len(shape)
+  stage = plan.stage(name)
+  box = []
+  for a in range(dim):
+    lo, hi = stage.lo[dim - 1 - a], stage.hi[dim - 1 - a]
+    base = pos[a] * local_shape[a] if a < n_axes else 0
+    start = min(max(lo - base, 0), local_shape[a])
+    stop = max(min(shape[a] - hi - base, local_shape[a]), start)
+    box.append(slice(start, stop))
+  return tuple(box)
+
+
+def preserve(stencil, box: Tuple[slice, ...], name: str, out: torch.Tensor,
+             local_in: Mapping[str, torch.Tensor]) -> torch.Tensor:
+  """``border: preserve`` with the global boundary: a shard's cells
+  outside ``box`` (its ``valid_box``) take the paired input, wrapped to
+  the output type (spmd.py:355-372)."""
+  base = border_base(stencil, name, local_in[paired_input(stencil, name)])
+  base[box] = out[box]
+  return base
+
+
+def global_inputs(stencil, shape: Tuple[int, ...],
+                  padded_shape: Tuple[int, ...],
+                  inputs: Mapping[str, np.ndarray]) -> List[np.ndarray]:
+  """numpy inputs of the global ``shape``, in input order, wrapped to
+  the declared types and zero-padded to ``padded_shape``."""
+  pads = tuple((0, p - r) for p, r in zip(padded_shape, shape))
+  out = []
+  for name in stencil.input_names:
+    if name not in inputs:
+      raise utils.InputError('missing input: %s' % name)
+    arr = np.asarray(inputs[name])
+    if arr.shape != shape:
+      raise utils.InputError('input %s shape %s != global shape %s' %
+                             (name, arr.shape, shape))
+    if padded_shape != shape:
+      arr = np.pad(arr, pads)
+    out.append(oracle.wrap(np, arr, stencil.symbol_table[name]))
+  return out
+
+
+def param_arrays(stencil, params: Optional[Mapping[str, np.ndarray]]
+                 ) -> List[np.ndarray]:
+  """numpy params, in param order, checked against their declared sizes
+  and wrapped to their types (contiguous)."""
+  params = dict(params or {})
+  out = []
+  for stmt in stencil.param_stmts:
+    if stmt.name not in params:
+      raise utils.InputError('missing param: %s' % stmt.name)
+    arr = np.asarray(params[stmt.name])
+    if arr.shape != tuple(stmt.size):
+      raise utils.InputError('param %s shape %s != declared %s' %
+                             (stmt.name, arr.shape, tuple(stmt.size)))
+    out.append(np.ascontiguousarray(oracle.wrap(np, arr, stmt.dtype)))
+  return out
+
+
 class ShardedExecutor:
   """Run a stencil over a device mesh.
 
@@ -163,7 +275,8 @@ class ShardedExecutor:
       per-shard Pallas options); ``apply_preserve_border`` belongs to
       this layer and is dropped.
     overlap: 'off' (default) or 'on' (single sharded axis, 'xla' inner,
-      as the JAX package checks; the same exchange as 'off').
+      as the JAX package checks; here the same exchange as 'off', the
+      overlapped step is the rank form's, parallel/distributed.py).
 
   ``prepare`` splits numpy inputs into ``Shards`` and params into
   ``Replicated`` copies; ``fn`` takes and returns those (outputs in the
@@ -199,27 +312,9 @@ class ShardedExecutor:
     self.distinct = list(dict.fromkeys(self.devices.flat))
     self.device = self.distinct[0]
 
-    inner = ALIASES.get(inner, inner)
-    if inner not in INNERS:
-      raise ValueError('unknown inner %r (one of %s)' %
-                       (inner, ', '.join(list(INNERS) + list(ALIASES))))
-    opts = dict(inner_opts or {})
-    opts.pop('apply_preserve_border', None)
-    if inner == 'xla' and opts:
-      raise utils.InputError('the xla inner takes no inner_opts, got %s'
-                             % sorted(opts))
-    if overlap not in ('off', 'on'):
-      raise utils.InputError("overlap must be 'off' or 'on'")
-    if overlap == 'on' and (len(self._axes) != 1 or inner != 'xla'):
-      raise utils.InputError(
-          'overlap applies to single-axis sharding with the xla inner '
-          '(edge bands are narrow shapes the fused kernel is not built '
-          'for)')
-    if overlap == 'on' and sum(self._halos[0]) > self.local_shape[0]:
-      raise utils.InputError(
-          'overlap needs local extent %d > total halo %d (edge bands '
-          'would cover the whole shard); use overlap=off' %
-          (self.local_shape[0], sum(self._halos[0])))
+    inner, opts = inner_options(inner, inner_opts)
+    check_overlap(overlap, len(self._axes), inner, self._halos,
+                  self.local_shape)
     self.inner = inner
     self.overlap = overlap
     # one executor per distinct device: one card builds once
@@ -249,7 +344,7 @@ class ShardedExecutor:
     for ex in self._inner.values():
       ex.launches = 0
 
-  # -- the exchange and the border ------------------------------------------
+  # -- the exchange ---------------------------------------------------------
 
   def _exchange(self, local: np.ndarray, axis: int) -> np.ndarray:
     """Extend every shard along ``axis`` with its neighbours' halos."""
@@ -266,31 +361,6 @@ class ShardedExecutor:
       parts.append(_permute(_map(lambda _, t: t.narrow(axis, 0, hi), local),
                             self.devices, axis, -1))
     return _map(lambda _, *ts: _cat(ts, axis), *parts)
-
-  def _valid_box(self, name: str, pos: Tuple[int, ...]) -> Tuple[slice, ...]:
-    """Local slices of shard ``pos`` inside output ``name``'s global
-    valid region (a box: the product of one interval per axis)."""
-    dim = len(self.shape)
-    stage = self.plan.stage(name)
-    box = []
-    for a in range(dim):
-      lo, hi = stage.lo[dim - 1 - a], stage.hi[dim - 1 - a]
-      base = pos[a] * self.local_shape[a] if a < len(self._axes) else 0
-      start = min(max(lo - base, 0), self.local_shape[a])
-      stop = max(min(self.shape[a] - hi - base, self.local_shape[a]), start)
-      box.append(slice(start, stop))
-    return tuple(box)
-
-  def _preserve(self, pos, name: str, out: torch.Tensor,
-                local_in: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """``border: preserve`` with the global boundary: cells of shard
-    ``pos`` outside the global valid region take the paired input,
-    wrapped to the output type (spmd.py:355-372)."""
-    base = border_base(self.stencil, name,
-                       local_in[paired_input(self.stencil, name)])
-    box = self._valid_box(name, pos)
-    base[box] = out[box]
-    return base
 
   # -- the executor contract -----------------------------------------------
 
@@ -341,8 +411,9 @@ class ShardedExecutor:
     there the recorded call copies the outputs once more than
     ``fn_eager``; its copy into the buffers replaces the eager path's
     concatenation.) The 'xla' inner (plain PyTorch, which waits on the
-    host at times), distinct cards (ROADMAP A13), arguments that
-    require grad and a call inside another recording take
+    host at times), distinct cards (the rank form,
+    parallel/distributed.py, runs those one process a card), arguments
+    that require grad and a call inside another recording take
     ``fn_eager``'s path."""
     ins, params = self._check(args)
     if not (self.recordable and graphs.capturable(args)):
@@ -402,8 +473,10 @@ class ShardedExecutor:
           memory_format=torch.contiguous_format) if copy else
                  out[crops].contiguous(), got[name])
       if self.stencil.preserve_border:
-        arr = _map(lambda pos, out: self._preserve(
-            pos, name, out, {n: a[pos] for n, a in ins.items()}), arr)
+        arr = _map(lambda pos, out: preserve(
+            self.stencil, valid_box(self.plan, self.shape, self.local_shape,
+                                    len(self._axes), name, pos),
+            name, out, {n: a[pos] for n, a in ins.items()}), arr)
       results.append(Shards(arr, self.padded_shape))
     return tuple(results)
 
@@ -477,30 +550,11 @@ class ShardedExecutor:
     """numpy inputs of the global shape -> ``Shards`` (wrapped to the
     declared types, padded to the shard grid), params -> ``Replicated``
     on every distinct mesh device; in ``fn``'s positional order."""
-    stencil = self.stencil
-    pads = tuple((0, p - r) for p, r in zip(self.padded_shape, self.shape))
-    args: List[object] = []
-    for name in stencil.input_names:
-      if name not in inputs:
-        raise utils.InputError('missing input: %s' % name)
-      arr = np.asarray(inputs[name])
-      if arr.shape != self.shape:
-        raise utils.InputError('input %s shape %s != global shape %s' %
-                               (name, arr.shape, self.shape))
-      if self.padded_shape != self.shape:
-        arr = np.pad(arr, pads)
-      args.append(self.shard(oracle.wrap(np, arr,
-                                         stencil.symbol_table[name])))
-    params = dict(params or {})
-    for stmt in stencil.param_stmts:
-      if stmt.name not in params:
-        raise utils.InputError('missing param: %s' % stmt.name)
-      arr = np.asarray(params[stmt.name])
-      if arr.shape != tuple(stmt.size):
-        raise utils.InputError('param %s shape %s != declared %s' %
-                               (stmt.name, arr.shape, tuple(stmt.size)))
-      arr = np.ascontiguousarray(oracle.wrap(np, arr, stmt.dtype))
-      args.append(Replicated(torch.from_numpy(arr), self.distinct))
+    args: List[object] = [
+        self.shard(arr) for arr in global_inputs(
+            self.stencil, self.shape, self.padded_shape, inputs)]
+    args += [Replicated(torch.from_numpy(arr), self.distinct)
+             for arr in param_arrays(self.stencil, params)]
     return tuple(args)
 
   def __call__(self, inputs: Mapping[str, np.ndarray],

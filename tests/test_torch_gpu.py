@@ -233,6 +233,33 @@ def test_overlap_on_the_card_equals_overlap_off():
 
 
 @pytest.mark.gpu
+def test_rank_form_two_gloo_ranks_on_one_card():
+  """The sharded executor's rank form, two gloo ranks on cuda:0 (halos
+  staged through host memory): bit for bit the single-controller form
+  on a mesh repeating the card (on the valid regions: a kernel need not
+  write the cells outside them), one fused launch a rank, and the real
+  overlap equal to the repeated mesh's 'on'."""
+  _need_gpu()
+  from soda_tpu_torch.parallel import dryrun
+  cases = [
+      dryrun.Case('blur', corpus.build('blur'), (64, 64), (2,)),
+      dryrun.Case('seidel2d', corpus.build('seidel2d'), (64, 64), (1, 2)),
+      dryrun.Case('jacobi2d overlap', corpus.build('jacobi2d'), (64, 32),
+                  (2,), inner='xla', overlap='on')]
+  ranks = dryrun.collect_world(cases, 2, 'gloo', 'cuda:0')
+  for i, case in enumerate(cases):
+    single = ShardedExecutor(case.stencil, case.shape, inner=case.inner,
+                             overlap=case.overlap,
+                             mesh=repeated_mesh('cuda', case.mesh_shape))
+    want = single(*dryrun.inputs_of(case))
+    check_exact(case.stencil, case.shape, ranks[0][i]['outputs'], want,
+                case.label + ': rank form vs repeated mesh')
+    assert all('staged through host memory' in r[i]['repr'] for r in ranks)
+    assert [r[i]['launches'] for r in ranks] == (
+        [0, 0] if case.inner == 'xla' else [1, 1])
+
+
+@pytest.mark.gpu
 def test_replicated_mesh_launches_once_per_entry():
   _need_gpu()
   stencil = corpus.build('blur')
