@@ -22,6 +22,7 @@ seconds:
    stencil overrides), the grouped cells' per-group kernels, the small
    replicated grid's kernel and the sharded cells' kernels at their
    halo-extended shard shapes, the mode, tuner, layout and gate kernels,
+   phase 26's options and their old kernels,
    the five hand-written probe sources (``probes.SOURCES``) and the fused
    kernels phases 17 and 18 run: one nvcc per source, all at once. Each
    cell must dispatch to the fused kernel under 'auto'.
@@ -78,10 +79,12 @@ seconds:
 
 13. kernel modes: the ``testing.MODE_CELLS`` at the benchmark shapes
    (the streaming loop plain and peeled, the deep cp.async ring, split
-   fills, staged stores) through ``get_executor(..., **options)``, each
-   counter reset just before its run and read just after: one launch per
-   call; held against the mode's plain version (``streamed_stencil_plain``,
-   the kernel's walk: runs of tiles, rolling windows) and against
+   fills, staged stores; each on the short form, phase 26 holds them
+   against the old mode kernel) through ``get_executor(..., **options)``,
+   each counter reset just before its run and read just after: one
+   launch per call; held against the mode's plain version
+   (``streamed_stencil_plain``, the kernel's walk: runs of tiles; taken
+   once for 'peel' and True, which build one kernel) and against
    ``fused_stencil_plain`` over the whole grid; blur bit-exact against the
    NumPy oracle; the cold-L2 median beside the default kernel's, the bound
    and its share, back-to-back device microseconds, CTAs and steps per CTA.
@@ -258,10 +261,24 @@ seconds:
    one rank a card, through ``torchrun --standalone`` and the dry run's
    own spawn: the nine configs against the oracle. A rank that fails
    fails the run.
+26. options: the public kernel options on the short form
+   (``option_rows``: every ``testing.MODE_CELLS`` row, each short cell
+   at its rule's tile and that tile's axis-0 extent halved and doubled,
+   jacobi3d_256 with the JAX seeds' block_rows and mid_tile), each
+   through ``get_executor(..., **keys)`` with its counter reset just
+   before and read just after (one launch): bit for bit equal to the old
+   kernel the same keys build with ``_short=()`` (the default form's
+   kernel or mode kernel; where that kernel's buffers pass shared memory
+   it never ran, and the cell's default kernel stands in), within the
+   threshold of the plain version, blur bit-exact against the NumPy
+   oracle; device
+   µs a call back to back (replayed from a CUDA graph) as old, new, new,
+   old after a settle run, then the default kernel's, the tile, elements
+   off, resident CTAs, registers and spills, the bound and its share.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
-...}``: the fused kernel's per cell, mode and layout row, and each
+...}``: the fused kernel's per cell, mode, option and layout row, and each
 probe case and body, ``probe_stream``, ``probe_chain``,
 ``probe_narrow``, ``probe_copy`` and ``probe_25d``, and the rank form's
 kernel cells), and ``{"ok": true,
@@ -334,6 +351,14 @@ EMIT_REPS = 5
 EXAMPLES = ('image_pipeline', 'iterative_solver', 'multichip_relaxation')
 # phase 25: the rank form's ranks on the card (gloo)
 RANKS = 4
+# phase 26: each row's back-to-back calls a measurement, replayed from a
+# CUDA graph (0.03-0.4 ms a call: enqueued from Python, the fastest read
+# the host's time), its settle run's seconds, and jacobi3d_256 with the
+# JAX seeds' block_rows and mid_tile
+OPTION_CALLS = 100
+OPTION_SETTLE_S = 0.2
+OPTION_FIXED = (('jacobi3d_256', {'block_rows': 16}),
+                ('jacobi3d_256', {'mid_tile': 64}))
 # phase 24: the estimate's time against the measured one, and the slack a
 # measured share may take over the model's ceiling
 EST_RANGE = (0.67, 1.5)
@@ -560,10 +585,10 @@ def short_phase(cells, plains, smi, log):
           '%s, %d registers, spills %d/%d B%s' % (
               name, label, step.plan.tile, step.plan.smem_bytes,
               short.ctas if short else 0, card['ctas_per_sm'],
-              '%d barriers a tile, %.2f evaluations and %.2f fills/output, '
-              '%d cell(s) a thread, %d step(s) a CTA' % (
-                  len(short.barriers), short.evaluations, short.fills,
-                  short.vec, step.plan.steps) if short else
+              'elements on: %s, %d barriers a tile, %.2f evaluations and '
+              '%.2f fills/output, %d cell(s) a thread, %d step(s) a CTA' % (
+                  '+'.join(short.on), len(short.barriers), short.evaluations,
+                  short.fills, short.vec, step.plan.steps) if short else
               '%d barriers a tile' % len(step.plan.stages),
               'registers: %s' % (', '.join(short.values) or 'none')
               if short else 'every stage buffered', card['registers'],
@@ -615,6 +640,144 @@ def short_phase(cells, plains, smi, log):
     torch.cuda.synchronize()
     log('%-12s (%.1fs)' % (name, time.time() - t))
   return lib
+
+
+def option_rows(stencils):
+  """(cell, keys) of phase 26: every ``testing.MODE_CELLS`` row; for each
+  short cell, ``tile=`` its rule's tile, that tile's axis-0 extent
+  halved (jacobi3d_256, whose rule takes 1: its axis-1 extent) and
+  doubled; ``OPTION_FIXED``."""
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+  rows = list(testing.MODE_CELLS)
+  for name, shape, _ in short_cells():
+    t = make_tile_plan(stencils[name], shape).tile
+    half = (t[0] // 2,) + t[1:] if t[0] > 1 else (1, t[1] // 2) + t[2:]
+    rows += [(name, {'tile': tile})
+             for tile in (t, half, (t[0] * 2,) + t[1:])]
+  return rows + list(OPTION_FIXED)
+
+
+def option_sources(stencils, shape_of):
+  """The kernel sources of phase 26: each row's short form and its old
+  kernel (``_short=()``, the same keys) where that fits shared memory
+  (the old form took an explicit tile past it, and failed at launch)."""
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.tile_plan import SMEM_LIMIT, kernel_plan
+  plans = [kernel_plan(stencils[name], shape_of[name], **keys, **old)
+           for name, keys in option_rows(stencils)
+           for old in ({}, {'_short': ()})]
+  return [cuda_source.generate(p) for p in plans
+          if p.smem_bytes <= SMEM_LIMIT]
+
+
+def option_label(keys):
+  return ' '.join('%s=%s' % (k, ','.join(map(str, v)) if k == 'tile' else v)
+                  for k, v in sorted(keys.items()))
+
+
+def options_phase(cells, plains, plain_ms_of, lib, check_oracle, smi, log):
+  """Phase 26: the public kernel options on the short form. Each row of
+  ``option_rows`` through ``get_executor(..., **keys)``, its counter
+  reset just before the user's call and read just after (one launch):
+  bit for bit equal to the old kernel the same keys build with
+  ``_short=()`` on the valid regions (where that kernel's buffers pass
+  shared memory, so that it never launched: to the cell's default
+  kernel, ``cells``: phase 2's executors), within the threshold of the
+  plain version ``plains[name]`` (phase 4's), blur bit-exact against
+  the NumPy oracle; after a settle run, device µs a call back to back
+  (``profiling.replay_us``) as old, new, new, old, then the default
+  kernel's; the tile, the elements off, resident CTAs (the plan's and
+  the card's), registers and spills. Returns the rows' kernel records
+  (``library_ms``: the cell's, ``lib``)."""
+  import torch
+  import soda_tpu_torch
+  from soda_tpu_torch import profiling, testing
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.fused import FusedExecutor
+  from soda_tpu_torch.backend.tile_plan import SMEM_LIMIT, kernel_plan
+  from soda_tpu_torch.model.compiled import compiled_stats
+  by_name = {c[0]: c for c in cells}
+  stencils = {c[0]: c[2] for c in cells}
+  settled = set()
+  records = []
+  for name, keys in option_rows(stencils):
+    _, shape, stencil, default, inputs, params = by_name[name]
+    t = time.time()
+    label = '%s %s' % (name, option_label(keys))
+    new = soda_tpu_torch.get_executor(stencil, shape, **keys)
+    old_bytes = kernel_plan(stencil, shape, **keys, _short=()).smem_bytes
+    old = (FusedExecutor(stencil, shape, **keys, _short=())
+           if old_bytes <= SMEM_LIMIT else default)
+    if not isinstance(new, FusedExecutor) or new.plan.short is None or (
+        old is not default and old.plan.short is not None):
+      raise RuntimeError('%s: not the short form against the old kernel'
+                         % label)
+    against = ('old kernel' if old is not default else 'default kernel (the '
+               'old kernel needs %d B of shared memory: it never ran)' %
+               old_bytes)
+    new.launches = 0
+    got = new(inputs, params)
+    torch.cuda.synchronize()
+    launches = new.launches
+    if launches != 1:
+      raise RuntimeError('%s: %d launches for one call' % (label, launches))
+    args = new.prepare(inputs, params)
+    testing.check_exact(stencil, shape, got, dict(zip(
+        stencil.output_names, old.fn(*args))), '%s vs the %s' % (
+            label, against))
+    err = testing.check_outputs(stencil, shape, got, plains[name],
+                                label + ' vs plain')
+    exact = ''
+    if name == FLAGSHIP:
+      check_oracle(got, label)
+      exact = ', bit-exact vs the NumPy oracle'
+    del got
+    card = compiled_stats(new)['kernels'][0]
+
+    def b2b(e):
+      return profiling.replay_us(lambda: e.fn(*args), calls=OPTION_CALLS)
+
+    if name not in settled:  # a cell's first row: a second of its work
+      profiling.settle(lambda: default.fn(*args))
+      settled.add(name)
+    profiling.settle(lambda: new.fn(*args), OPTION_SETTLE_S)
+    seq = [b2b(old), b2b(new), b2b(new), b2b(old)]
+    default_us = b2b(default)
+    ratio = (seq[1] + seq[2]) / (seq[0] + seq[3])
+    new_us = (seq[1] + seq[2]) / 2
+    lead = next((k for k in ('prefetch', 'dma_split', 'out_dma',
+                             'stream_loop') if k in keys), None)
+    replaces = (cuda_source.MODE_REPLACES[lead] if lead else
+                'soda_tpu/backend/pallas_kernel.py:1605' if 'mid_tile' in keys
+                else cuda_source.REPLACES)
+    records.append(record('fused_stencil_option[%s]' % label,
+                          'soda_tpu_torch/backend/cuda_source.py', replaces,
+                          launches, err, new_us / 1e3, plain_ms_of[name],
+                          stencil, shape))
+    records[-1]['library_ms'] = lib.get(name)
+    plan, short = new.plan, new.plan.short
+    bound = records[-1]['bound_ms']
+    log('%-40s tile %s, %d CTAs x %d steps, depth %d, elements on: %s%s, '
+        '%d B smem, %d CTA(s)/SM (card %d), %d registers, spills %d/%d B: 1 '
+        'launch, == %s bit for bit, == plain (max |err| %.3g)%s; back to '
+        'back %s, new, new, %s %.1f/%.1f/%.1f/%.1f us/call (new/%s %.3f), '
+        'default kernel %.1f us (new/default %.3f); bound %.4f ms, share new '
+        '%.1f%% (%.1fs) | %s' % (
+            label, plan.tile, plan.n_ctas, plan.steps, short.depth,
+            '+'.join(short.on),
+            ' (off: %s)' % ', '.join(sorted(short.off)) if short.off else '',
+            plan.smem_bytes, short.ctas, card['ctas_per_sm'],
+            card['registers'], card['spill_stores'], card['spill_loads'],
+            against, err, exact, *(('old',) * 2 if old is not default else
+                                   ('default',) * 2),
+            seq[0], seq[1], seq[2], seq[3],
+            'old' if old is not default else 'default', ratio, default_us,
+            new_us / default_us, bound, 100 * bound / (new_us / 1e3),
+            time.time() - t, smi))
+    del new, old, args
+  torch.cuda.empty_cache()
+  return records
 
 
 def example_modules(here):
@@ -1283,6 +1446,8 @@ def main() -> int:
   # (phase 20)
   sources += deep_sources(stencils[DEEP_CELL], shape_of[DEEP_CELL])
   sources += short_sources(stencils)
+  # the public options on the short form and their old kernels (phase 26)
+  sources += option_sources(stencils, shape_of)
   # the examples' kernels (phase 23)
   examples = example_modules(here)
   sources += example_sources(examples, card)
@@ -1716,6 +1881,7 @@ def main() -> int:
                        plan.smem_bytes, plan.n_ctas, plan.steps, plan.slots,
                        ', rolling' if plan.rolling else ''))
     modes.append((name, opts, ex))
+  walked = {}  # the last row's kernel digest -> (its walk's outputs, ms)
   for name, opts, ex in modes:
     _, shape, stencil, _, inputs, params = by_name[name]
     ex.launches = 0
@@ -1732,11 +1898,17 @@ def main() -> int:
     check_finite(stencil, shape, got, label)
     testing.check_outputs(stencil, shape, got, plains[name],
                           label + ' vs whole-grid plain')
-    streamed = []
-    p_ms = profiling.cuda_times_ms(
-        lambda: streamed.append(streamed_stencil_plain(
-            stencil, args[:n_in], args[n_in:], tile=ex.plan)),
-        reps=1, warmup=0)[0]
+    # 'peel' builds the kernel stream_loop=True builds (the row before):
+    # that kernel's walk in plain PyTorch is taken once
+    digest = cuda_source.generate(ex.plan).digest
+    if digest not in walked:
+      streamed = []
+      p_ms = profiling.cuda_times_ms(
+          lambda: streamed.append(streamed_stencil_plain(
+              stencil, args[:n_in], args[n_in:], tile=ex.plan)),
+          reps=1, warmup=0)[0]
+      walked = {digest: (streamed, p_ms)}
+    streamed, p_ms = walked[digest]
     err = testing.check_outputs(stencil, shape, got,
                                 dict(zip(stencil.output_names, streamed[0])),
                                 label + ' vs streamed plain')
@@ -1768,6 +1940,7 @@ def main() -> int:
             ms, kernel_ms[name], ms / kernel_ms[name], bound,
             100 * bound / ms, p_ms, device_us, time.time() - t, smi))
     del got, args
+  del walked
   torch.cuda.empty_cache()
 
   # 14. tools: the tuner, the validation gate, compiled statistics, and
@@ -2316,6 +2489,13 @@ def main() -> int:
                          card, lib, here, env, smi,
                          lambda line: say('[ranks] ' + line))
   say('[ranks] phase 25 (%.1fs)' % (time.time() - t25))
+
+  # 26. the public kernel options on the short form against the old
+  # kernels they built before
+  t26 = time.time()
+  kernels += options_phase(cells, plains, plain_ms_of, lib, check_oracle,
+                           smi, lambda line: say('[options] ' + line))
+  say('[options] phase 26 (%.1fs)' % (time.time() - t26))
 
   launch.no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

@@ -45,9 +45,10 @@ from soda_tpu_torch.backend.c_semantics import binary_type, promote
 from soda_tpu_torch.ir import nodes as ir
 from soda_tpu_torch.ir.types import Type
 
-from soda_tpu_torch.backend.tile_plan import (WARPS, TilePlan, copy_width,
-                                               last_readers, register_rows,
-                                               value_closure)
+from soda_tpu_torch.backend.tile_plan import (SMS, WARPS, TilePlan,
+                                               copy_width, last_readers,
+                                               register_rows, value_closure,
+                                               walk_rows)
 
 # Threads per CTA: every stage loop strides its tile extent by this.
 THREADS = 32 * WARPS
@@ -1242,14 +1243,26 @@ def _short_kernel(plan: TilePlan) -> str:
   Each buffer is a ring of ``short.rings`` axis-0 rows, addressed from
   the tensor's phase ``ph_<name>``; the run's first step fills and
   computes whole extents, a later step only the rows it does not share
-  with the step before (``kFirst``), and a step's first act after its
-  barrier is to issue the next step's new input rows (one cp.async
-  group), waited for at its end."""
+  with the step before (``kFirst``; an output also its tile's rows the
+  step before computed, tile_plan.walk_rows), and a step's first act
+  after its barrier is to issue the new input rows of the step
+  ``short.depth - 1`` ahead (one cp.async group), the next step's waited
+  for at its end.
+
+  The public modes (``plan.config``): ``stream_loop`` is the walk (True
+  and 'peel' build the same text: a step inside every stage's valid
+  region already runs in the interior class, without axis-0 checks),
+  ``prefetch`` its depth, ``dma_split`` cuts each fill into that many
+  commit groups over axis-0 sub-ranges, and ``out_dma`` writes each
+  output's tile into a staging buffer, then after a barrier stores it
+  row by row (16 bytes a thread where the rows allow)."""
   st = plan.stencil
   dim, shape, tile = plan.dim, plan.shape, plan.tile
   short = plan.short
   vec, last = short.vec, plan.dim - 1
   walk = short.has('walk') and dim >= 2
+  ahead = short.depth - 1  # the tiles whose rows are in flight
+  split = plan.config.dma_split
   strides = _strides(shape)
   params = ', '.join('p_%s' % s.name for s in st.param_stmts)
   outputs = set(st.output_names)
@@ -1260,26 +1273,32 @@ def _short_kernel(plan: TilePlan) -> str:
   def itemsize(name):
     return plan.dtype(name).np_dtype.itemsize
 
-  def rows_range(name, first):
+  def rows_range(name, first, part=None):
     """(first extent row, count) of the axis-0 rows a step computes or
-    fills."""
+    fills; ``part`` (j, n): the j-th of n sub-ranges of them (dma_split,
+    as the mode kernel cuts its fills)."""
     ext0 = plan.extent(name)[0]
-    if first or not walk:
-      return 0, ext0
-    fresh = min(tile[0], ext0)
-    return ext0 - fresh, fresh
+    start, count = 0, ext0
+    if walk and not first:
+      count = walk_rows(st, name, tile[0], plan.spans)
+      start = ext0 - count
+    if part is not None:
+      j, n = part
+      start += count // n * j + min(j, count % n)
+      count = count // n + (1 if j < count % n else 0)
+    return start, count
 
-  def units(name, width, first):
+  def units(name, width, first, part=None):
     """The rows a step covers, and the frame row in units of
     ``width``."""
     if not last:
       return (short.pitch(name) // width,)
-    return ((rows_range(name, first)[1],) + plan.extent(name)[1:-1] +
+    return ((rows_range(name, first, part)[1],) + plan.extent(name)[1:-1] +
             (short.pitch(name) // width,))
 
-  def row_coords(name, first):
+  def row_coords(name, first, part=None):
     neg = plan.spans[name][0]
-    e0 = rows_range(name, first)[0]
+    e0 = rows_range(name, first, part)[0]
     return ['const int g%d = o%d %s %d + l%d;' % (
         a, a, '-' if neg[a] - (e0 if a == 0 else 0) >= 0 else '+',
         abs(neg[a] - (e0 if a == 0 else 0)), a) for a in range(last)]
@@ -1301,7 +1320,7 @@ def _short_kernel(plan: TilePlan) -> str:
     return ['int %s = %s + %s;' % (var, phase or 'ph_%s' % name, row),
             'if (%s >= %d) %s -= %d;' % (var, ring, var, ring)], var
 
-  def fill_blocks(first, phase):
+  def fill_blocks(first, phase, part=None):
     lines, copies = [], False
     for name in st.input_names:  # frames, 0 outside the array
       if not plan.buffered(name):
@@ -1309,11 +1328,13 @@ def _short_kernel(plan: TilePlan) -> str:
       cv = short.fill_chunk(itemsize(name))
       a0 = short.frames[name][0]
       t = storage_ctype(plan.dtype(name))
-      ext_u = units(name, cv, first)
-      e0 = rows_range(name, first)[0]
+      ext_u = units(name, cv, first, part)
+      if not ext_u[0]:
+        continue  # an empty sub-range
+      e0 = rows_range(name, first, part)[0]
       inside = ' && '.join('g%d >= 0 && g%d < %d' % (a, a, shape[a])
                            for a in range(dim))
-      cell = row_coords(name, first) + [
+      cell = row_coords(name, first, part) + [
           'const int g%d = o%d - %d + l%d * %d;' % (last, last, a0, last, cv)]
       if walk:
         more, q0 = ring_row(name, 'l0 + %d' % e0, 'q0', phase(name))
@@ -1321,6 +1342,9 @@ def _short_kernel(plan: TilePlan) -> str:
         dst = 's_%s + %s + l%d * %d' % (
             name, row_flat(name, [q0] + ['l%d' % a for a in range(1, last)]),
             last, cv)
+      elif e0:  # a later sub-range of the extent's rows
+        dst = 's_%s + %d + i * %d' % (name, e0 * int(np.prod(
+            plan.extent(name)[1:-1])) * short.pitch(name), cv)
       else:
         dst = 's_%s + i * %d' % (name, cv)
       if cv > 1:
@@ -1340,6 +1364,19 @@ def _short_kernel(plan: TilePlan) -> str:
                 '  ' + _smem_ptr(plan, name, False)]
       lines += ['  ' + s for s in _cell_map(ext_u)]
       lines += ['  ' + s for s in _fixed_cells(ext_u, cell)] + ['}']
+    return lines, copies
+
+  def split_fill(first, phase):
+    """The fill of a step in ``split`` commit groups (dma_split): each
+    sub-range of every input's rows, then its commit."""
+    lines, copies = [], False
+    for j in range(split):
+      part, got = fill_blocks(first, phase, (j, split))
+      copies = copies or got
+      lines += (['// sub-range %d of %d' % (j + 1, split)] if split > 1
+                else []) + part + ['soda::cp_async_commit();']
+    if not copies:  # plain loads: no groups to commit
+      lines = [x for x in lines if x != 'soda::cp_async_commit();']
     return lines, copies
 
   def valid(name):
@@ -1463,9 +1500,19 @@ def _short_kernel(plan: TilePlan) -> str:
                              ['gc < %d' % shape[last]])
         test = ' && '.join(own + ['(!kEdge || (%s))' % inside])
         at = _flat(['g%d' % a for a in range(last)] + ['gc'], strides)
+        if plan.config.out_dma:  # into the staging tile (stored later)
+          test = ' && '.join(own) or 'true'
+          at = 'x0'
+          for a in range(last - 1, -1, -1):
+            at = '(g%d - o%d) * %d + %s' % (a, a, int(np.prod(
+                tile[a + 1:])), at)
+          where = 't_%s + (%s)' % (name, at)
+        else:
+          where = 'o_%s + (%s)' % (name, at)
         if vec > 1:
-          cell.append('if (%s) soda::stv<%d>(o_%s + (%s), v);' % (
-              test, unit, name, at))
+          cell.append('if (%s) soda::stv<%d>(%s, v);' % (test, unit, where))
+        elif plan.config.out_dma:
+          cell.append('if (%s) *(%s) = v[0];' % (test, where))
         else:
           cell.append('if (%s) o_%s[%s] = v[0];' % (test, name, at))
       block = ['{  // stage %s, rows %s, frame [-%d, %d), %d cell(s) a '
@@ -1476,21 +1523,31 @@ def _short_kernel(plan: TilePlan) -> str:
         block.append('  ' + _smem_ptr(plan, p, True))
       if plan.buffered(name):
         block.append('  ' + _smem_ptr(plan, name, False))
+      if name in plan.staging:
+        block.append('  %s* t_%s = reinterpret_cast<%s*>(soda_smem + %d);' %
+                     (t, name, t, plan.staging[name]))
       block += ['  ' + s for s in _cell_map(ext_u)]
       block += ['  ' + s for s in _fixed_cells(ext_u, cell)] + ['}']
       body += block
-    return body
+    return body + (_staged_stores(plan, 'kEdge') if plan.staging else [])
 
-  out = _kernel_head(plan, short.ctas)
+  # the launch bounds ask registers for the resident CTAs the shared
+  # memory leaves; under stream_loop no more than its grid puts on an SM
+  # (runs of steps_per_cta leave about two an SM: capping it there frees
+  # registers that would otherwise spill). Elsewhere the grid's CTAs are
+  # not the launch's: the replicated and sharded executors launch
+  # replicas as gridDim.y.
+  ctas = short.ctas
+  if plan.config.stream_loop:
+    ctas = min(ctas, -(-plan.n_ctas // SMS))
+  out = _kernel_head(plan, ctas)
   inside = ' && '.join('o%d >= %d && o%d <= %d' % (a, lo, a, hi)
                        for a, (lo, hi) in enumerate(short.interior))
   if not walk:
     out.append('  const int o0 = (int)bid * %d;' % tile[0])
-    fill, copies = fill_blocks(True, None)
-    body = fill
+    body, copies = split_fill(True, None)
     if copies:
-      body += ['soda::cp_async_commit();',
-               'soda::cp_async_wait<0>();  // this thread\'s copies landed']
+      body.append('soda::cp_async_wait<0>();  // this thread\'s copies landed')
     body += stage_blocks(True)
     run = ['auto tile_body = [&](auto edge) {',
            '  constexpr bool kEdge = decltype(edge)::value;']
@@ -1509,8 +1566,27 @@ def _short_kernel(plan: TilePlan) -> str:
 
   steps, grid0 = plan.steps, plan.grid[0]
   rings = short.rings
-  first_fill, copies = fill_blocks(True, lambda name: 'ph_%s' % name)
-  next_fill, _ = fill_blocks(False, lambda name: 'fph_%s' % name)
+  # The forks on ``ahead > 1`` (the fill's signature, the fills ahead of
+  # the loop, the steady state's prefetch) and on ``split > 1`` (the
+  # fill's commit inside split_fill or after fill_blocks) exist only to
+  # keep the default depth-2 walk's text, and so the default kernels'
+  # pinned digests (CELL_SOURCES), as they were before the modes joined
+  # the walk; one text with ``ahead`` as a parameter compiles alike.
+  fill_of = split_fill if split > 1 else fill_blocks
+  first_fill, copies = fill_of(True, lambda name: 'ph_%s' % name)
+  next_fill, _ = fill_of(False, lambda name: 'fph_%s' % name)
+  # the groups a fill commits; where a wait leaves some in flight, a
+  # step past the run's end commits as many empty ones (keeping the count)
+  groups = split if copies else 0
+
+  def close(indent):
+    """The end of the branch that fills a step ahead."""
+    if not groups or ahead == 1:
+      return [indent + '}']
+    return [indent + '} else {',
+            indent + '  for (int j = 0; j < %d; ++j) soda::cp_async_commit();'
+            % groups, indent + '}']
+
   run = ['const int k_first = (int)bid * %d;' % steps,
          'const int k_end = k_first + %d < %d ? k_first + %d : %d;' % (
              steps, grid0, steps, grid0),
@@ -1518,21 +1594,28 @@ def _short_kernel(plan: TilePlan) -> str:
          '// (ph + r) mod rows',
          ] + ['int ph_%s = 0;  // %d rows' % (n, rows)
               for n, rows in rings.items()]
-  run += ['// the input rows of step k (kFirst: its whole extents; else',
-          '// those the step before does not share), issued as cp.async',
-          '// copies where they are 16-byte ones',
-          'auto fill = [&](auto edge, auto first, int k) {',
-          '  constexpr bool kEdge = decltype(edge)::value;',
+  if ahead > 1:
+    run += ['// the input rows of step k, ``ahead`` steps after the current',
+            '// one (kFirst: its whole extents; else those the step before',
+            '// does not share), issued as cp.async copies where they are',
+            '// 16-byte ones',
+            'auto fill = [&](auto edge, auto first, int k, int ahead) {']
+  else:
+    run += ['// the input rows of step k (kFirst: its whole extents; else',
+            '// those the step before does not share), issued as cp.async',
+            '// copies where they are 16-byte ones',
+            'auto fill = [&](auto edge, auto first, int k) {']
+  run += ['  constexpr bool kEdge = decltype(edge)::value;',
           '  const int o0 = k * %d;' % tile[0],
           '  if constexpr (decltype(first)::value) {']
   run += ['    ' + s for s in first_fill]
   run += ['  } else {']
-  run += ['    const int fph_%s = (ph_%s + %d) %% %d;' % (n, n, tile[0],
-                                                        rings[n])
-          for n in st.input_names if n in rings]
+  run += ['    const int fph_%s = (ph_%s + %s) %% %d;' % (
+      n, n, '%d' % tile[0] if ahead == 1 else 'ahead * %d' % tile[0],
+      rings[n]) for n in st.input_names if n in rings]
   run += ['    ' + s for s in next_fill]
   run += ['  }']
-  if copies:
+  if copies and split == 1:
     run.append('  soda::cp_async_commit();')
   run += ['};',
           'auto step = [&](auto edge, auto first, int k) {',
@@ -1552,21 +1635,36 @@ def _short_kernel(plan: TilePlan) -> str:
             '};']
   else:
     run += ['auto inner = [&](int) { return false; };']
+  more = ', 1' if ahead > 1 else ''
   run += ['if (inner(k_first)) fill(std::false_type{}, std::true_type{}, '
-          'k_first);',
-          'else fill(std::true_type{}, std::true_type{}, k_first);']
+          'k_first%s);' % more,
+          'else fill(std::true_type{}, std::true_type{}, k_first%s);' % more]
+  if ahead > 1:  # the steps after the first whose rows go ahead of it
+    run += ['for (int j = 1; j < %d; ++j) {' % ahead,
+            '  if (k_first + j < k_end) {',
+            '    if (inner(k_first + j)) fill(std::false_type{}, '
+            'std::false_type{}, k_first + j, j);',
+            '    else fill(std::true_type{}, std::false_type{}, k_first + j, '
+            'j);'] + close('  ') + ['}']
   if copies:
-    run.append('soda::cp_async_wait<0>();')
+    run.append('soda::cp_async_wait<%d>();' % ((ahead - 1) * groups))
   run += ['#pragma unroll 1',
           'for (int k = k_first; k < k_end; ++k) {',
           '  __syncthreads();  // step k\'s input rows landed, step k - 1 '
-          'done',
-          '  if (k + 1 < k_end) {',
-          '    if (inner(k + 1)) fill(std::false_type{}, std::false_type{}, '
-          'k + 1);',
-          '    else fill(std::true_type{}, std::false_type{}, k + 1);',
-          '  }',
-          '  const bool in = inner(k);',
+          'done']
+  if ahead > 1:
+    run += ['  if (k + %d < k_end) {' % ahead,
+            '    if (inner(k + %d)) fill(std::false_type{}, std::false_type{}, '
+            'k + %d, %d);' % (ahead, ahead, ahead),
+            '    else fill(std::true_type{}, std::false_type{}, k + %d, %d);'
+            % (ahead, ahead)] + close('  ')
+  else:
+    run += ['  if (k + 1 < k_end) {',
+            '    if (inner(k + 1)) fill(std::false_type{}, std::false_type{}, '
+            'k + 1);',
+            '    else fill(std::true_type{}, std::false_type{}, k + 1);',
+            '  }']
+  run += ['  const bool in = inner(k);',
           '  if (k == k_first) {',
           '    if (in) step(std::false_type{}, std::true_type{}, k);',
           '    else step(std::true_type{}, std::true_type{}, k);',
@@ -1575,7 +1673,8 @@ def _short_kernel(plan: TilePlan) -> str:
           '    else step(std::true_type{}, std::false_type{}, k);',
           '  }']
   if copies:
-    run.append('  soda::cp_async_wait<0>();  // the next step\'s rows')
+    run.append('  soda::cp_async_wait<%d>();  // the next step\'s rows' %
+               ((ahead - 1) * groups))
   run += ['  ph_%s = (ph_%s + %d) %% %d;' % (n, n, tile[0], rows)
           for n, rows in rings.items()]
   run.append('}')
@@ -1605,6 +1704,25 @@ def _short_note(plan: TilePlan) -> str:
               '// buffer a ring of axis-0 rows (%s), the next tile\'s new' %
               ', '.join('%s %d' % kv for kv in short.rings.items()),
               '// input rows in flight while a tile computes.']
+  cfg = plan.config
+  if cfg.stream_loop:
+    lines += ['// stream_loop (%s): the walk, %d tiles a run' % (
+        MODE_REPLACES['stream_loop'], plan.steps),
+              '// (tile_plan.steps_per_cta); True and \'peel\' build this '
+              'same text: a',
+              '// step inside every stage\'s valid region runs without axis-0 '
+              'checks.']
+  if cfg.prefetch > 2:
+    lines.append('// prefetch=%d (%s): the input rows of the %d tiles after '
+                 'the current one in flight.' % (
+                     cfg.prefetch, MODE_REPLACES['prefetch'], short.depth - 1))
+  if cfg.dma_split > 1:
+    lines.append('// dma_split=%d (%s): each fill in %d cp.async commit '
+                 'groups over axis-0 sub-ranges.' % (
+                     cfg.dma_split, MODE_REPLACES['dma_split'], cfg.dma_split))
+  if cfg.out_dma:
+    lines.append('// out_dma (%s): each output tile staged in shared memory, '
+                 'stored after a barrier row by row.' % MODE_REPLACES['out_dma'])
   return '\n'.join(lines + [
       '// Bound on this card: bytes (each input read once, each output',
       '// written once; a stencil does a few operations per byte). The design',
@@ -1697,10 +1815,12 @@ def _fill_function(plan: TilePlan, index: int, name: str) -> List[str]:
   return out
 
 
-def _staged_stores(plan: TilePlan) -> List[str]:
+def _staged_stores(plan: TilePlan, check: str = 'kCheck0') -> List[str]:
   """out_dma: after a barrier, each output's staged tile stored row by
   row (16 bytes per thread where the rows and the tile's rows are whole
-  16-byte units, else one element per thread), clipped to the array."""
+  16-byte units, else one element per thread), clipped to the array
+  (on axis 0 only where ``check``: the mode kernel's ``kCheck0``, the
+  short form's ``kEdge``)."""
   st = plan.stencil
   dim, shape, tile = plan.dim, plan.shape, plan.tile
   strides = _strides(shape)
@@ -1726,7 +1846,7 @@ def _staged_stores(plan: TilePlan) -> List[str]:
       out.append('        const int t%d = r %% %d;' % (a, tile[a]))
       out.append('        r /= %d;' % tile[a])
     out.append('        const int t0 = r;')
-    inside = ['(!kCheck0 || o0 + t0 < %d)' % shape[0]]
+    inside = ['(!%s || o0 + t0 < %d)' % (check, shape[0])]
     inside += ['o%d + t%d < %d' % (a, a, shape[a]) for a in range(1, last)]
     inside.append('o%d + c < %d' % (last, shape[-1]))
     index = ' + '.join(['(long long)(o%d + t%d) * %dll' % (a, a, strides[a])

@@ -218,7 +218,8 @@ def fused_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
   Returns the outputs (storage tensors), zero outside each valid region.
   """
   shape = tuple(inputs[0].shape)
-  plan = tile if tile is not None else make_tile_plan(stencil, shape, shape)
+  plan = tile if tile is not None else make_tile_plan(stencil, shape, shape,
+                                                      _short=())
   device = inputs[0].device
   ins, pars = _repr_args(stencil, inputs, params)
   readers = last_readers(plan.stages)
@@ -704,26 +705,31 @@ class FusedExecutor:
     stencil: a core.Stencil of this package.
     shape: full array shape (streaming axis first).
     device: 'cuda' (default; raises without a usable GPU) or 'cpu'.
-    tile: output tile per CTA (default: the largest that fits shared
-      memory, see tile_plan.make_tile_plan).
+    tile: output tile per CTA (default: the tile the kernel's form
+      picks, see tile_plan.make_tile_plan). Every tile, block_rows,
+      mid_tile and mode key builds the short form (tile_plan.ShortForm);
+      the private ``_short=()`` keeps the old kernels those keys built
+      before, for the comparisons that measure them.
     replicas: None for one grid of ``shape`` per call, or R (1 to
       cuda_source.MAX_REPLICAS) for a batch of R independent grids,
       inputs and outputs of shape ``(R, *shape)``, in one launch.
     apply_preserve_border: apply ``border: preserve`` after the kernel
       (default). The sharded executor passes False: it crops each
       shard and redoes the border against the global grid.
-    stream_loop: False (one CTA per tile), True (one CTA walks a run of
-      consecutive axis-0 tiles of one tile column, keeping its input
-      windows in shared memory; tile_plan.steps_per_cta sizes the run)
-      or 'peel' (the same, with a run's first and last steps bounds
-      checked on axis 0 and the steady steps not; at least 4 steps).
-    prefetch: input windows in flight, 2-4 (the cp.async ring's depth;
-      > 2 needs ``stream_loop``: a CTA without it computes one tile, so
-      there is no next step to fetch). Depth 2 with at least 3 steps
-      and an axis-0 halo shorter than the tile loads only the new rows
-      of each window (the rolling fill).
-    dma_split: 1-8, 3-D grids only: each window fill issued as that
-      many cp.async commit groups over plane sub-ranges.
+    stream_loop: False (one CTA per tile; a 3-D grid's default walk
+      aside), True (one CTA walks a run of consecutive axis-0 tiles of
+      one tile column, the short form's 'walk': each buffer a ring of
+      rows, a step filling only its new input rows; tile_plan.
+      steps_per_cta sizes the run) or 'peel' (the same; on the short
+      form the same kernel, whose steps inside every stage's valid
+      region run without bounds checks; in the old mode kernel a run's
+      first and last steps checked on axis 0, at least 4 steps).
+    prefetch: tiles whose input rows a CTA holds at once, 2-4 (the
+      walk's depth: the rows of the ``prefetch - 1`` tiles after the
+      current one in flight; > 2 needs ``stream_loop``: a CTA without it
+      computes one tile, so there is no next step to fetch).
+    dma_split: 1-8, 3-D grids only: each fill issued as that many
+      cp.async commit groups over axis-0 sub-ranges.
     out_dma: stage each output tile in shared memory and store it after
       a barrier with a cooperative, row-contiguous store.
     block_rows, mid_tile: the tile's axis-0 and axis-1 extents, by the

@@ -24,15 +24,19 @@ All tuples here are in array-axis order (streaming axis first, DSL
 dimension 0 last), like the executors' arrays.
 
 Kernel modes (``KernelConfig``, the structural keys of the TPU kernel,
-pallas_kernel.py:298-381): with ``stream_loop`` one CTA walks a run of
-``steps`` consecutive axis-0 tiles of one tile column, and its input
-windows live apart from the stage buffers, in ``slots`` copies each
-(the ``prefetch`` ring); ``out_dma`` adds one tile-sized staging buffer
-per output. The layout keys (``KernelConfig.layout``, layout.py) either
-keep the stage buffers (``compute_chunk``) or, in value mode, replace
-them by a warp window (``WarpPlan``): shared memory holds the input
-windows and each warp's scratch, the stages live in registers. A plan
-for the default config is laid out exactly as before.
+pallas_kernel.py:298-381) build the short form (``ShortForm``), as the
+public ``tile``, ``block_rows`` and ``mid_tile`` do: ``stream_loop``
+turns its walk on (one CTA walks a run of ``steps`` consecutive axis-0
+tiles of one tile column, each buffer a ring of rows), ``prefetch`` is
+the walk's depth, ``out_dma`` adds one tile-sized staging buffer per
+output. With the private ``_short=()`` they build the old mode plans:
+input windows apart from the stage buffers, in ``slots`` copies each
+(the ``prefetch`` ring), and the staging buffers. The layout keys
+(``KernelConfig.layout``, layout.py) either keep the stage buffers
+(``compute_chunk``) or, in value mode, replace them by a warp window
+(``WarpPlan``): shared memory holds the input windows and each warp's
+scratch, the stages live in registers. A plan for the default config
+is laid out exactly as before.
 """
 
 from __future__ import annotations
@@ -228,11 +232,14 @@ class TilePlan:
     steps: axis-0 tiles one CTA walks (1 without ``stream_loop`` or the
       short form's 'walk').
     slots: input windows per input (the ``prefetch`` ring; 1 without
-      ``stream_loop``); a mode plan's input ``offsets`` name slot 0 and
-      slot j lies ``slot_bytes[name] * j`` bytes further.
-    rolling: consecutive windows of a run share their overlap rows,
-      kept in shared memory; each step loads only the new rows.
-    slot_bytes: input name -> bytes of one window slot (mode plans).
+      ``stream_loop``); an old mode plan's input ``offsets`` name slot 0
+      and slot j lies ``slot_bytes[name] * j`` bytes further (the short
+      form keeps rings of rows instead: ShortForm.rings, its depth).
+    rolling: the old mode plans' rolling fill: consecutive windows of a
+      run share their overlap rows, copied in shared memory; each step
+      loads only the new rows (the short form's walk keeps them in
+      rings, and its plans say False).
+    slot_bytes: input name -> bytes of one window slot (old mode plans).
     staging: output name -> byte offset of its tile-sized staging
       buffer (``out_dma``).
     warp: a value-mode plan's warp window (WarpPlan); its stages live
@@ -1191,9 +1198,17 @@ class ShortForm:
     fills: input cells a CTA fills per output cell.
     interior: as DeepForm's, with each input's frame inside the array.
     rings: buffered tensor name -> the axis-0 rows its buffer holds:
-      its extent's, and under 'walk' an input's also the next tile's new
-      rows (row r of a run's extent lies in ring row (r + phase) mod
-      rings[name], the phase advancing by tile[0] a step).
+      its extent's, and under 'walk' an input's also the new rows of the
+      ``depth - 1`` tiles after it (row r of a run's extent lies in ring
+      row (r + phase) mod rings[name], the phase advancing by tile[0] a
+      step).
+    depth: under 'walk', the tiles whose input rows a CTA holds at once:
+      the current one's and those of the ``depth - 1`` after it, in
+      flight while it computes (``prefetch``; 2 by default).
+    off: element -> why it cannot serve the plan's tile, so that the
+      kernel runs without it: 'vector' where a row or the tile's minor
+      extent is not whole 16-byte units, 'walk' on a 1-D grid or where
+      its rings would not fit shared memory at an explicit tile.
   """
   elements: Tuple[str, ...]
   vec: int
@@ -1206,9 +1221,16 @@ class ShortForm:
   fills: float
   interior: Tuple[Tuple[int, int], ...]
   rings: Dict[str, int]
+  depth: int = 2
+  off: Dict[str, str] = dataclasses.field(default_factory=dict)
 
   def has(self, element: str) -> bool:
-    return element in self.elements
+    return element in self.elements and element not in self.off
+
+  @property
+  def on(self) -> Tuple[str, ...]:
+    """The elements the kernel runs with."""
+    return tuple(e for e in self.elements if e not in self.off)
 
   def pitch(self, name: str) -> int:
     a, b = self.frames[name]
@@ -1299,7 +1321,9 @@ def vector_width(stencil, shape: Sequence[int], tile: Sequence[int],
   whole 16-byte units and the tile's minor extent holds whole 16-byte
   units of every type; else 1, the element path (a row of another
   length would start off a 16-byte boundary on some rows, which a
-  16-byte copy cannot address). A narrower type's unit is 4 or 8 bytes:
+  16-byte copy cannot address), and where a narrower type's unit would
+  be 2 bytes (1-byte cells beside 8-byte ones: a register row is loaded
+  4, 8 or 16 bytes at a time). A narrower type's unit is 4 or 8 bytes:
   a unit of 16 bytes of it would put a wider type's units 32 bytes
   apart, and a warp's 16-byte shared-memory loads at that stride take
   twice the wavefronts (on an H100, 8 int32 cells a thread ran erosion
@@ -1309,16 +1333,27 @@ def vector_width(stencil, shape: Sequence[int], tile: Sequence[int],
 
   vec = VECTOR_BYTES // max(size(n) for n in names)
   edges = list(stencil.input_names) + list(stencil.output_names)
+  narrow = min(size(n) for n in names)
   if any(shape[-1] * size(n) % VECTOR_BYTES for n in edges) or \
-      tile[-1] % (VECTOR_BYTES // min(size(n) for n in names)):
+      tile[-1] % (VECTOR_BYTES // narrow) or vec * narrow < 4:
     return 1
   return vec
 
 
 def _short_plan(stencil, shape, order, spans, margins, elements,
-                tile) -> TilePlan:
-  """The short form's plan (ShortForm) with ``elements`` on, at
-  ``tile``."""
+                tile, config: KernelConfig = KernelConfig(),
+                drop: Optional[Dict[str, str]] = None) -> TilePlan:
+  """The short form's plan (ShortForm) with ``elements`` on but those
+  ``drop`` turns off (element -> why), at ``tile``, carrying
+  ``config``'s modes: under ``stream_loop`` (which turns 'walk' on) a
+  CTA walks ``steps_per_cta`` tiles, ``prefetch`` is the walk's depth,
+  and ``out_dma`` adds one tile-sized staging buffer per output after
+  the others (``dma_split`` changes the fill's code only)."""
+  off = dict(drop or {})
+  if len(shape) < 2 and 'walk' in elements:
+    off['walk'] = 'a 1-D grid has no axis-0 tiles to walk'
+  asked = elements
+  elements = tuple(e for e in elements if e not in off)
   last = len(shape) - 1
   by_name = {s.name: s for s in order}
   values = (value_stages(stencil, order, spans) if 'values' in elements
@@ -1353,11 +1388,12 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
                              _round_up(a - lo - pa, align(parent)))
       slack[parent][1] = max(slack[parent][1], b - vec + hi - pb)
   walk = 'walk' in elements and len(shape) >= 2
+  depth = config.prefetch if walk else 2
   # axis-0 rows of each extent (a 1-D grid's one row is its frame)
   tile0 = tile[0] if last else 1
   ext0 = {n: tile[0] + spans[n][0][0] + spans[n][1][0] if last else 1
           for n in names}
-  rings = {n: ext0[n] + (min(tile0, ext0[n]) if walk and
+  rings = {n: ext0[n] + ((depth - 1) * min(tile0, ext0[n]) if walk and
                          n in stencil.input_names else 0) for n in slack}
 
   def cross(name):  # cells of one axis-0 row of the frame
@@ -1381,16 +1417,24 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
   index = {s.name: k for k, s in enumerate(order)}
   barriers = tuple(index[kernel[k].name] for k in hazard_barriers(
       stencil, kernel, offsets, spans, tile, ranges, reads, not walk))
+  staging = {}
+  if config.out_dma:
+    peak = _round_up(peak, ALIGN)
+    for name in stencil.output_names:
+      staging[name] = peak
+      peak += _round_up(_prod(tile) * itemsize(name), ALIGN)
   ctas = resident_ctas(peak)
   grid = [-(-x // t) for x, t in zip(shape, tile)]
   steps = 1
-  if walk:
+  if walk and config.stream_loop:
+    steps = steps_per_cta(grid)
+  elif walk:
     waves = SMS * WALK_WAVES * max(ctas, 1)
     steps = min(grid[0], max(1, -(-_prod(grid) // waves)))
   tile_cells = _prod(tile)
 
   def rows(name):  # axis-0 rows a step computes or fills, over a run
-    fresh = min(tile0, ext0[name]) if walk else ext0[name]
+    fresh = walk_rows(stencil, name, tile0, spans) if walk else ext0[name]
     return (ext0[name] + (steps - 1) * fresh) / steps
 
   evaluations = sum(rows(s.name) * cross(s.name) *
@@ -1404,53 +1448,100 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
       neg, pos = spans[name]
       a, b = frames[name]
       box_spans[name] = (neg[:-1] + (a,), pos[:-1] + (b - tile[last],))
+  if 'vector' in elements and vec == 1:
+    off['vector'] = ('a row or the tile\'s minor extent is not whole 16-byte '
+                     'units')
   short = ShortForm(
-      elements=tuple(elements), vec=vec, values=values, frames=frames,
+      elements=tuple(asked), vec=vec, values=values, frames=frames,
       slack={n: tuple(v) for n, v in slack.items()}, barriers=barriers,
       ctas=ctas, evaluations=evaluations, fills=fills,
       interior=_interior_box(stencil, shape, tile, box_spans, margins,
-                             offsets), rings=rings)
+                             offsets), rings=rings, depth=depth, off=off)
   return TilePlan(stencil=stencil, shape=tuple(shape), tile=tuple(tile),
                   stages=tuple(order), spans=spans, offsets=offsets,
-                  smem_bytes=peak, margins=margins, steps=steps, short=short)
+                  smem_bytes=peak, margins=margins, config=config,
+                  steps=steps, slots=depth if config.stream_loop else 1,
+                  staging=staging, short=short)
 
 
-def _short_tile(stencil, shape, order, spans, margins, elements
-                ) -> TilePlan:
-  """The short form's plan at its tile. With 'tile': among
-  ``short_tiles`` whose plan fits, the fewest stage evaluations and
-  input cells filled an output, with at least 2 resident CTAs (1 under
-  'walk', whose next tile's fill overlaps a tile's stages as a second
-  CTA's would), ties to more CTAs, then the narrower cross-section.
-  Swept on an H100 (python -m soda_tpu_torch.tile_sweep --short;
-  PERF.md): within 0-10% of each cell's fastest tile (sobel2d 9.6%, the
-  others 0-6%). Without 'tile', or where no such tile fits: the default
-  form's tile (the largest candidate whose default-form buffers fit), or
-  the next smaller candidate where the form's frames, slack and rings
-  push it past SMEM_LIMIT."""
+def walk_rows(stencil, name: str, tile0: int, spans: Dict[str, Span]) -> int:
+  """Axis-0 rows of ``name``'s extent that a step of the walk after a
+  run's first computes or fills: those it does not share with the step
+  before (the last ``tile0``), and for an output also its tile's rows
+  that the step before computed but did not own (an output another
+  stage reads below its own row: each step stores its whole tile)."""
+  neg, pos = spans[name][0][0], spans[name][1][0]
+  ext0 = tile0 + neg + pos
+  if name in stencil.output_names:
+    return ext0 - neg
+  return min(tile0, ext0)
+
+
+def _short_tile(stencil, shape, order, spans, margins, elements,
+                config: KernelConfig = KernelConfig(),
+                fixed: Optional[Dict[int, int]] = None) -> TilePlan:
+  """The short form's plan at its tile (``fixed`` axes imposed: the
+  public ``block_rows`` and ``mid_tile``). With 'tile': among
+  ``short_tiles`` that keep the fixed extents and whose plan fits, the
+  fewest stage evaluations and input cells filled an output, with at
+  least 2 resident CTAs (1 under 'walk', whose next tile's fill overlaps
+  a tile's stages as a second CTA's would), ties to more CTAs, then the
+  narrower cross-section. Swept on an H100 (python -m
+  soda_tpu_torch.tile_sweep --short; PERF.md): within 0-10% of each
+  cell's fastest tile (sobel2d 9.6%, the others 0-6%). Without 'tile',
+  or where no such tile fits: the default form's tile (the largest
+  candidate, fixed axes imposed, whose default-form buffers fit;
+  utils.InputError where none does), or the next smaller candidate where
+  the form's frames, slack, rings and staging push it past SMEM_LIMIT;
+  utils.InputError where no candidate fits."""
+  fixed = fixed or {}
   if 'tile' in elements:
-    walk = 'walk' in elements and len(shape) >= 2
-    best = None
-    for tile in short_tiles(shape, walk):
-      tp = _short_plan(stencil, shape, order, spans, margins, elements, tile)
-      if tp.smem_bytes > SMEM_LIMIT or tp.short.ctas < (1 if walk else 2):
-        continue
-      key = (tp.short.evaluations + tp.short.fills, -tp.short.ctas,
-             _prod(tile[1:]))
-      if best is None or key < best[0]:
-        best = key, tp
-    if best is not None:
-      return best[1]
+    ranked = _short_ranked(stencil, shape, order, spans, margins, elements,
+                           config, fixed)
+    if ranked:
+      return ranked[0]
   base = _default_plan(stencil, shape, order, spans, margins, KernelConfig(),
-                       {})
-  cands = [t for t in candidate_tiles(shape) if _prod(t) <= _prod(base.tile)]
-  for tile in [base.tile] + cands[::-1]:
-    tp = _short_plan(stencil, shape, order, spans, margins, elements, tile)
+                       fixed).tile
+  cands = [t for t in (_fixed_candidates(shape, fixed) if fixed else
+                       candidate_tiles(shape)) if _prod(t) <= _prod(base)]
+  for tile in [base] + cands[::-1]:
+    tp = _short_plan(stencil, shape, order, spans, margins, elements, tile,
+                     config)
     if tp.smem_bytes <= SMEM_LIMIT:
       return tp
   raise utils.InputError(
-      'the short form needs %d bytes of shared memory even for a one-cell '
-      'tile, more than the %d a block may use' % (tp.smem_bytes, SMEM_LIMIT))
+      'the short form needs %d bytes of shared memory even at tile %s, '
+      'more than the %d a block may use' % (tp.smem_bytes, tp.tile,
+                                            SMEM_LIMIT))
+
+
+def _short_ranked(stencil, shape, order, spans, margins, elements,
+                  config: KernelConfig, fixed: Dict[int, int]
+                  ) -> List[TilePlan]:
+  """The plans at ``short_tiles`` that keep the ``fixed`` extents, fit
+  and leave the resident CTAs _short_tile asks, best first by its key."""
+  walk = 'walk' in elements and len(shape) >= 2
+  ranked = []
+  for tile in short_tiles(shape, walk):
+    if any(tile[a] != v for a, v in fixed.items()):
+      continue
+    tp = _short_plan(stencil, shape, order, spans, margins, elements, tile,
+                     config)
+    if tp.smem_bytes > SMEM_LIMIT or tp.short.ctas < (1 if walk else 2):
+      continue
+    ranked.append(((tp.short.evaluations + tp.short.fills, -tp.short.ctas,
+                    _prod(tile[1:])), tp))
+  return [tp for _, tp in sorted(ranked, key=lambda kv: kv[0])]
+
+
+def short_tile_order(stencil, shape: Sequence[int]) -> List[Tuple[int, ...]]:
+  """The tiles of ``short_tiles`` at which the short form of the grid's
+  default elements fits, best first by _short_tile's key (the first is
+  the tile its rule picks): the tuner's next tiles."""
+  _, spans, order, margins = _geometry(stencil)
+  return [tp.tile for tp in _short_ranked(
+      stencil, tuple(shape), order, spans, margins,
+      short_default(len(shape)), KernelConfig(), {})]
 
 
 def short_default(dim: int) -> Tuple[str, ...]:
@@ -1562,6 +1653,14 @@ def _default_plan(stencil, shape, order, spans, margins, config, fixed
   return chosen
 
 
+def _geometry(stencil, fusion: Optional[FusionPlan] = None):
+  """(live stages, spans, stage order, margins) of a stencil's plans."""
+  stages = _live_stages(stencil, (fusion or make_plan(stencil,
+                                                      'full')).stages)
+  return (stages, _spans(stencil, stages), _dfs_order(stencil, stages),
+          _array_margins(stencil))
+
+
 def make_tile_plan(stencil, shape: Sequence[int],
                    tile: Optional[Sequence[int]] = None,
                    config: Optional[KernelConfig] = None,
@@ -1570,21 +1669,29 @@ def make_tile_plan(stencil, shape: Sequence[int],
                    fusion: Optional[FusionPlan] = None,
                    _deep: Optional[Sequence[str]] = None,
                    _short: Optional[Sequence[str]] = None) -> TilePlan:
-  """Plan the fused kernel for ``shape``; ``tile=None`` picks the
-  largest candidate tile whose buffers (with ``config``'s window slots
-  and staging) fit SMEM_LIMIT. ``block_rows`` and ``mid_tile`` fix the
-  tile's axis-0 and axis-1 extents (the JAX kernel's names). ``fusion``
-  is the stencil's ``make_plan(stencil, 'full')``, built when None.
+  """Plan the fused kernel for ``shape``; ``tile=None`` picks the tile.
+  ``block_rows`` and ``mid_tile`` fix the tile's axis-0 and axis-1
+  extents (the JAX kernel's names). ``fusion`` is the stencil's
+  ``make_plan(stencil, 'full')``, built when None.
 
   With no tile, block_rows, mid_tile, mode or layout key, a stage graph
   of DEEP_MIN_STAGES or more takes the many-stage form (DeepForm, the
   elements of DEEP_DEFAULT), a smaller one the short form (ShortForm,
-  the elements of short_default). ``_deep`` and ``_short`` are private,
-  for the tests and chip_smoke.py that measure the forms element by
-  element: () keeps the default form, a set of DEEP_ELEMENTS
-  (deep_elements) or SHORT_ELEMENTS (short_elements) forces that form
-  with those on, at ``tile`` where one is given (the short form without
-  'tile': else at the default form's tile).
+  the elements of short_default). Any graph given a tile, block_rows,
+  mid_tile or mode key (``config`` without a layout) takes the short
+  form with short_default's elements: at ``tile``, or at the tile its
+  rule picks among those keeping the fixed extents, with the modes as
+  _short_plan carries them ('walk' on under ``stream_loop``). A layout
+  key builds the layout forms on the default form.
+
+  ``_deep`` and ``_short`` are private, for the tests and chip_smoke.py
+  that measure the forms element by element and against the form they
+  replaced: ``_short=()``, and ``_deep=()`` at a many-stage graph or
+  with a key, keep the default form (with the same keys: the kernels
+  the public keys built before the short form took them), a set of
+  DEEP_ELEMENTS (deep_elements) or SHORT_ELEMENTS (short_elements)
+  forces that form with those on, at ``tile`` where one is given (the
+  short form without 'tile': else at the default form's tile).
 
   Raises utils.InputError when the grid is too small for the stencil
   window, or when even a one-cell tile needs more shared memory than a
@@ -1595,11 +1702,7 @@ def make_tile_plan(stencil, shape: Sequence[int],
   if len(shape) < 1:
     raise utils.InputError('the fused kernel needs a grid of at least 1-D')
   config = config or KernelConfig()
-  stages = _live_stages(stencil, (fusion or make_plan(stencil,
-                                                      'full')).stages)
-  spans = _spans(stencil, stages)
-  order = _dfs_order(stencil, stages)
-  margins = _array_margins(stencil)
+  stages, spans, order, margins = _geometry(stencil, fusion)
   fixed = {a: int(v) for a, v in ((0, block_rows), (1, mid_tile))
            if v is not None}
   if mid_tile is not None and len(shape) != 3:
@@ -1612,20 +1715,28 @@ def make_tile_plan(stencil, shape: Sequence[int],
     if len(tile) != len(shape) or min(tile) < 1:
       raise utils.InputError('tile %s does not match the %d-D grid' %
                              (tile, len(shape)))
+    if fixed:
+      raise utils.InputError('give tile, or block_rows/mid_tile, not both')
   default = tile is None and not fixed and config.is_default
+  # an explicit ``_deep=()`` keeps the form the same keys built before the
+  # short form took the public keys: the default form at a many-stage
+  # graph, and at any graph given a key
+  kept = _deep is not None and not _deep
   if _deep is None:
-    _deep = DEEP_DEFAULT if (default and len(stages) >= DEEP_MIN_STAGES
-                             ) else ()
+    _deep = DEEP_DEFAULT if (default and not _short and
+                             len(stages) >= DEEP_MIN_STAGES) else ()
   if _short is None:
     _short = short_default(len(shape)) if (
-        default and not _deep and len(stages) < DEEP_MIN_STAGES) else ()
+        config.layout is None and not _deep and not (kept and (
+            not default or len(stages) >= DEEP_MIN_STAGES))) else ()
   if _deep and _short:
     raise ValueError('a plan takes the many-stage or the short form, not '
                      'both')
-  if (_deep or _short) and (fixed or not config.is_default):
-    raise utils.InputError('the %s form takes no block_rows, mid_tile, mode '
-                           'or layout key' % ('many-stage' if _deep else
-                                              'short'))
+  if _deep and (fixed or not config.is_default):
+    raise utils.InputError('the many-stage form takes no block_rows, '
+                           'mid_tile, mode or layout key')
+  if _short and config.layout is not None:
+    raise utils.InputError('the short form takes no layout key')
   if _deep:
     elements = deep_elements(_deep)
     tp = _deep_plan(stencil, shape, order, spans, margins, elements, tile)
@@ -1636,19 +1747,32 @@ def make_tile_plan(stencil, shape: Sequence[int],
                                                 SMEM_LIMIT))
     return tp
   if _short:
-    elements = short_elements(_short)
+    elements = short_elements(tuple(_short) + (
+        ('walk',) if config.stream_loop else ()))
     if tile is not None:
-      tp = _short_plan(stencil, shape, order, spans, margins, elements, tile)
+      tp = _short_plan(stencil, shape, order, spans, margins, elements, tile,
+                       config)
+      # past shared memory, the elements the keys do not ask for go off
+      # in turn: the default's walk (its rings), then 16-byte units (their
+      # frames and slack)
+      drop: Dict[str, str] = {}
+      for element in ('walk', 'vector'):
+        if tp.smem_bytes <= SMEM_LIMIT or not tp.short.has(element) or (
+            element == 'walk' and config.stream_loop):
+          continue
+        drop[element] = ('the plan needs %d bytes of shared memory at this '
+                         'tile with it' % tp.smem_bytes)
+        tp = _short_plan(stencil, shape, order, spans, margins, elements,
+                         tile, config, drop)
       if tp.smem_bytes > SMEM_LIMIT:
         raise utils.InputError(
             'the short form needs %d bytes of shared memory at tile %s, '
             'more than the %d a block may use' % (tp.smem_bytes, tile,
                                                   SMEM_LIMIT))
       return tp
-    return _short_tile(stencil, shape, order, spans, margins, elements)
+    return _short_tile(stencil, shape, order, spans, margins, elements,
+                       config, fixed)
   if tile is not None:
-    if fixed:
-      raise utils.InputError('give tile, or block_rows/mid_tile, not both')
     tp = _plan_for_tile(stencil, shape, tile, order, spans, margins, config)
     if not config.is_default and tp.smem_bytes > SMEM_LIMIT:
       raise utils.InputError(

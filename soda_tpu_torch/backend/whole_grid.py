@@ -59,7 +59,7 @@ class WholeGridExecutor:
       raise ValueError('unknown cluster granularity: %s' % cluster)
     self.stencil = stencil
     self.shape = tuple(int(s) for s in shape)
-    self.plan = make_tile_plan(stencil, self.shape, self.shape)
+    self.plan = make_tile_plan(stencil, self.shape, self.shape, _short=())
     self.device = resolve_device(device)
     self.apply_preserve_border = apply_preserve_border
 

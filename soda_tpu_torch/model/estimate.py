@@ -204,8 +204,9 @@ def stage_op_classes(stage) -> Dict[str, int]:
 
 
 def form(plan) -> str:
-  """'short', 'many-stage', 'layout', 'mode' or 'default' (the old
-  default form: an explicit tile, block_rows or mid_tile)."""
+  """'short', 'many-stage', 'layout', 'mode' or 'default' ('mode' and
+  'default': the old default form, which ``_short=()`` keeps for the
+  public keys)."""
   if plan.short is not None:
     return 'short'
   if plan.deep is not None:
@@ -243,7 +244,8 @@ def evaluations(plan) -> Tuple[Dict[str, float], Dict[str, float]]:
   def rows(name):
     neg, pos = plan.spans[name]
     ext0 = tile[0] + neg[0] + pos[0] if last else 1
-    fresh = min(tile0, ext0) if walk else ext0
+    fresh = (tile_plan.walk_rows(plan.stencil, name, tile0, plan.spans)
+             if walk else ext0)
     return (ext0 + (plan.steps - 1) * fresh) / plan.steps
 
   def cross(name):

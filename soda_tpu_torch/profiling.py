@@ -122,7 +122,7 @@ def op_count(stencil, shape) -> int:
   """Operations one pass computes: each live stage's operations (lets
   included) times the cells of its valid region."""
   from soda_tpu_torch.backend.tile_plan import make_tile_plan
-  plan = make_tile_plan(stencil, shape, shape)
+  plan = make_tile_plan(stencil, shape, shape, _short=())
   total = 0
   for stage in plan.stages:
     lo, hi = plan.margins[stage.name]

@@ -4,7 +4,9 @@
 
 The measurement behind ``tile_plan.MAX_TILE_CELLS``. For each named
 cell of ``testing.CELLS`` (default: blur, jacobi2d, erosion), builds
-the kernel at every candidate tile of ``tile_plan.candidate_tiles``,
+the default form's kernel (``_short=()``; an explicit tile otherwise
+builds the short form) at every candidate tile of
+``tile_plan.candidate_tiles``,
 with the cap lifted, whose buffers fit shared memory, from 1,024 output
 cells up. Each kernel is checked against the plain version
 (``testing.check_outputs``) and timed from a cold L2 cache (median of
@@ -97,7 +99,7 @@ def sweep(name: str, smi: str) -> None:
   stencil = testing.build_cell(name, overrides)
   inputs = testing.make_test_inputs(stencil, shape)
   params = testing.make_test_params(stencil)
-  default = make_tile_plan(stencil, shape).tile
+  default = make_tile_plan(stencil, shape, _deep=(), _short=()).tile
   plain = None
   for tile in candidate_tiles(shape, NO_CAP):
     cells = 1
@@ -105,9 +107,10 @@ def sweep(name: str, smi: str) -> None:
       cells *= t
     if cells < MIN_CELLS:
       continue
-    if make_tile_plan(stencil, shape, tile).smem_bytes > SMEM_LIMIT:
+    if make_tile_plan(stencil, shape, tile,
+                      _short=()).smem_bytes > SMEM_LIMIT:
       break
-    ex = FusedExecutor(stencil, shape, tile=tile)
+    ex = FusedExecutor(stencil, shape, tile=tile, _short=())
     args = ex.prepare(inputs, params)
     if plain is None:
       n_in = len(stencil.input_names)

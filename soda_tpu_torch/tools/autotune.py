@@ -15,9 +15,17 @@ Usage:
 
 CLI: ``python -m soda_tpu_torch FILE --run --tune``.
 
-Each candidate is timed with CUDA events, every call from a cold L2
-(``profiling.cuda_times_ms``, median). The tuner needs the card: on
-any other device it raises utils.InputError.
+Each candidate is timed back to back after a one-second settle run of
+its own (``profiling.settle``): device µs a call over REPS calls
+replayed from one CUDA graph (``profiling.replay_us``), the metric the
+port compares kernels by. Cold-L2 medians spread by a quarter within
+one call, and calls enqueued from Python (``back_to_back_us``) read the
+host's time where a kernel runs in under about 60 µs, as the default
+kernels of half the cells do. A candidate replaces the default kernel
+(``{}``, the first) only where it is faster by more than KEEP_MARGIN,
+on a second reading of both as on the first.
+The tuner needs the card: on any other device it raises
+utils.InputError.
 """
 
 from __future__ import annotations
@@ -26,7 +34,6 @@ import hashlib
 import json
 import logging
 import os
-import statistics
 import time
 from typing import Dict, Tuple
 
@@ -35,8 +42,18 @@ from soda_tpu_torch import utils
 _logger = logging.getLogger().getChild(__name__)
 
 DEFAULT_CACHE = '~/.cache/soda_tpu_torch_tune.json'
-# timed calls per candidate (after the warm-up calls)
-REPS = 10
+# calls per candidate timed back to back (one CUDA graph, after a
+# settle run)
+REPS = 200
+# a candidate replaces the default kernel only where its time is below
+# (1 - KEEP_MARGIN) of the default's: the two back-to-back readings of
+# one kernel in a call after a settle run agree within about 1% but for
+# rare transients that slow one reading (one twin of 106 read 1.6x the
+# other, PERF.md), so a closer win is noise, and a win is read twice
+KEEP_MARGIN = 0.03
+# the tiles the tuner offers besides the rule's own: those of
+# tile_plan.short_tiles next to it by the rule's key
+NEXT_TILES = 2
 
 
 def _key(stencil, shape, device_kind: str) -> str:
@@ -75,8 +92,10 @@ def _device_kind(device) -> str:
 
 def _time_config(stencil, shape, cfg: Dict, device='cuda',
                  reps: int = REPS) -> float:
-  """Median seconds of one call of the kernel built with ``cfg`` (build
-  excluded), each call from a cold L2."""
+  """Seconds a call of the kernel built with ``cfg`` takes on the card
+  back to back (build excluded): ``reps`` calls replayed from one CUDA
+  graph after a one-second settle run (a first measurement after a
+  pause or another kernel's work reads up to 1.6x its later ones)."""
   from soda_tpu_torch import profiling
   from soda_tpu_torch.backend import reference
   from soda_tpu_torch.backend.fused import FusedExecutor
@@ -84,8 +103,8 @@ def _time_config(stencil, shape, cfg: Dict, device='cuda',
   ex = FusedExecutor(stencil, shape, device=device, **cfg)
   args = ex.prepare(reference.make_test_inputs(stencil, shape),
                     reference.make_test_params(stencil))
-  return statistics.median(profiling.cuda_times_ms(lambda: ex.fn(*args),
-                                                   reps=reps)) / 1e3
+  profiling.settle(lambda: ex.fn(*args))
+  return profiling.replay_us(lambda: ex.fn(*args), calls=reps) / 1e6
 
 
 def _build_candidates(stencil, shape, candidates) -> None:
@@ -101,45 +120,48 @@ def _build_candidates(stencil, shape, candidates) -> None:
 
 
 def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
-  """The configurations ``tune`` probes: the plan's tile (``{}`` where
-  the plan is the many-stage or the short form, which no explicit tile
-  gives; the tiles and modes then start from the default form's tile,
-  ``_short=()``), its axis-0
-  extent doubled and quadrupled (where the tile stays within the grid
-  and shared memory); at the tile each mode's plan picks, the streaming
-  loop (True and 'peel', each with prefetch 2 and 3) where a CTA would
-  walk more than one tile, split fills on 3-D grids and staged stores;
-  and the JAX tuner's layout candidates (soda_tpu/tools/autotune.py:
-  81-130) at the plan's axis-0 extent and twice it: lane rotates on 2-D
-  rows wider than 256, roll, and roll with transposed lane regions on
-  2-D grids; chunked stage loops (``compute_chunk=8``) at the largest
-  mid tiles where a 3-D grid's cross-section is wider than a tile holds
-  (where the JAX tuner offers them, its oversized cross-sections). A
-  candidate whose plan does not fit is left out."""
+  """The configurations ``tune`` probes. First ``{}``, the default kernel
+  (the short or the many-stage form at its rule's tile). Then the short
+  form at the tiles of ``tile_plan.short_tiles`` nearest the rule's
+  (its tile for this grid, where the default is another form): its
+  axis-0 extent halved and doubled, and the next NEXT_TILES by the
+  rule's own key (``tile_plan.short_tile_order``). Then the modes on the
+  short form: the walk (``stream_loop``, prefetch 2 and 3; 'peel' builds
+  the same kernel as True) where a CTA would walk more than one tile,
+  split fills on 3-D grids, staged stores. Last the JAX tuner's layout
+  candidates (soda_tpu/tools/autotune.py:81-130), which build the layout
+  forms on the default form, at that form's axis-0 extent and twice it:
+  lane rotates on 2-D rows wider than 256, roll, and roll with
+  transposed lane regions on 2-D grids; chunked stage loops
+  (``compute_chunk=8``) at the largest mid tiles where a 3-D grid's
+  cross-section is wider than a tile holds. A candidate whose plan does
+  not fit is left out."""
   from soda_tpu_torch.backend import tile_plan
 
-  default = tile_plan.make_tile_plan(stencil, shape)
-  # the tiles and modes below start from the default form's tile (the
-  # short form's own tile comes from its rule)
-  base = default if default.short is None else tile_plan.make_tile_plan(
-      stencil, shape, _short=())
   shape = tuple(shape)
-  # the default kernel first: an explicit tile would turn the many-stage
-  # and the short form off
-  cands = [{} if default.deep is not None or default.short is not None
-           else {'tile': base.tile}]
-  for mult in (2, 4):
-    rows = base.tile[0] * mult
-    if rows <= tile_plan._pow2_ceil(shape[0]):
-      cands.append({'tile': (rows,) + base.tile[1:]})
-  if tile_plan.steps_per_cta(base.grid) > 1:
-    for mode in (True, 'peel'):
-      for prefetch in (2, 3):
-        cands.append({'stream_loop': mode, 'prefetch': prefetch})
+  default = tile_plan.make_tile_plan(stencil, shape)
+  rule = default if default.short is not None else tile_plan.make_tile_plan(
+      stencil, shape, _short=tile_plan.short_default(len(shape)))
+  cands = [{}]
+  order = tile_plan.short_tile_order(stencil, shape)
+  near = [(rule.tile[0] // 2,) + rule.tile[1:],
+          (rule.tile[0] * 2,) + rule.tile[1:]]
+  tiles = [t for t in near if t in order]
+  tiles += [t for t in order if t not in tiles and t != rule.tile
+            ][:NEXT_TILES]
+  cands += [{'tile': t} for t in tiles]
+  try:
+    runs = tile_plan.kernel_plan(stencil, shape, stream_loop=True).steps > 1
+  except utils.InputError:
+    runs = False
+  if runs:
+    cands += [{'stream_loop': True, 'prefetch': p} for p in (2, 3)]
   if len(shape) >= 3:
     cands.append({'dma_split': 2})
   cands.append({'out_dma': True})
-  rows = base.tile[0]
+  # the layout forms build on the default form, at its tile's rows
+  rows = tile_plan.make_tile_plan(stencil, shape, _deep=(),
+                                  _short=()).tile[0]
   roll = {'stage_mode': 'value', 'shift_mode': 'roll'}
   if len(shape) == 2 and shape[-1] > 256:
     cands += [{'block_rows': r, 'lane_shift': 'rotate'}
@@ -189,6 +211,7 @@ def tune(stencil, shape, cache_path: str = DEFAULT_CACHE,
                     str(e).splitlines()[0][:80])
     return {}
   _build_candidates(stencil, shape, candidates)
+  default_dt = None
   for cfg in candidates:
     t0 = time.time()
     try:
@@ -199,12 +222,22 @@ def tune(stencil, shape, cache_path: str = DEFAULT_CACHE,
     _logger.info('tune: %s -> %.4f ms (%.0fs)', cfg, dt * 1e3,
                  time.time() - t0)
     probes[json.dumps(cfg, sort_keys=True)] = round(dt * 1e3, 6)
+    if not cfg:
+      default_dt = dt
     if dt < best_dt:
       best_dt, best_cfg = dt, dict(cfg)
   if best_dt == float('inf'):
     # every candidate failed: do not pin the failure in the cache
     _logger.warning('tune: all candidates failed; not caching')
     return {}
+  if (default_dt is not None and best_cfg and
+      best_dt < (1 - KEEP_MARGIN) * default_dt):
+    # a transient only slows a reading: confirm the win with a second
+    # reading of both, each kernel's faster one counting
+    default_dt = min(default_dt, _time_config(stencil, shape, {}, device))
+    best_dt = min(best_dt, _time_config(stencil, shape, best_cfg, device))
+  if default_dt is not None and best_dt >= (1 - KEEP_MARGIN) * default_dt:
+    best_dt, best_cfg = default_dt, {}  # no win beyond the noise
   # merge-on-write: entries written meanwhile by another process survive
   table = _load(path)
   table[key] = {

@@ -15,10 +15,12 @@ package's) and the kernel-config variants (``EX_VARIANTS``: the JAX
 package's rows with their full keys, the layout keys among them), then
 the contrast float64-truth check. ``--cpu`` runs the same matrix through the kernels' plain
 PyTorch versions, as ``--interpret`` runs the JAX gate without a TPU.
-``--only`` runs the named rows. At these shapes a grid has fewer than
-2 x ``tile_plan.MIN_CTAS`` tiles, so a ``stream_loop`` row walks one
-tile per CTA; the streaming loop's runs of several steps are checked at
-the benchmark shapes by chip_smoke.py and tests/test_torch_gpu.py.
+``--only`` runs the named rows. The structural keys build the short
+form (its walk carries ``stream_loop``), the layout keys the layout
+forms. At these shapes a grid has fewer than 2 x
+``tile_plan.MIN_CTAS`` tiles, so a ``stream_loop`` row walks one tile
+per CTA; the streaming loop's runs of several steps are checked at the
+benchmark shapes by chip_smoke.py and tests/test_torch_gpu.py.
 """
 
 from __future__ import annotations

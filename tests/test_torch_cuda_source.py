@@ -293,3 +293,118 @@ def test_float_literals_print_exactly():
   assert cuda_source.literal(-2**31, Type('int32')) == \
       '((int32_t)(-2147483647ll - 1))'
   assert cuda_source.literal(-1, Type('uint32')) == '((uint32_t)4294967295ull)'
+
+
+# the old kernels the public keys built before the short form took them:
+# ``_short=()`` with the same keys keeps them byte for byte. Each row of
+# testing.MODE_CELLS (the old mode kernel, _mode_kernel), and each short
+# cell's default form at the rule's tile, its axis-0 extent halved
+# (jacobi3d_256, whose rule takes 1: its axis-1 extent) and doubled
+# (_kernel), and jacobi3d_256 with the JAX seeds' block_rows and mid_tile
+OLD_FORM_SOURCES = (
+    ('blur', {'stream_loop': True}, 'c0e1c51b7f5e86c3'),
+    ('blur', {'stream_loop': 'peel'}, 'e6d4450644ee5856'),
+    ('erosion', {'stream_loop': True}, 'a15bba6645706bfa'),
+    ('erosion', {'stream_loop': 'peel'}, 'c826b7dc15070a7f'),
+    ('jacobi3d', {'stream_loop': True}, 'ce76d122369e0992'),
+    ('jacobi3d', {'stream_loop': 'peel'}, '810b754035a2becd'),
+    ('heat3d', {'stream_loop': True}, 'c6eee5d1c33cea55'),
+    ('heat3d', {'stream_loop': 'peel'}, '03ef746035e03a9d'),
+    ('denoise2d', {'stream_loop': True}, '89aa565da0f15d57'),
+    ('denoise2d', {'stream_loop': 'peel'}, '7ac6048cca53e2fe'),
+    ('jacobi3d_256', {'stream_loop': True}, '037fe0b87745bcae'),
+    ('jacobi3d_256', {'stream_loop': 'peel'}, '8ac6294e3e33c2e1'),
+    ('jacobi3d', {'prefetch': 3, 'stream_loop': 'peel'}, '9e41a3e16fd72846'),
+    ('jacobi3d_256', {'prefetch': 3, 'stream_loop': 'peel'},
+     '1d2263b5bfaac92c'),
+    ('heat3d', {'dma_split': 2}, '14d4725d2a20b83d'),
+    ('jacobi3d', {'dma_split': 2}, '4ffc929207e7147d'),
+    ('blur', {'out_dma': True}, '9f91bc59cbb24833'),
+    ('erosion', {'out_dma': True}, 'ba7b0e29dfdc243b'),
+    ('blur', {'tile': (64, 256)}, '41d1815e65b578c6'),
+    ('blur', {'tile': (32, 256)}, 'e48c438e9ade1ad3'),
+    ('blur', {'tile': (128, 256)}, '19b4c305193dcaa5'),
+    ('jacobi2d', {'tile': (64, 128)}, '495a9a06ca9ed1f6'),
+    ('jacobi2d', {'tile': (32, 128)}, '5c4684044af078a1'),
+    ('jacobi2d', {'tile': (128, 128)}, '1695e7e3be4f1baa'),
+    ('jacobi3d', {'tile': (2, 16, 128)}, '37d269c774890797'),
+    ('jacobi3d', {'tile': (1, 16, 128)}, '195222ac336d4fe8'),
+    ('jacobi3d', {'tile': (4, 16, 128)}, 'ef079a71308d667a'),
+    ('heat3d', {'tile': (2, 16, 128)}, 'c3bacac570abfff0'),
+    ('heat3d', {'tile': (1, 16, 128)}, 'ff2a700b1d761e79'),
+    ('heat3d', {'tile': (4, 16, 128)}, 'cc49e9017ce9f236'),
+    ('seidel2d', {'tile': (64, 128)}, '876dd6e650f40ce5'),
+    ('seidel2d', {'tile': (32, 128)}, 'fec2bdeb41c729ed'),
+    ('seidel2d', {'tile': (128, 128)}, '7e2763b7c1378ec5'),
+    ('erosion', {'tile': (32, 128)}, '48a62c398908660b'),
+    ('erosion', {'tile': (16, 128)}, '58981c60b469c654'),
+    ('erosion', {'tile': (64, 128)}, '987cbe8f820242a5'),
+    ('sobel2d', {'tile': (32, 256)}, 'deaf13f4b7dd554f'),
+    ('sobel2d', {'tile': (16, 256)}, 'd99c13501f86e5de'),
+    ('sobel2d', {'tile': (64, 256)}, '5b18cea29169f72d'),
+    ('xcorr', {'tile': (32, 128)}, '63af6841c2e4fc06'),
+    ('xcorr', {'tile': (16, 128)}, 'bdb43da4840ffd31'),
+    ('xcorr', {'tile': (64, 128)}, 'baee7cc74bb9da95'),
+    ('denoise2d', {'tile': (64, 128)}, '507ed32463b1002f'),
+    ('denoise2d', {'tile': (32, 128)}, '4ec236113b4143d5'),
+    ('denoise2d', {'tile': (128, 128)}, 'a54face0259d3aab'),
+    ('denoise3d', {'tile': (2, 16, 128)}, 'ba77c04cf4005d50'),
+    ('denoise3d', {'tile': (1, 16, 128)}, '826e217c3fda0281'),
+    ('denoise3d', {'tile': (4, 16, 128)}, 'a8c51b20366b84ae'),
+    ('jacobi3d_256', {'tile': (1, 32, 128)}, '58d8c5e765bacaa3'),
+    ('jacobi3d_256', {'tile': (1, 16, 128)}, '10591c761980cd94'),
+    ('jacobi3d_256', {'tile': (2, 32, 128)}, '99ffe4d68e7f80ce'),
+    ('jacobi3d_256', {'block_rows': 16}, 'd8b17f92726baca9'),
+    ('jacobi3d_256', {'mid_tile': 64}, 'b083512bd557a41a'),
+)
+_STENCILS = {}
+
+
+def _bench_stencil(name):
+  """A benchmark cell's stencil, built once under _StepClock."""
+  if name not in _STENCILS:
+    saved = cr_schedules.find_external_cr, cr_schedules.time
+    cr_schedules.find_external_cr = lambda: None
+    cr_schedules.time = _StepClock()
+    try:
+      _STENCILS[name] = build_cell(name, dict(
+          (n, o) for n, _, o in CELLS)[name])
+    finally:
+      cr_schedules.find_external_cr, cr_schedules.time = saved
+  return _STENCILS[name]
+
+
+@pytest.mark.parametrize('name,keys,digest', OLD_FORM_SOURCES,
+                         ids=['%s-%s' % (n, '-'.join(
+                             '%s=%s' % kv for kv in sorted(k.items())))
+                              for n, k, _ in OLD_FORM_SOURCES])
+def test_old_form_source_is_unchanged(name, keys, digest):
+  """``_short=()`` with the public keys builds the old kernels byte for
+  byte; without it the same keys build the short form."""
+  from soda_tpu_torch.backend.tile_plan import kernel_plan
+  stencil = _bench_stencil(name)
+  shape = dict((n, s) for n, s, _ in CELLS)[name]
+  old = kernel_plan(stencil, shape, **keys, _short=())
+  text = cuda_source.generate(old).text
+  assert old.short is None
+  assert hashlib.sha256(text.encode()).hexdigest()[:16] == digest
+  new = kernel_plan(stencil, shape, **keys)
+  assert new.short is not None and new.config == old.config
+
+
+@pytest.mark.parametrize('name,shape,overrides', CELLS,
+                         ids=[c[0] for c in CELLS])
+def test_rule_tile_gives_the_default_kernel(name, shape, overrides):
+  """``tile=`` the short form's own tile builds the default kernel's
+  source, digest and all (contrast's default is the many-stage form:
+  there the tile builds the short form at the many-stage form's tile)."""
+  from soda_tpu_torch.backend.tile_plan import kernel_plan
+  stencil = _bench_stencil(name)
+  default = make_tile_plan(stencil, shape)
+  got = kernel_plan(stencil, shape, tile=default.tile)
+  if name == 'contrast':
+    assert default.deep is not None and got.short is not None
+    return
+  assert cuda_source.generate(got).digest == \
+      cuda_source.generate(default).digest
+  assert got == default

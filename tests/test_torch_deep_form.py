@@ -201,6 +201,26 @@ def test_contrast_is_bound_by_operations():
                             blur[1])[1] == 'bytes'
 
 
+def test_an_explicit_deep_off_keeps_the_default_form():
+  """``_deep=()`` keeps the default form at a many-stage graph and at
+  any graph given a key (the kernels chip_smoke.py's old-form readings,
+  tile_sweep's baselines and the fused tests take with it); with no key
+  a short graph still takes the short form."""
+  shape = CONTRAST[1]
+  stencil = _contrast()
+  plan = make_tile_plan(stencil, shape, _deep=())
+  assert plan.short is None and plan.deep is None
+  assert make_tile_plan(stencil, shape, (4, 128), _deep=()).short is None
+  assert make_tile_plan(stencil, shape, (4, 128)).short is not None
+  blur = next(c for c in testing.CELLS if c[0] == 'blur')
+  small = testing.build_cell(blur[0], blur[2])
+  assert make_tile_plan(small, blur[1], _deep=()).short is not None
+  assert tile_plan.kernel_plan(small, blur[1], block_rows=32,
+                               _deep=()).short is None
+  assert tile_plan.kernel_plan(small, blur[1], block_rows=32
+                               ).short is not None
+
+
 def test_an_explicit_tile_or_mode_keeps_the_default_form():
   shape = CONTRAST[1]
   stencil = _contrast()

@@ -32,6 +32,8 @@ kernels' SASS read (no spills; the overlap's register chain between its
 copy's issue and its wait, the store control's reloads not forwarded).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -655,12 +657,16 @@ def test_tune_on_the_card(tmp_path, monkeypatch):
   shape = (512, 256)
   cache = str(tmp_path / 'tune.json')
   cands = autotune.candidate_configs(stencil, shape)
-  assert any(c.get('stream_loop') == 'peel' for c in cands)
+  assert any(c.get('stream_loop') is True for c in cands)
   cfg = autotune.tune(stencil, shape, cache_path=cache)
   assert cfg in cands
   (entry,) = autotune._load(cache).values()
   assert len(entry['probes']) == len(cands)
-  assert entry['ms'] == min(entry['probes'].values())
+  # {} stays unless a candidate beats it by more than KEEP_MARGIN
+  best = min(entry['probes'].values())
+  default = entry['probes'][json.dumps({}, sort_keys=True)]
+  assert entry['ms'] == (default if cfg == {} else best)
+  assert cfg == {} or best < (1 - autotune.KEEP_MARGIN) * default
 
   def no_probe(*args, **kwargs):
     raise AssertionError('a cached tune probed again')

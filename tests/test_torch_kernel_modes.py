@@ -3,7 +3,10 @@
 The port's ``streamed_stencil_plain`` walks a mode plan as the kernel
 does (runs of axis-0 tiles per CTA, input windows kept from step to
 step, only the new rows loaded by the rolling fill); ``FusedExecutor``
-takes it on the CPU whenever ``stream_loop`` is set. Each case runs
+takes it on the CPU whenever ``stream_loop`` is set. The keys build the
+short form (tile_plan.ShortForm, the walk carrying ``stream_loop``);
+the old mode kernel, which ``_short=()`` keeps, is held against the
+JAX executor on the rolling fill's edges. Each case runs
 the JAX ``PallasExecutor`` / ``MidTiledPallasExecutor`` in interpret
 mode with the same mode, on the cases of tests/test_pallas.py (out_dma,
 stream_loop, prefetch, dma_split), with ``block_rows`` the port's
@@ -158,7 +161,7 @@ def test_dma_split_matches_jax(name, shape, kw, dma_split):
 # that reaches or exceeds the tile (erosion's 18 rows against 16; no
 # rolling), runs of fewer than 4 steps (no peeling), and runs cut by the
 # grid's end (a MIN_CTAS that splits a tile column into several runs)
-@pytest.mark.parametrize('name,shape,kw,min_ctas,rolling,peel', [
+EDGES = [
     ('blur', (130, 64), {'stream_loop': True, 'block_rows': 16}, 1, True,
      False),
     ('blur', (131, 67), {'stream_loop': 'peel', 'block_rows': 8}, 1, True,
@@ -177,12 +180,17 @@ def test_dma_split_matches_jax(name, shape, kw, dma_split):
      True, True),
     ('jacobi3d', (30, 17, 19), {'stream_loop': True, 'block_rows': 4}, 3,
      False, False),
-])
+]
+
+
+@pytest.mark.parametrize('name,shape,kw,min_ctas,rolling,peel', EDGES)
 def test_rolling_window_edges_match_jax(name, shape, kw, min_ctas, rolling,
                                         peel):
+  """The old mode kernel's rolling fill (``_short=()``)."""
   jax_kw = {'stream_loop': kw['stream_loop'], 'block_rows': kw['block_rows']}
   want, inputs = _jax(name, shape, jax_kw)
-  stencil, ex, got = _port(name, shape, kw, inputs, min_ctas)
+  stencil, ex, got = _port(name, shape, dict(kw, _short=()), inputs,
+                           min_ctas)
   plan = ex.plan
   assert (plan.rolling, plan.peel) == (rolling, peel), (plan.rolling,
                                                         plan.peel, plan.steps)
@@ -190,6 +198,24 @@ def test_rolling_window_edges_match_jax(name, shape, kw, min_ctas, rolling,
   # the plain versions agree: the streamed walk with the whole-grid one
   args = ex.prepare(inputs)
   whole = fused_stencil_plain(stencil, args)
+  check_outputs(stencil, shape, got, dict(zip(stencil.output_names, whole)),
+                '%s %s vs whole grid' % (name, kw))
+
+
+@pytest.mark.parametrize('name,shape,kw,min_ctas,rolling,peel', EDGES)
+def test_walk_edges_match_jax(name, shape, kw, min_ctas, rolling, peel):
+  """The same edges on the short form the keys build: its walk keeps
+  the rows consecutive tiles share in rings at any halo, so the plan
+  has no rolling fill of windows; runs and peeling as the old plan's."""
+  jax_kw = {'stream_loop': kw['stream_loop'], 'block_rows': kw['block_rows']}
+  want, inputs = _jax(name, shape, jax_kw)
+  stencil, ex, got = _port(name, shape, kw, inputs, min_ctas)
+  plan = ex.plan
+  assert plan.short is not None and plan.short.has('walk')
+  assert plan.tile[0] == kw['block_rows'] and not plan.rolling
+  assert plan.peel == peel, (plan.peel, plan.steps)
+  check_outputs(stencil, shape, got, want, '%s %s' % (name, kw))
+  whole = fused_stencil_plain(stencil, ex.prepare(inputs))
   check_outputs(stencil, shape, got, dict(zip(stencil.output_names, whole)),
                 '%s %s vs whole grid' % (name, kw))
 
@@ -203,7 +229,7 @@ def test_fill_classes_of_a_run():
   tile_plan.MIN_CTAS = 1
   try:
     plan = tile_plan.kernel_plan(stencil, (130, 64), block_rows=16,
-                                 stream_loop=True)
+                                 stream_loop=True, _short=())
   finally:
     tile_plan.MIN_CTAS = saved
   assert plan.grid[0] == 9 and plan.steps == 9 and plan.rolling
@@ -314,19 +340,28 @@ def test_block_rows_and_mid_tile_set_the_tile():
 
 
 def test_mode_plans_count_their_shared_memory():
-  """The ring's extra windows and the staging buffers are counted: a
-  deeper ring takes a smaller tile (or raises for a tile given), never
-  a launch past the limit."""
+  """The ring's extra windows and the staging buffers are counted: in
+  the old mode kernel (``_short=()``) a deeper ring takes a smaller tile,
+  in the short form's walk deeper rings take more bytes at a tile (or
+  raise for a tile given), never a launch past the limit."""
   stencil = build_stencil(corpus.CORPUS['jacobi3d'])
   shape = (2048, 32, 128)
+  old = {depth: tile_plan.kernel_plan(stencil, shape, stream_loop=True,
+                                      prefetch=depth, _short=())
+         for depth in (2, 4)}
   plans = {depth: tile_plan.kernel_plan(stencil, shape, stream_loop=True,
                                         prefetch=depth) for depth in (2, 4)}
-  for plan in plans.values():
+  for plan in list(old.values()) + list(plans.values()):
     assert plan.smem_bytes <= tile_plan.SMEM_LIMIT
-  assert np.prod(plans[4].tile) < np.prod(plans[2].tile)
-  with pytest.raises(utils.InputError, match='shared memory'):
-    tile_plan.kernel_plan(stencil, shape, tile=(16, 32, 128),
-                          stream_loop=True, prefetch=4)
+  assert np.prod(old[4].tile) < np.prod(old[2].tile)
+  deeper = tile_plan.kernel_plan(stencil, shape, tile=plans[2].tile,
+                                 stream_loop=True, prefetch=4)
+  assert deeper.smem_bytes > plans[2].smem_bytes
+  assert deeper.short.depth == 4 and plans[2].short.depth == 2
+  for kw in ({}, {'_short': ()}):
+    with pytest.raises(utils.InputError, match='shared memory'):
+      tile_plan.kernel_plan(stencil, shape, tile=(16, 32, 128),
+                            stream_loop=True, prefetch=4, **kw)
   default = tile_plan.make_tile_plan(stencil, shape)
   staged = tile_plan.kernel_plan(stencil, shape, out_dma=True,
                                  tile=default.tile)

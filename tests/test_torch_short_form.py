@@ -23,6 +23,11 @@
   (``_short=()``) and the plain version.
 - The 11 cells through the port's main path on the CPU against the JAX
   package's executor under the reference's pass rule.
+- The public keys: every tile, block_rows, mid_tile and mode key builds
+  the short form with the grid's default elements (``_short=()`` keeps
+  the old kernels), block_rows and mid_tile pick among the rule's tiles,
+  'peel' builds the text of True, and an element that cannot serve an
+  explicit tile goes off and says so.
 """
 
 import concurrent.futures
@@ -157,10 +162,15 @@ def test_value_stages_need_offset_zero_over_the_readers_extent():
 
 
 def test_an_explicit_tile_or_mode_keeps_the_default_form():
+  """With ``_short=()`` an explicit tile, block_rows or mode key keeps
+  the default form (the kernels those keys built before the short form
+  took them); a layout key always does."""
   stencil, shape = _small('blur')
-  assert make_tile_plan(stencil, shape, (8, 64)).short is None
-  assert tile_plan.kernel_plan(stencil, shape, block_rows=8).short is None
-  assert tile_plan.kernel_plan(stencil, shape, out_dma=True).short is None
+  assert make_tile_plan(stencil, shape, (8, 64), _short=()).short is None
+  assert tile_plan.kernel_plan(stencil, shape, block_rows=8,
+                               _short=()).short is None
+  assert tile_plan.kernel_plan(stencil, shape, out_dma=True,
+                               _short=()).short is None
   assert tile_plan.kernel_plan(stencil, shape,
                                stage_mode='value').short is None
   assert make_tile_plan(stencil, shape, _short=()).short is None
@@ -168,8 +178,118 @@ def test_an_explicit_tile_or_mode_keeps_the_default_form():
     make_tile_plan(stencil, shape, _short=('values',))
   with pytest.raises(ValueError):
     make_tile_plan(stencil, shape, _short=('cells',), _deep=('tile',))
-  with pytest.raises(soda_tpu_torch.utils.InputError):
-    tile_plan.kernel_plan(stencil, shape, block_rows=8, _short=('cells',))
+  with pytest.raises(soda_tpu_torch.utils.InputError, match='layout'):
+    tile_plan.kernel_plan(stencil, shape, stage_mode='value',
+                          _short=('cells',))
+  with pytest.raises(soda_tpu_torch.utils.InputError, match='many-stage'):
+    tile_plan.kernel_plan(stencil, shape, block_rows=8, _deep=('tile',))
+
+
+# -- the public keys on the short form ----------------------------------------
+# (cell, shape, keys): every public tile and mode key at small shapes
+PUBLIC_KEYS = (
+    ('blur', (40, 64), {'tile': (8, 64)}),
+    ('blur', (40, 64), {'block_rows': 8}),
+    ('jacobi3d', (12, 32, 32), {'tile': (2, 8, 32)}),
+    ('jacobi3d', (12, 32, 32), {'block_rows': 4}),
+    ('jacobi3d', (12, 32, 32), {'mid_tile': 8}),
+    ('jacobi3d', (12, 32, 32), {'block_rows': 2, 'mid_tile': 16}),
+    ('blur', (40, 64), {'stream_loop': True}),
+    ('blur', (40, 64), {'stream_loop': 'peel'}),
+    ('jacobi3d', (12, 32, 32), {'stream_loop': 'peel', 'prefetch': 3}),
+    ('jacobi3d', (12, 32, 32), {'stream_loop': True, 'prefetch': 4}),
+    ('jacobi3d', (12, 32, 32), {'dma_split': 2}),
+    ('blur', (40, 64), {'out_dma': True}),
+    ('contrast', (40, 64), {'block_rows': 8}),
+)
+
+
+@pytest.mark.parametrize('name,shape,keys', PUBLIC_KEYS,
+                         ids=['%s-%s' % (c[0], '-'.join(
+                             '%s=%s' % kv for kv in sorted(c[2].items())))
+                              for c in PUBLIC_KEYS])
+def test_public_keys_build_the_short_form(name, shape, keys):
+  """Each public tile and mode key builds the short form with the grid's
+  default elements ('walk' on under ``stream_loop``, in 2-D too), at the
+  tile given or with the fixed extents, carrying the modes."""
+  stencil, _ = _small(name)
+  plan = tile_plan.kernel_plan(stencil, shape, **keys)
+  short = plan.short
+  assert short is not None and plan.deep is None
+  want = tile_plan.short_default(len(shape))
+  if keys.get('stream_loop'):
+    want = tile_plan.short_elements(want + ('walk',))
+  assert short.elements == want
+  assert plan.config == tile_plan.kernel_config(
+      len(shape), **{k: v for k, v in keys.items()
+                     if k not in ('tile', 'block_rows', 'mid_tile')})
+  if 'tile' in keys:
+    assert plan.tile == keys['tile']
+  assert plan.tile[0] == keys.get('block_rows', plan.tile[0])
+  assert plan.tile[1] == keys.get('mid_tile', plan.tile[1])
+  assert short.depth == (keys.get('prefetch', 2) if short.has('walk') else 2)
+  if keys.get('stream_loop'):
+    assert plan.steps == tile_plan.steps_per_cta(plan.grid)
+  assert bool(plan.staging) == bool(keys.get('out_dma'))
+  assert plan.smem_bytes <= tile_plan.SMEM_LIMIT
+  old = tile_plan.kernel_plan(stencil, shape, **keys, _short=())
+  assert old.short is None and old.config == plan.config
+
+
+def test_fixed_extents_pick_among_the_rules_tiles():
+  """block_rows and mid_tile fix axes 0 and 1; the rule weighs the
+  short_tiles that keep them (else the default form's tile with them)."""
+  name, shape, overrides = next(c for c in OTHERS if c[0] == 'jacobi3d')
+  stencil = testing.build_cell(name, overrides)
+  for keys in ({'block_rows': 4}, {'mid_tile': 8},
+               {'block_rows': 1, 'mid_tile': 32}):
+    plan = tile_plan.kernel_plan(stencil, shape, **keys)
+    keep = [t for t in tile_plan.short_tiles(shape, True)
+            if t[0] == keys.get('block_rows', t[0]) and
+            t[1] == keys.get('mid_tile', t[1])]
+    assert plan.tile in keep, (keys, plan.tile)
+  plan = tile_plan.kernel_plan(stencil, shape, block_rows=16)
+  assert plan.tile[0] == 16 and plan.short is not None
+
+
+def test_peel_builds_the_text_of_true():
+  """'peel' on the short form: a step inside every stage's valid region
+  already runs in the interior class, with no axis-0 checks, so both
+  values build one kernel."""
+  from soda_tpu_torch.backend import cuda_source
+  stencil, shape = _small('jacobi3d')
+  texts = {mode: cuda_source.generate(tile_plan.kernel_plan(
+      stencil, shape, stream_loop=mode)).text for mode in (True, 'peel')}
+  assert texts[True] == texts['peel']
+  olds = {mode: cuda_source.generate(tile_plan.kernel_plan(
+      stencil, shape, stream_loop=mode, _short=())).text
+          for mode in (True, 'peel')}
+  assert olds[True] != olds['peel']
+
+
+def test_elements_that_cannot_serve_the_tile_go_off():
+  """At an explicit tile: 'vector' off where the rows are not whole
+  16-byte units (and where 1-byte cells meet 8-byte ones), the default's
+  walk off where its rings do not fit, each named in the plan (the
+  source says one cell a thread); a tile the form cannot hold raises
+  with its bytes."""
+  from soda_tpu_torch.backend import cuda_source
+  stencil, _ = _small('blur')
+  plan = tile_plan.kernel_plan(stencil, (40, 60), tile=(8, 64))
+  assert plan.short.vec == 1 and 'vector' in plan.short.off
+  assert not plan.short.has('vector') and 'vector' not in plan.short.on
+  assert 'one cell a thread' in cuda_source.generate(plan).text
+  mixed = testing.mode_stencil('fuzz213')  # uint8 beside 8-byte inputs
+  assert tile_plan.kernel_plan(mixed, (8, 16), tile=(2, 16)).short.vec == 1
+  name, shape, overrides = next(c for c in OTHERS if c[0] == 'denoise3d')
+  stencil = testing.build_cell(name, overrides)
+  plan = tile_plan.kernel_plan(stencil, shape, tile=(4, 16, 128))
+  assert 'walk' in plan.short.off and plan.steps == 1
+  assert plan.smem_bytes <= tile_plan.SMEM_LIMIT
+  with pytest.raises(soda_tpu_torch.utils.InputError,
+                     match=r'needs \d+ bytes .* at tile \(4, 16, 128\)'):
+    tile_plan.kernel_plan(stencil, shape, tile=(4, 16, 128),
+                          stream_loop=True)
 
 
 # -- the schedule checkers ----------------------------------------------------
@@ -341,6 +461,7 @@ EMU_CASES = tuple(
         ('sobel2d', (40, 64), (8, 32), ELEMENTS),
         ('blur', (37, 53), (8, 16), ELEMENTS),  # ragged: the element path
         ('multi_output', (29, 35), (8, 16), ELEMENTS),
+        ('read_below', (40, 32), (4, 32), ELEMENTS),  # an output's rows
         ('conv_param', (24, 64), (8, 32), ELEMENTS),
         ('line1d', (500,), (64,), ELEMENTS),  # 16-byte rows of a 1-D grid
         ('line1d', (498,), (64,), ELEMENTS),  # and the element path
@@ -355,8 +476,22 @@ input dram 0 float: x(*)
 local float: t(0) = x(-1) + x(0) * 2.0f + x(1)
 output dram 1 float: y(0) = t(-2) - t(2)
 '''
+# an output another output reads a row below and above: a walk's step
+# stores the rows of its tile that the step before computed
+READ_BELOW = '''
+kernel: readbelow
+burst width: 64
+unroll factor: 1
+iterate: 1
+border: ignore
+cluster: none
+input dram 0 float: src(32, *)
+output dram 1 float: o0(0, 0) = src(0, 1) + src(0, -1) * 2.0f
+output dram 2 float: o1(0, 0) = o0(0, 1) - o0(0, -1)
+'''
 PROGRAMS = {'multi_output': testing.MULTI_OUTPUT,
-            'conv_param': testing.CONV_PARAM, 'line1d': LINE1D}
+            'conv_param': testing.CONV_PARAM, 'line1d': LINE1D,
+            'read_below': READ_BELOW}
 # (case index, replicas, cp.async landing at once)
 REPLICATED = (len(STEPS) - 1, 2, True)
 
