@@ -102,12 +102,14 @@ seconds:
    (``testing.SEED_CONFIGS``; 17 carry a layout key: value stages in
    registers (L1), transposed lane regions (L2)), its gate's only
    ``narrow`` row (packed 16-bit stages, L3) and chunked stage loops
-   (L4) at the benchmark shapes, through ``get_executor(..., **seed)``,
+   (L4) at the benchmark shapes, through ``get_executor(..., **seed)``
+   (the short form, with its layout element where a key asks for one),
    each counter reset just before its run and read just after: one
    launch per call; bit for bit equal to the cell's default kernel and
-   to the form's plain version (``layout_stencil_plain``) on the card
-   (a seed without layout keys: within the threshold of its own
-   whole-grid plain version), with the largest error measured; blur
+   to the short form's plain version (``fused_stencil_plain``, over the
+   whole grid: the same function on every valid cell, without walking
+   the tiles) on the card (a seed without layout keys: within the
+   threshold of it), with the largest error measured; blur
    bit-exact against the NumPy oracle; the cold-L2 median beside
    the default kernel's, bound and share, the plain version's time,
    back-to-back device microseconds, and the registers, spills and CTAs
@@ -263,7 +265,7 @@ seconds:
    fails the run.
 26. options: the public kernel options on the short form
    (``option_rows``: every ``testing.MODE_CELLS`` row, each short cell
-   at its rule's tile and that tile's axis-0 extent halved and doubled,
+   at its rule's tile and that tile's axis-0 extent halved,
    jacobi3d_256 with the JAX seeds' block_rows and mid_tile), each
    through ``get_executor(..., **keys)`` with its counter reset just
    before and read just after (one launch): bit for bit equal to the old
@@ -275,6 +277,16 @@ seconds:
    µs a call back to back (replayed from a CUDA graph) as old, new, new,
    old after a settle run, then the default kernel's, the tile, elements
    off, resident CTAs, registers and spills, the bound and its share.
+27. layout-short: the layout keys on the short form (``layout_short_rows``:
+   the 19 rows of phase 15 that carry a layout key), each through
+   ``get_executor(..., **keys)`` with its counter reset just before and
+   read just after (one launch): bit for bit equal to the old layout
+   form the same keys build with ``_short=()`` and to the cell's default
+   kernel; device µs a call back to back (replayed from a CUDA graph) as
+   old, new, new, old after a settle run, then the default kernel's; the
+   form, tile, CTAs, the region's strip and register rows, registers,
+   spills and barriers a tile. ``python -c "import chip_smoke;
+   chip_smoke.layout_short_main()"`` runs this phase alone.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
@@ -644,17 +656,16 @@ def short_phase(cells, plains, smi, log):
 
 def option_rows(stencils):
   """(cell, keys) of phase 26: every ``testing.MODE_CELLS`` row; for each
-  short cell, ``tile=`` its rule's tile, that tile's axis-0 extent
-  halved (jacobi3d_256, whose rule takes 1: its axis-1 extent) and
-  doubled; ``OPTION_FIXED``."""
+  short cell, ``tile=`` its rule's tile and that tile's axis-0 extent
+  halved (jacobi3d_256, whose rule takes 1: its axis-1 extent);
+  ``OPTION_FIXED``."""
   from soda_tpu_torch import testing
   from soda_tpu_torch.backend.tile_plan import make_tile_plan
   rows = list(testing.MODE_CELLS)
   for name, shape, _ in short_cells():
     t = make_tile_plan(stencils[name], shape).tile
     half = (t[0] // 2,) + t[1:] if t[0] > 1 else (1, t[1] // 2) + t[2:]
-    rows += [(name, {'tile': tile})
-             for tile in (t, half, (t[0] * 2,) + t[1:])]
+    rows += [(name, {'tile': tile}) for tile in (t, half)]
   return rows + list(OPTION_FIXED)
 
 
@@ -1327,6 +1338,178 @@ def ranks_checked(cases, nine, ranks, backend, single, single_us, plains,
   return records
 
 
+def layout_short_rows(stencil_of):
+  """(cell, seed label, shape, stencil, keys) of phase 27: every row of
+  ``testing.SEED_CONFIGS`` and ``testing.LAYOUT_EXTRA`` that carries a
+  layout key (17 seeds and the 2 extras); ``stencil_of(name, overrides)``
+  gives the row's stencil."""
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.backend.layout import LAYOUT_KEYS
+  rows = []
+  seeds = testing.SEED_CONFIGS + testing.LAYOUT_EXTRA
+  for index, (name, shape, overrides, keys) in enumerate(seeds):
+    if not any(k in keys for k in LAYOUT_KEYS):
+      continue
+    label = ('seed %d' % (index % 2) if index < len(testing.SEED_CONFIGS)
+             else 'extra')
+    rows.append((name, label, shape, stencil_of(name, overrides), keys))
+  return rows
+
+
+def layout_short_sources(rows):
+  """The kernel sources of phase 27: each row's new form, its old kernel
+  (``_short=()``, the same keys) and its stencil's default kernel."""
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
+  out = []
+  for _, _, shape, stencil, keys in rows:
+    out += [cuda_source.generate(kernel_plan(stencil, shape, **keys)),
+            cuda_source.generate(kernel_plan(stencil, shape, **keys,
+                                             _short=())),
+            cuda_source.generate(make_tile_plan(stencil, shape))]
+  return out
+
+
+def layout_short_phase(rows, lib, plain_ms, smi, log):
+  """Phase 27 ``[layout-short]``: the layout keys on the short form. Per
+  row of ``layout_short_rows``, the new form through
+  ``get_executor(..., **keys)`` (its counter reset just before the user's
+  call and read just after: one launch), bit for bit equal on the valid
+  regions to the old kernel the same keys build with ``_short=()`` (the
+  PR 5 layout form) and to the stencil's default kernel; after a settle
+  run, device µs a call replayed back to back (``profiling.replay_us``)
+  as old, new, new, old, then the default kernel's; the form, tile,
+  CTAs, the region's strip and register rows, registers, spills and
+  barriers a tile. Returns the rows' kernel records (``library_ms``: the
+  cell's, ``lib``; ``plain_ms``: the whole-grid plain version's ms by
+  (cell, seed label), timed here where a row has none)."""
+  import torch
+  import soda_tpu_torch
+  from soda_tpu_torch import profiling, testing
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.fused import FusedExecutor, fused_stencil_plain
+  from soda_tpu_torch.model.compiled import compiled_stats
+  records = []
+  for name, label, shape, stencil, keys in rows:
+    t = time.time()
+    new = soda_tpu_torch.get_executor(stencil, shape, **keys)
+    old = FusedExecutor(stencil, shape, **keys, _short=())
+    default = FusedExecutor(stencil, shape)
+    plan, short = new.plan, new.plan.short
+    if (not isinstance(new, FusedExecutor) or short is None or
+        plan.warp is not None or old.plan.short is not None or
+        plan.layout is None):
+      raise RuntimeError('%s %s: not the short form against the old layout '
+                         'form' % (name, keys))
+    inputs = testing.make_test_inputs(stencil, shape)
+    params = testing.make_test_params(stencil)
+    new.launches = 0
+    got = new(inputs, params)
+    torch.cuda.synchronize()
+    launches = new.launches
+    if launches != 1:
+      raise RuntimeError('%s %s: %d launches for one call' % (
+          name, keys, launches))
+    args = new.prepare(inputs, params)
+    row = '%s %s %s' % (name, label, json.dumps(keys, sort_keys=True))
+    old_out = dict(zip(stencil.output_names, old.fn(*args)))
+    testing.check_exact(stencil, shape, got, old_out, row + ' vs the old form')
+    err = testing.check_outputs(stencil, shape, got, old_out,
+                                row + ' vs the old form')
+    testing.check_exact(stencil, shape, got, dict(zip(
+        stencil.output_names, default.fn(*args))),
+                        row + ' vs the default kernel')
+    del got, old_out
+    n_in = len(stencil.input_names)
+    p_ms = plain_ms.get((name, label))
+    if p_ms is None:
+      p_ms = statistics.median(profiling.cuda_times_ms(
+          lambda: fused_stencil_plain(stencil, args[:n_in], args[n_in:]),
+          reps=PLAIN_REPS, warmup=1))
+    card = compiled_stats(new)['kernels'][0]
+    card_old = compiled_stats(old)['kernels'][0]
+
+    def b2b(e):
+      return profiling.replay_us(lambda: e.fn(*args), calls=OPTION_CALLS)
+
+    profiling.settle(lambda: new.fn(*args))
+    seq = [b2b(old), b2b(new), b2b(new), b2b(old)]
+    default_us = b2b(default)
+    new_us = (seq[1] + seq[2]) / 2
+    ratio = (seq[1] + seq[2]) / (seq[0] + seq[3])
+    layout = plan.layout
+    records.append(record(
+        'fused_stencil_layout_short[%s %s: %s]' % (name, label, layout.name),
+        'soda_tpu_torch/backend/cuda_source.py',
+        cuda_source.LAYOUT_REPLACES[layout.form], launches, err,
+        new_us / 1e3, p_ms, stencil, shape))
+    records[-1]['library_ms'] = lib.get(name)
+    bound = records[-1]['bound_ms']
+    reg = short.region
+    form = ('region %s: strip %d, %d-lane windows of %d, %d window(s), '
+            'register rows %s, packed %s, ~%d words' % (
+                '+'.join(reg.members), reg.strip, reg.lanes, reg.cells,
+                reg.windows, ','.join('%s:%d' % (m, reg.rows(m))
+                                      for m in reg.arrays),
+                '+'.join(reg.packed) or 'none', reg.regs)
+            if reg is not None else 'no region (%s)' % ', '.join(
+                short.layout))
+    log('%-12s %-7s %-30s %s tile %s, %d CTAs x %d steps, %d CTA(s)/SM '
+        '(card %d), %d barriers a tile, %s%s; %d registers, spills %d/%d B '
+        '(old %d, %d/%d B): 1 launch, == old form and default kernel bit for '
+        'bit; back to back old, new, new, old %.1f/%.1f/%.1f/%.1f us/call '
+        '(new/old %.3f), default %.1f us (new/default %.3f); bound %.4f ms, '
+        'share new %.1f%% (%.1fs) | %s' % (
+            name, label, layout.name, json.dumps(keys, sort_keys=True),
+            plan.tile, plan.n_ctas, plan.steps, short.ctas,
+            card['ctas_per_sm'], len(short.barriers), form,
+            ' (off: %s)' % '; '.join('%s: %s' % kv for kv in sorted(
+                short.off.items())) if short.off else '',
+            card['registers'], card['spill_stores'], card['spill_loads'],
+            card_old['registers'], card_old['spill_stores'],
+            card_old['spill_loads'], *seq, ratio, default_us,
+            new_us / default_us, bound, 100 * bound / (new_us / 1e3),
+            time.time() - t, smi))
+    del new, old, default, args
+    torch.cuda.empty_cache()
+  return records
+
+
+def layout_short_main() -> int:
+  """Phase 27 alone (``python -c 'import chip_smoke;
+  chip_smoke.layout_short_main()'``): its rows' kernels built at once,
+  then the phase; one line a row."""
+  import torch
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device', file=sys.stderr)
+    return 1
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  from soda_tpu_torch import profiling, testing
+  from soda_tpu_torch.backend import build
+  report = profiling.device_report()
+  smi = report['nvidia_smi']
+  say(smi)
+  cache = {}
+
+  def stencil_of(name, overrides):
+    key = (name, repr(sorted(overrides.items())))
+    if key not in cache:
+      cache[key] = testing.build_cell(name, overrides)
+    return cache[key]
+
+  rows = layout_short_rows(stencil_of)
+  t = time.time()
+  sources = list({s.digest: s for s in layout_short_sources(rows)}.values())
+  build.build_all(sources)
+  say('[build] nvcc: %d kernels at once (%.1fs)' % (len(sources),
+                                                    time.time() - t))
+  t = time.time()
+  records = layout_short_phase(rows, {}, {}, smi,
+                               lambda line: say('[layout-short] ' + line))
+  say('[layout-short] %d rows (%.1fs)' % (len(records), time.time() - t))
+  return 0
+
+
 def main() -> int:
   import torch
   if not torch.cuda.is_available():
@@ -1342,7 +1525,6 @@ def main() -> int:
   from soda_tpu_torch.backend import build, cuda_source, grouped
   from soda_tpu_torch.backend.fused import (FusedExecutor,
                                             fused_stencil_plain,
-                                            layout_stencil_plain,
                                             replicated_stencil_plain,
                                             streamed_stencil_plain)
   from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
@@ -1425,6 +1607,15 @@ def main() -> int:
       sources.append(cuda_source.generate(make_tile_plan(stencil, shape)))
     layout_rows.append((name, shape, stencil, opts))
     sources.append(cuda_source.generate(kernel_plan(stencil, shape, **opts)))
+  # the layout rows' old forms (phase 27)
+  layout_stencil = {(name, repr(sorted(overrides.items()))): row[2]
+                    for (name, _, overrides, _), row in zip(
+                        testing.SEED_CONFIGS + testing.LAYOUT_EXTRA,
+                        layout_rows)}
+  short_layout_rows = layout_short_rows(
+      lambda name, overrides: layout_stencil[
+          (name, repr(sorted(overrides.items())))])
+  sources += layout_short_sources(short_layout_rows)
   # the validation gate's kernels (phase 14 runs it; it finds them built)
   gate_stencils = {}
   for _, name, variants, opts in gpu_validate.cases(True):
@@ -2031,6 +2222,7 @@ def main() -> int:
   # a layout key) and its gate's narrow row, and chunked stage loops, at
   # the benchmark shapes, each through the user's entry point
   t15 = time.time()
+  row_plain_ms = {}  # (cell, seed label) -> the plain version's ms
   for index, (name, shape, stencil, opts) in enumerate(layout_rows):
     t = time.time()
     ex = soda_tpu_torch.get_executor(stencil, shape, **opts)
@@ -2062,31 +2254,23 @@ def main() -> int:
           lambda: default_ex.fn(*args), reps=KERNEL_REPS))
     testing.check_exact(stencil, shape, got, default_out,
                         label + ' vs the default kernel')
+    # the short form's plain version over the whole grid (walking the
+    # plan's tiles takes seconds a row at these shapes): the same function
+    # on every valid cell, bit for bit for a layout row
+    if stencil is stencils[name]:
+      want, p_ms = plains[name], plain_ms_of[name]
+    else:
+      want = dict(zip(stencil.output_names, fused_stencil_plain(
+          stencil, args[:n_in], args[n_in:])))
+      p_ms = statistics.median(profiling.cuda_times_ms(
+          lambda: fused_stencil_plain(stencil, args[:n_in], args[n_in:]),
+          reps=PLAIN_REPS, warmup=1))
     if layout is not None:
-      plain_out = []
-      p_ms = profiling.cuda_times_ms(
-          lambda: plain_out.append(layout_stencil_plain(
-              stencil, args[:n_in], args[n_in:], tile=plan)),
-          reps=1, warmup=0)[0]
-      want = dict(zip(stencil.output_names, plain_out[0]))
       testing.check_exact(stencil, shape, got, want,
-                          label + ' vs layout_stencil_plain')
-      err = testing.check_outputs(stencil, shape, got, want, label)
-      del plain_out, want
-    else:  # a seed without layout keys: the kernel at another tile or in
-      # a mode, held against the seed's own whole-grid plain version
-      # (walking its tiles takes minutes in contrast)
-      if stencil is stencils[name]:
-        want, p_ms = plains[name], plain_ms_of[name]
-      else:
-        want = dict(zip(stencil.output_names, fused_stencil_plain(
-            stencil, args[:n_in], args[n_in:])))
-        p_ms = statistics.median(profiling.cuda_times_ms(
-            lambda: fused_stencil_plain(stencil, args[:n_in], args[n_in:]),
-            reps=PLAIN_REPS, warmup=1))
-      err = testing.check_outputs(stencil, shape, got, want,
-                                  label + ' vs whole-grid plain')
-      del want
+                          label + ' vs the whole-grid plain version')
+    err = testing.check_outputs(stencil, shape, got, want,
+                                label + ' vs whole-grid plain')
+    del want
     exact = ''
     if name == FLAGSHIP:
       check_oracle(got, label)
@@ -2107,11 +2291,12 @@ def main() -> int:
                 cuda_source.REPLACES)
     seed = ('seed %d' % (index % 2) if index < len(testing.SEED_CONFIGS)
             else 'extra')
+    row_plain_ms[(name, seed)] = p_ms
     kernels.append(record('fused_stencil_layout[%s %s: %s]' % (
         name, seed, form), 'soda_tpu_torch/backend/cuda_source.py',
                           replaces, count, err, ms, p_ms, stencil, shape))
     bound = kernels[-1]['bound_ms']
-    warp = plan.warp
+    reg = plan.short.region if plan.short is not None else None
     say('[layout] %-12s %-7s %-40s %s tile %s, %d CTAs%s: 1 launch, '
         '== default kernel bit for bit, == %s%s  kernel %.4f ms (default '
         'kernel %.4f ms, %.2fx), max |err| %.3g  bound %.4f ms (%.1f%%)  '
@@ -2119,12 +2304,13 @@ def main() -> int:
         'back to back %.1f us/call  %d registers, spills %d/%d B, %d B '
         'local, %d CTA(s)/SM (%.1fs) | %s' % (
             name, seed, form, json.dumps(opts, sort_keys=True), plan.tile,
-            plan.n_ctas, (', warp blocks %s, frame %s, %d cell(s) a lane, '
-                          '~%d live values' % (warp.block, warp.window,
-                                               warp.cells, warp.regs)
-                          if warp else ', many-stage form, %d barriers a tile'
-                          % len(plan.deep.barriers) if plan.deep else ''),
-            'layout_stencil_plain bit for bit' if layout else
+            plan.n_ctas, (', region %s, strip %d, %d-lane windows, ~%d '
+                          'words' % ('+'.join(reg.members), reg.strip,
+                                     reg.lanes, reg.regs)
+                          if reg else ', many-stage form, %d barriers a tile'
+                          % len(plan.deep.barriers) if plan.deep else
+                          ', short form' if plan.short else ''),
+            'the whole-grid plain version bit for bit' if layout else
             'whole-grid plain', exact, ms, default_ms,
             ms / default_ms, err, bound, 100 * bound / ms, p_ms, device_us,
             stats['registers'], stats['spill_stores'], stats['spill_loads'],
@@ -2496,6 +2682,13 @@ def main() -> int:
   kernels += options_phase(cells, plains, plain_ms_of, lib, check_oracle,
                            smi, lambda line: say('[options] ' + line))
   say('[options] phase 26 (%.1fs)' % (time.time() - t26))
+
+  # 27. the layout keys on the short form against the old layout forms
+  t27 = time.time()
+  kernels += layout_short_phase(short_layout_rows, lib, row_plain_ms, smi,
+                                lambda line: say('[layout-short] ' + line))
+  say('[layout-short] phase 27: %d rows (%.1fs)' % (
+      len(short_layout_rows), time.time() - t27))
 
   launch.no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

@@ -24,10 +24,11 @@ Two parts:
 The kernel computes what soda_tpu/backend/pallas_kernel.py
 ``PallasExecutor._build`` computes; the source names that in its first
 comment. A mode plan's kernel (``_mode_kernel``) walks runs of tiles
-with a ``cp.async`` ring; a layout plan's kernel evaluates its stages in
-per-warp register windows (``_value_blocks``, the layout forms L1-L3,
-with ``soda_pstage_<k>`` for packed 16-bit stages) or in chunked stage
-loops (L4). The generated text depends only on (stencil, shape, tile): the
+with a ``cp.async`` ring; the layout keys build the short form with a
+region of stages in registers (``_short_kernel``'s ``region_block``,
+with ``soda_pstage_<k>`` for packed 16-bit stages), and with
+``_short=()`` the old layout forms: per-warp register windows
+(``_value_blocks``, L1-L3) or chunked stage loops (L4). The generated text depends only on (stencil, shape, tile): the
 replica count is a launch argument, so one build serves every count.
 """
 
@@ -1255,7 +1256,20 @@ def _short_kernel(plan: TilePlan) -> str:
   ``prefetch`` its depth, ``dma_split`` cuts each fill into that many
   commit groups over axis-0 sub-ranges, and ``out_dma`` writes each
   output's tile into a staging buffer, then after a barrier stores it
-  row by row (16 bytes a thread where the rows allow)."""
+  row by row (16 bytes a thread where the rows allow).
+
+  The layout keys' region (``short.region``, tile_plan.Region) runs in
+  place of its members' stages, after one barrier where one is due: the
+  CTA's warps take work items (a strip of axis-0 rows, a row of each
+  middle axis, a window of ``lanes`` lanes) in passes, and every lane
+  of a warp runs every pass, so that each ``__shfl_sync`` meets all 32
+  lanes (a surplus item recomputes the last one and stores nothing).
+  Each array member is a register array of its rows by the lane's
+  columns, built from shifted views of the arrays it reads (lane
+  rotates, taken before any valid-region test) and register rows of
+  its entries (their rows, middle rows and columns clamped into the
+  entry's buffer); each exit's strip rows are stored by the window that
+  owns the column."""
   st = plan.stencil
   dim, shape, tile = plan.dim, plan.shape, plan.tile
   short = plan.short
@@ -1413,9 +1427,16 @@ def _short_kernel(plan: TilePlan) -> str:
 
   def stage_blocks(first):
     body = []
+    region = short.region
     for k, stage in enumerate(plan.stages):
       name = stage.name
       if name in short.values:
+        continue
+      if region is not None and name in region.members:
+        if name == region.members[0]:
+          if k in short.barriers:
+            body.append('__syncthreads();')
+          body += region_block(first)
         continue
       if k in short.barriers:
         body.append('__syncthreads();')
@@ -1530,6 +1551,296 @@ def _short_kernel(plan: TilePlan) -> str:
       block += ['  ' + s for s in _fixed_cells(ext_u, cell)] + ['}']
       body += block
     return body + (_staged_stores(plan, 'kEdge') if plan.staging else [])
+
+  def clamp(var, lo, hi):
+    return '%s = %s < %d ? %d : (%s > %d ? %d : %s);' % (
+        var, var, lo, lo, var, hi, hi, var)
+
+  def region_block(first):
+    """The value-mode region (tile_plan.Region): each work item's strip,
+    middle row and window, every member at its register rows in order,
+    the exits stored by the window that owns the column."""
+    reg = short.region
+    cells, lanes, strip = reg.cells, reg.lanes, reg.strip
+    members = set(reg.members)
+    # the rows of the exits this step computes, tile-relative
+    spans_ = []
+    for e in reg.exits:
+      start, count = rows_range(e, first)
+      n0 = plan.spans[e][0][0]
+      spans_.append((start - n0, start - n0 + count))
+    lo_t, hi_t = min(a for a, _ in spans_), max(b for _, b in spans_)
+    mids = [(min(-plan.spans[e][0][a] for e in reg.exits),
+             max(tile[a] + plan.spans[e][1][a] for e in reg.exits))
+            for a in range(1, last)]
+    n_items = (-(-(hi_t - lo_t) // strip) * reg.windows *
+               int(np.prod([b - a for a, b in mids] or [1])))
+    per = (THREADS // 32) * (32 // lanes)
+    lines = ['{  // region: %s in registers (%d-row strips, %d-lane '
+             'windows of %d column(s) a lane), stored: %s' % (
+                 ', '.join(reg.members), strip, lanes, cells,
+                 ', '.join(reg.exits))]
+    entries = sorted({p for m in reg.members
+                      for p in by_name[m].load_offsets if p not in members})
+    for p in entries:
+      lines.append('  ' + _smem_ptr(plan, p, True))
+    for e in reg.exits:
+      if plan.buffered(e):
+        lines.append('  ' + _smem_ptr(plan, e, False))
+      if e in plan.staging:
+        t = storage_ctype(plan.dtype(e))
+        lines.append('  %s* t_%s = reinterpret_cast<%s*>(soda_smem + %d);' %
+                     (t, e, t, plan.staging[e]))
+    body = ['int item = pass * %d + slot;' % per,
+            'const bool live = item < %d;' % n_items,
+            'if (!live) item = %d;  // computes, stores nothing' %
+            (n_items - 1)]
+    if reg.windows > 1:
+      body += ['const int w = item %% %d;' % reg.windows,
+               'item /= %d;' % reg.windows]
+    else:
+      body.append('const int w = 0;')
+    for a in range(last - 1, 0, -1):
+      lo, hi = mids[a - 1]
+      body += ['const int t%d = item %% %d + %d;' % (a, hi - lo, lo),
+               'item /= %d;' % (hi - lo),
+               'const int g%d = o%d + t%d;' % (a, a, a)]
+    body += ['const int s0 = item * %d + %d;  // the strip\'s first row' %
+             (strip, lo_t),
+             'const int x0 = %d + w * %d + ll * %d;  // the lane\'s first '
+             'column' % (reg.start, reg.stride, cells),
+             'const int gc = o%d + x0;' % last,
+             'const bool own = live && ll * %d >= %d && ll * %d < %d;  // '
+             'the window stores these columns' % (
+                 cells, reg.edge[0], cells, reg.edge[0] + reg.stride)]
+    region_by = {n: by_name[n] for n in reg.members}
+    for m in reg.arrays:
+      t = storage_ctype(plan.dtype(m))
+      rows = reg.rows(m)
+      if m in reg.packed:
+        body.append('uint32_t a_%s[%d][%d];  // packed pairs' % (
+            m, rows, cells // 2))
+      else:
+        body.append('%s a_%s[%d][%d];' % (t, m, rows, cells))
+    for m in reg.arrays:
+      body += ['{  // %s: rows [s0 - %d, s0 + %d)' % (
+          m, reg.halo[m][0], strip + reg.halo[m][1])]
+      body += ['  ' + x for x in region_member(m, region_by)]
+      body.append('}')
+      if m in reg.exits:
+        body += region_store(m, first)
+    lines += ['  const int ll = (int)(threadIdx.x & %du);  // lane in its '
+              'window' % (lanes - 1),
+              '  const int slot = (int)(threadIdx.x >> 5) * %d + (int)('
+              '(threadIdx.x & 31u) / %d);' % (32 // lanes, lanes),
+              '  #pragma unroll 1',
+              '  for (int pass = 0; pass < %d; ++pass) {' % -(-n_items // per)]
+    lines += ['    ' + x for x in body] + ['  }', '}']
+    return lines
+
+  def region_member(m, region_by):
+    """One array's rows: the shifted views of the arrays it reads (lane
+    rotates, computed by every lane), then its cells, row by row, each
+    row's entry register rows first."""
+    reg = short.region
+    cells = reg.cells
+    stage = by_name[m]
+    up = reg.halo[m][0]
+    closure = value_closure(stage, by_name, reg.inline)
+    out = []
+    reads: Dict[str, List[Tuple[int, ...]]] = {}
+    for s in closure + [stage]:
+      for p in s.load_offsets:
+        if p in reg.arrays:
+          reads.setdefault(p, []).extend(
+              tuple(reversed(o)) for o in s.load_offsets[p])
+    views = {}
+    for p, offs in sorted(reads.items()):
+      d0 = (min(o[0] for o in offs), max(o[0] for o in offs))
+      dl = (min(o[-1] for o in offs), max(o[-1] for o in offs))
+      views[p] = (d0[0], dl[0])
+      tp = storage_ctype(plan.dtype(p))
+      base = reg.halo[p][0] - up + d0[0]  # p's row of view row 0
+      need = sorted({(i + o[0] - d0[0], j + o[-1] - dl[0])
+                     for i in range(reg.rows(m)) for j in range(cells)
+                     for o in offs} | (
+                         {(i + o[0] - d0[0], j + 1 + o[-1] - dl[0])
+                          for i in range(reg.rows(m))
+                          for j in range(0, cells, 2) for o in offs}
+                         if m in reg.packed else set()))
+      out.append('%s x_%s[%d][%d];  // %s at rows %+d.., columns %+d..' % (
+          tp, p, reg.rows(m) + d0[1] - d0[0], cells + dl[1] - dl[0], p,
+          d0[0], dl[0]))
+      get = ('soda::pcell_get<%d, %s>' % (cells, tp) if p in reg.packed
+             else 'soda::lane_get<%d>' % cells)
+      out += ['x_%s[%d][%d] = %s(a_%s[%d], %d);' % (
+          p, v, c, get, p, v + base, c + dl[0]) for v, c in need]
+    entry_rows = register_rows(st, stage, by_name, reg.inline, cells,
+                               skip=reg.members)
+    row = ['const int t = s0 - %d + i;' % up, 'const int g0 = o0 + t;']
+    counter: Dict[str, int] = {}
+    gids = {}
+    for (p, g), (lo, hi) in entry_rows.items():
+      gid = counter.setdefault(p, 0)
+      counter[p] += 1
+      gids[(p, g)] = gid
+      pt = storage_ctype(plan.dtype(p))
+      ext = plan.extent(p)
+      pneg = plan.spans[p][0]
+      a_p, b_p = short.frames[p]
+      row.append('%s r_%s_%d[%d];  // %s row at %s, columns [x0%+d, x0%+d)' % (
+          pt, p, gid, hi - lo, p, g, lo, hi))
+      row.append('{')
+      idx = []
+      for a in range(last):
+        var = 'e%d' % a
+        src = 't' if a == 0 else 't%d' % a
+        row.append('  int %s = %s + %d;' % (var, src, g[a] + pneg[a]))
+        row.append('  ' + clamp(var, 0, ext[a] - 1))
+        idx.append(var)
+      more, idx[0] = ring_row(p, idx[0], 'q0')
+      row += ['  ' + x for x in more]
+      row.append('  const int rb = %s + %d;' % (row_flat(p, idx), a_p))
+      for q in range(0, hi - lo, cells):
+        row += ['  {', '    int c = x0 + %d;' % (lo + q),
+                '    ' + clamp('c', -a_p, b_p - cells)]
+        if cells > 1:
+          row.append('    soda::ldv<%d>(r_%s_%d + %d, s_%s + rb + c);' % (
+              cells * plan.dtype(p).np_dtype.itemsize, p, gid, q, p))
+        else:
+          row.append('    r_%s_%d[%d] = s_%s[rb + c];' % (p, gid, q, p))
+        row.append('  }')
+      row.append('}')
+
+    def loader(p, j, pair):
+      """``ld_<p>`` at cell ``j`` (a pair at j, j + 1 where ``pair``)."""
+      args = ', '.join('int d%d' % a for a in range(dim))
+      pt = storage_ctype(plan.dtype(p))
+      if p in reg.inline:
+        return 'auto ld_%s = [&](%s) -> %s { return w_%s; };' % (
+            p, ', '.join('int' for _ in range(dim)), pt, p)
+
+      def cell(jj):
+        if p in views:
+          d0, dl = views[p]
+          return 'x_%s[i + d0 - (%d)][%s + d%d - (%d)]' % (p, d0, jj, last,
+                                                         dl)
+        code = None
+        groups = [(g, lo) for (q, g), (lo, _) in entry_rows.items() if q == p]
+        for g, lo in reversed(groups):
+          pick = 'r_%s_%d[%s + d%d - (%d)]' % (p, gids[(p, g)], jj, last, lo)
+          if code is None:
+            code = pick
+          else:
+            test = ' && '.join('d%d == %d' % (a, g[a]) for a in range(last))
+            code = '(%s) ? %s : %s' % (test, pick, code)
+        return code
+
+      if pair:
+        return ('auto ld_%s = [&](%s) -> uint32_t { return soda::pack2('
+                '(uint32_t)%s, (uint32_t)%s); };' % (
+                    p, args, cell(j), cell('%s + 1' % j)))
+      return 'auto ld_%s = [&](%s) -> %s { return %s; };' % (
+          p, args, pt, cell(j))
+
+    def call(s, sk, pack=False):
+      return 'soda_%sstage_%d(%s)' % ('p' if pack else '', sk, ', '.join(
+          ['ld_%s' % p for p in _stage_parents(s)] +
+          ([params] if params and not pack else [])))
+
+    k = index[m]
+    t = storage_ctype(stage.dtype)
+    if m in reg.packed:
+      each = ['const int g%d = gc + j;' % last]
+      each += [loader(p, 'j', True) for p in _stage_parents(stage)]
+      each += ['uint32_t u = %s;' % call(stage, k, True),
+               'if (kEdge && !(%s)) u &= 0xffff0000u;' % valid(m),
+               '{',
+               '  const int g%d = gc + j + 1;' % last,
+               '  if (kEdge && !(%s)) u &= 0x0000ffffu;' % valid(m),
+               '}',
+               'a_%s[i][j / 2] = u;' % m]
+      cell_code = _unrolled([('jj', 0, cells // 2)],
+                            ['const int j = 2 * jj;'] + each)
+    else:
+      each = ['const int g%d = gc + j;' % last]
+      for s in closure:
+        sk = index[s.name]
+        each += ['%s w_%s = 0;' % (storage_ctype(s.dtype), s.name), '{'] + [
+            '  ' + line for line in
+            [loader(p, 'j', False) for p in _stage_parents(s)] + [
+                'if (!kEdge || (%s)) w_%s = %s;' % (valid(s.name), s.name,
+                                                     call(s, sk))]] + ['}']
+      each += [loader(p, 'j', False) for p in _stage_parents(stage)]
+      each += ['%s u = 0;' % t,
+               'if (!kEdge || (%s)) u = %s;' % (valid(m), call(stage, k)),
+               'a_%s[i][j] = u;' % m]
+      cell_code = _unrolled([('j', 0, cells)], each)
+    out += _unrolled([('i', 0, reg.rows(m))], row + cell_code)
+    return out
+
+  def region_store(e, first):
+    """Exit ``e``'s strip rows: into its buffer (the rows this step
+    computes, within its frame), and for an output its tile's cells to
+    device memory (or the staging tile)."""
+    reg = short.region
+    cells = reg.cells
+    up = reg.halo[e][0]
+    t = storage_ctype(plan.dtype(e))
+    size = cells * plan.dtype(e).np_dtype.itemsize
+    neg = plan.spans[e][0]
+    out = ['#pragma unroll', 'for (int i = %d; i < %d; ++i) {' % (
+        up, up + reg.strip), '  const int t = s0 - %d + i;' % up]
+    if e in reg.packed:
+      out += ['  %s v[%d];' % (t, cells)] + [
+          '  v[%d] = soda::unpack16<%s>(a_%s[i][%d] >> %d);' % (
+              j, t, e, j // 2, 16 * (j % 2)) for j in range(cells)]
+      src = 'v'
+    else:
+      src = 'a_%s[i]' % e
+    if plan.buffered(e):
+      start, count = rows_range(e, first)
+      a_e, b_e = short.frames[e]
+      ext = plan.extent(e)
+      test = ['own', 't + %d >= %d' % (neg[0], start),
+              't + %d < %d' % (neg[0], start + count),
+              'x0 >= %d' % -a_e, 'x0 < %d' % b_e]
+      test += ['t%d + %d >= 0 && t%d + %d < %d' % (a, neg[a], a, neg[a],
+                                                   ext[a])
+               for a in range(1, last)]
+      idx = ['q'] + ['t%d + %d' % (a, neg[a]) for a in range(1, last)]
+      out += ['  if (%s) {' % ' && '.join(test),
+              '    int q = t + %d;' % neg[0]]
+      more, idx[0] = ring_row(e, 'q', 'qr')
+      out += ['    ' + x for x in more]
+      dst = 's_%s + %s + x0 + %d' % (e, row_flat(e, idx), a_e)
+      out.append('    soda::stv<%d>(%s, %s);' % (size, dst, src) if cells > 1
+                 else '    *(%s) = %s[0];' % (dst, src))
+      out.append('  }')
+    if e in outputs:
+      test = ['own', 't >= 0', 't < %d' % tile[0],
+              'x0 >= 0', 'x0 < %d' % tile[last]]
+      test += ['t%d >= 0 && t%d < %d' % (a, a, tile[a])
+               for a in range(1, last)]
+      inside = ' && '.join(['o0 + t < %d' % shape[0]] +
+                           ['g%d < %d' % (a, shape[a])
+                            for a in range(1, last)] +
+                           ['gc < %d' % shape[last]])
+      if plan.config.out_dma:
+        at = 'x0'
+        for a in range(last - 1, -1, -1):
+          at = '(%s) * %d + %s' % ('t' if a == 0 else 't%d' % a,
+                                   int(np.prod(tile[a + 1:])), at)
+        where = 't_%s + (%s)' % (e, at)
+      else:
+        test.append('(!kEdge || (%s))' % inside)
+        where = 'o_%s + (%s)' % (e, _flat(['(o0 + t)'] + [
+            'g%d' % a for a in range(1, last)] + ['gc'], strides))
+      out.append('  if (%s) %s' % (' && '.join(test), (
+          'soda::stv<%d>(%s, %s);' % (size, where, src) if cells > 1 else
+          '*(%s) = %s[0];' % (where, src))))
+    out.append('}')
+    return out
 
   # the launch bounds ask registers for the resident CTAs the shared
   # memory leaves; under stream_loop no more than its grid puts on an SM
@@ -1683,6 +1994,21 @@ def _short_kernel(plan: TilePlan) -> str:
   return '\n'.join(out)
 
 
+def region_forms(plan: TilePlan) -> Tuple[str, ...]:
+  """The layout forms a short plan's region (tile_plan.Region) builds:
+  L1, L2 where a transposed lane region's members read each other at
+  minor-axis offsets under 'slice' (under 'rotate' every member does,
+  and the transposed set changes nothing), L3 where stages are packed.
+  Keys that come to the same kernel name the same forms."""
+  reg, layout = plan.short.region, plan.layout
+  forms = ['L1']
+  if not layout.rotate and any(m in layout.transposed for m in reg.members):
+    forms.append('L2')
+  if reg.packed:
+    forms.append('L3')
+  return tuple(forms)
+
+
 def _short_note(plan: TilePlan) -> str:
   short = plan.short
   lines = _note(plan).split('\n')[:4] + [
@@ -1698,6 +2024,32 @@ def _short_note(plan: TilePlan) -> str:
           len(plan.stages)),
       '// %.2f stage evaluations and %.2f input cells filled an output.' % (
           short.evaluations, short.fills)]
+  reg = short.region
+  if reg is not None:
+    forms = region_forms(plan)
+    lines += [
+        '// Layout %s (%s), as the short form\'s region: %s' % (
+            '+'.join(forms), ', '.join(LAYOUT_REPLACES[f] for f in forms),
+            ', '.join(reg.members)),
+        '// in registers after one barrier: work items of a %d-row strip, '
+        'one row of' % reg.strip,
+        '// each middle axis and a window of %d lanes x %d column(s); an '
+        'axis-0 tap' % (reg.lanes, reg.cells),
+        '// a register index (halo rows computed once a strip), a minor-axis '
+        'tap a',
+        '// lane rotate (__shfl_sync); the window\'s edges (%d, %d '
+        'columns) not' % reg.edge,
+        '// stored. roll and window build this same text. About %d live '
+        'register' % reg.regs,
+        '// words a thread (the plan\'s estimate); stored: %s.' %
+        ', '.join(reg.exits)]
+    if reg.packed:
+      lines.append('// narrow: %s as packed 16-bit pairs (__vadd2, & | ^).' %
+                   ', '.join(reg.packed))
+  for element in ('region', 'packed'):
+    if element in short.off:
+      lines.append('// layout element %s off: %s.' % (element,
+                                                       short.off[element]))
   if short.has('walk') and plan.dim >= 2:
     lines += ['// walk: a CTA walks %d axis-0 tiles of one tile column (%d '
               'CTAs), each' % (plan.steps, plan.n_ctas),
@@ -2286,7 +2638,11 @@ def generate(plan: TilePlan) -> KernelSource:
   else:
     note = _mode_note(plan)
   packed = []
-  if plan.layout is not None:
+  if plan.short is not None and plan.short.region is not None:
+    packed = [_packed_stage_function(plan, k, stage)
+              for k, stage in enumerate(plan.stages)
+              if stage.name in plan.short.region.packed]
+  elif plan.short is None and plan.layout is not None:
     packed = [_packed_stage_function(plan, k, stage)
               for k, stage in enumerate(plan.stages)
               if stage.name in plan.layout.narrow16]

@@ -10,9 +10,11 @@ each output's valid region (cells outside it are unspecified),
 the kernel's tiles (or, with ``tile=None``, treats the whole grid as one
 tile), evaluates each stage with the torch Evaluator over shifted
 slices in the kernel's stage order, and stores the same valid regions.
-``streamed_stencil_plain`` is the mode kernels' (the streaming walk),
-``layout_stencil_plain`` the layout forms' (warp windows, rolls,
-transposes, narrow stages, chunks). ``FusedExecutor`` takes them only
+``streamed_stencil_plain`` is the walk's under ``stream_loop``,
+``layout_stencil_plain`` the old layout forms' (``_short=()``: warp
+windows, rolls, transposes, narrow stages, chunks); the layout keys'
+short-form element computes what the short form computes, so its plain
+version is the short form's (``plain_version``). ``FusedExecutor`` takes them only
 for tensors on the CPU; on a CUDA device it launches the kernel or
 raises. The default and streamed walks build every window, stage value
 and output out of place, so they compose with ``torch.func.vmap`` (the
@@ -534,8 +536,8 @@ def layout_stencil_plain(stencil, inputs: Sequence[torch.Tensor],
   chunk (``_run_tile``). A margin that is one cell short lets a roll's
   wrap-around reach a stored cell, which the tests see.
 
-  Args and result as fused_stencil_plain's; ``tile`` is a plan with a
-  layout (kernel_plan with layout keys).
+  Args and result as fused_stencil_plain's; ``tile`` is an old layout
+  plan (kernel_plan with layout keys and ``_short=()``).
   """
   plan = tile
   if plan is None or plan.layout is None:
@@ -585,9 +587,11 @@ def _prod_rows(plan: TilePlan) -> int:
 
 def plain_version(plan: Optional[TilePlan]):
   """The plain version of ``plan``'s kernel: ``layout_stencil_plain``
-  for a layout form, ``streamed_stencil_plain`` for a mode kernel,
-  ``fused_stencil_plain`` for the default kernel."""
-  if plan is not None and plan.layout is not None:
+  for an old layout form (``_short=()``), ``streamed_stencil_plain`` for
+  a walk under ``stream_loop``, ``fused_stencil_plain`` for the others
+  (the short form's layout elements compute what it computes on every
+  valid cell)."""
+  if plan is not None and plan.layout is not None and plan.short is None:
     return layout_stencil_plain
   if plan is not None and plan.config.stream_loop:
     return streamed_stencil_plain

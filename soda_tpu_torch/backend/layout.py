@@ -9,25 +9,33 @@ lanes), ``transpose_lanes`` (chains of minor-axis-only stages evaluated
 in transposed layout), ``narrow`` (16-bit stages at native width) and
 ``compute_chunk`` (stage slabs evaluated in axis-0 chunks). On the H100
 they choose between the same two places, shared memory and registers,
-and the fused kernel has a form for each (backend/cuda_source.py):
+and build the short form (tile_plan.ShortForm) with a layout element
+on it (tile_plan.Region; backend/cuda_source.py ``_short_kernel``):
 
 - ``stage_mode='vmem'`` without ``compute_chunk`` is the default kernel
-  (every stage in shared memory, one barrier per stage): the plan is
-  the default plan.
-- ``stage_mode='value'`` (L1): each warp evaluates every stage of a
-  window of the tile in registers, axis-0 taps as register indices, the
-  minor axis as lane rotates (``__shfl_sync``) or, under
-  ``lane_shift='slice'``, reads through a per-warp shared-memory row;
-  ``shift_mode='roll'`` evaluates each stage at the window's full
-  extent with wrap-around.
-- ``transpose_lanes`` (L2, 2-D value mode): the stages of a transposed
-  lane region hold their values transposed, so their minor-axis taps
-  are register indices; entries and exits pass through a padded
-  shared-memory transpose.
-- ``narrow='on'`` (L3, value mode): the stages ``ranges.narrow16_stages``
-  admits run on two cells per 32-bit register.
-- ``compute_chunk`` (L4, 3-D, implies vmem): the default kernel whose
-  stage loops walk the tile in axis-0 chunks.
+  (no LayoutConfig).
+- ``stage_mode='value'`` (L1): a region of stages a CTA evaluates in
+  registers after the shared-memory stages it reads, in strips of
+  axis-0 rows (an axis-0 tap a register index, its halo rows computed
+  once a strip) and windows of lanes; a minor-axis tap is a lane rotate
+  (``__shfl_sync``), or under ``lane_shift='slice'`` a read of the
+  shared frame (the stage read so stays a shared-memory stage). A stage
+  read at axis-1 offsets (3-D) stays a shared-memory stage.
+  ``shift_mode`` 'roll' and 'window' build one kernel: the cells a
+  wrapped rotate fills are never stored.
+- ``transpose_lanes`` (L2): the stages of a transposed lane region read
+  each other at minor-axis offsets by lane rotates under 'slice' too
+  (under 'rotate' every member does, so the key changes nothing).
+- ``narrow='on'`` (L3): the region's stages ``ranges.narrow16_stages``
+  admits are held and evaluated as packed 16-bit pairs.
+- ``compute_chunk`` (L4, 3-D, implies vmem): the short form at the tile
+  the structural keys give, one source with it (its stage loops already
+  give each thread fixed cells of every chunk of planes).
+
+With the private ``_short=()`` the keys build the older forms byte for
+byte: warp windows in registers (``WarpPlan``, ``_value_blocks``),
+transposed regions through a shared-memory transpose, packed stages,
+chunked stage loops.
 
 ``layout_config`` checks the keys with the JAX constructor's rules and
 exception types (pallas_kernel.py:321-343, :382-456, :662-663) and

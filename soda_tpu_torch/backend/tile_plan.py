@@ -29,14 +29,18 @@ public ``tile``, ``block_rows`` and ``mid_tile`` do: ``stream_loop``
 turns its walk on (one CTA walks a run of ``steps`` consecutive axis-0
 tiles of one tile column, each buffer a ring of rows), ``prefetch`` is
 the walk's depth, ``out_dma`` adds one tile-sized staging buffer per
-output. With the private ``_short=()`` they build the old mode plans:
-input windows apart from the stage buffers, in ``slots`` copies each
-(the ``prefetch`` ring), and the staging buffers. The layout keys
-(``KernelConfig.layout``, layout.py) either keep the stage buffers
-(``compute_chunk``) or, in value mode, replace them by a warp window
-(``WarpPlan``): shared memory holds the input windows and each warp's
-scratch, the stages live in registers. A plan for the default config
-is laid out exactly as before.
+output. The layout keys (``KernelConfig.layout``, layout.py) build the
+short form too, with a layout element on it: in value mode a region
+(``Region``: stages a CTA evaluates in registers, in strips of axis-0
+rows and windows of lanes, minor-axis taps by lane rotates, 16-bit
+stages packed under ``narrow``), ``compute_chunk`` the short form as it
+is. With the private ``_short=()`` the same keys build the old plans:
+the mode plans' input windows apart from the stage buffers, in
+``slots`` copies each (the ``prefetch`` ring), and the staging buffers;
+the layout plans' stage buffers (``compute_chunk``) or, in value mode,
+a warp window (``WarpPlan``) whose shared memory holds the input
+windows and each warp's scratch. A plan for the default config is laid
+out exactly as before.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from soda_tpu_torch import utils
+from soda_tpu_torch.ir import nodes as ir
 from soda_tpu_torch.backend.layout import (LAYOUT_KEYS, LayoutConfig,
                                            layout_config, split_layout_keys)
 from soda_tpu_torch.backend.plan import (FusionPlan, Stage, make_plan,
@@ -1208,7 +1213,15 @@ class ShortForm:
     off: element -> why it cannot serve the plan's tile, so that the
       kernel runs without it: 'vector' where a row or the tile's minor
       extent is not whole 16-byte units, 'walk' on a 1-D grid or where
-      its rings would not fit shared memory at an explicit tile.
+      its rings would not fit shared memory at an explicit tile;
+      'region' where no stage fits a warp's registers, 'packed' where a
+      lane's columns do not pair up or no narrow stage is a register row.
+    layout: the layout elements the plan's layout keys ask for
+      (``KernelConfig.layout``): 'region' (``stage_mode='value'``, with
+      ``shift_mode``, ``lane_shift`` and ``transpose_lanes``), 'packed'
+      (``narrow='on'``), 'chunk' (``compute_chunk``: the short form's
+      stage loops as they are, one kernel with the same structural keys).
+    region: the value-mode region (Region), or None.
   """
   elements: Tuple[str, ...]
   vec: int
@@ -1223,6 +1236,8 @@ class ShortForm:
   rings: Dict[str, int]
   depth: int = 2
   off: Dict[str, str] = dataclasses.field(default_factory=dict)
+  layout: Tuple[str, ...] = ()
+  region: Optional['Region'] = None
 
   def has(self, element: str) -> bool:
     return element in self.elements and element not in self.off
@@ -1292,17 +1307,18 @@ def buffer_reads(stage: Stage, by_name: Dict[str, Stage],
 
 
 def register_rows(stencil, stage: Stage, by_name: Dict[str, Stage],
-                  values: Sequence[str], vec: int
+                  values: Sequence[str], vec: int, skip: Sequence[str] = ()
                   ) -> Dict[Tuple[str, Tuple[int, ...]], Tuple[int, int]]:
   """(parent, offsets on every axis but the minor one) -> (lo, hi): the
   columns [x0 + lo, x0 + hi) of the parent's row that a thread loads for
   its cells x0 .. x0 + vec - 1 of ``stage`` and its register stages
   (which lie at the stage's own cells), as whole units of ``vec``
-  cells."""
+  cells; parents in ``skip`` are not loaded (a region's register
+  rows)."""
   rows: Dict[Tuple[str, Tuple[int, ...]], Tuple[int, int]] = {}
   for s in value_closure(stage, by_name, values) + [stage]:
     for parent in sorted(s.load_offsets):
-      if parent in values:
+      if parent in values or parent in skip:
         continue
       for off in _array_offsets(s, parent):
         key = (parent, off[:-1])
@@ -1340,6 +1356,370 @@ def vector_width(stencil, shape: Sequence[int], tile: Sequence[int],
   return vec
 
 
+# -- the layout element of the short form (value mode: L1-L3) ----------------
+# Live 32-bit register words a thread's region may hold at once (its
+# register rows, the shifted views it reads and an entry's row), and the
+# words a thread needs besides them (addresses, coordinates, loop state):
+# the launch bounds ask registers for the resident CTAs that leave
+# REGION_BUDGET + REGION_OVERHEAD words a thread at most.
+REGION_BUDGET = 80
+REGION_OVERHEAD = 40
+# Axis-0 rows of the exits one work item computes (its strip), largest
+# first: the largest whose register words fit REGION_BUDGET is taken.
+REGION_STRIPS = (8, 4, 2, 1)
+# Operations an array member may recompute per strip row for its halo
+# rows (halo rows / strip x its operations and its inline members', a
+# division or a call counted as REGION_SLOW_OP): above it the member is
+# a shared-memory stage. On an H100 (chip_smoke.py phase 27) denoise2d's
+# g (a square root and a division over four inline differences) at 3
+# rows per output row ran 4.2x its default kernel and 1.7x with g in
+# shared memory; xcorr's one-add stages at 2.5 rows a row ran 0.92x the
+# default kernel, and 1.34x in shared memory.
+REGION_RECOMPUTE = 4
+REGION_SLOW_OP = 4
+# 32-bit registers of one SM (the launch bounds divide them).
+SM_REGISTERS = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class Region:
+  """The short form's layout element for ``stage_mode='value'`` (the
+  layout forms L1-L3 on Hopper): a set of stages a CTA evaluates in
+  registers, after the shared-memory stages they read (its entries) and
+  before those that read it.
+
+  A work item is a strip of ``strip`` axis-0 rows of the region's exits,
+  one row of every axis between the first and the minor one, and a
+  window of ``lanes`` x ``cells`` frame columns; ``lanes`` consecutive
+  lanes of a warp take one window, each lane ``cells`` consecutive
+  columns (the short form's 16-byte unit). A member in ``arrays`` is a
+  register array of its rows (``halo[name]``: rows above and below the
+  strip, so an axis-0 tap is a register index and its axis-0 halo is
+  computed once a strip) by ``cells`` columns (packed 16-bit pairs for
+  ``packed``); a minor-axis tap of another member is a lane rotate
+  (``__shfl_sync``), and the window's first and last ``edge`` columns,
+  which a rotate fills from a lane outside the window, are evaluated
+  and never stored. ``inline`` members are evaluated at each reader's
+  cell. Entries are read from shared memory as the short form's register
+  rows. ``exits`` (outputs, and members a stage outside the region
+  reads) are stored once, by the window that owns the column.
+
+  Attributes:
+    members: the region's stages, in the plan's order.
+    inline: members every reader (a member) reads only at offset zero.
+    arrays: the other members, held as register rows.
+    exits: members stored to device memory or to their buffer.
+    packed: arrays of narrow16 stages held as packed 16-bit pairs
+      (``narrow='on'``; ``soda_pstage_<k>``).
+    halo: member -> (rows above, rows below) its strip rows.
+    reach: member -> (left, right) columns of a window a rotate fills
+      from outside it.
+    strip: axis-0 rows of the exits a work item computes.
+    lanes: lanes of one window (a power of two).
+    cells: columns of a lane.
+    edge: (left, right) columns of a window that no exit stores (whole
+      units).
+    start: the first window's first column, relative to the tile origin.
+    stride: columns between two windows' firsts.
+    windows: windows a row.
+    regs: estimated peak of live register words a thread (entry rows,
+      register rows, views).
+    off: stage -> why it is not a member (a shared-memory stage).
+  """
+  members: Tuple[str, ...]
+  inline: Tuple[str, ...]
+  arrays: Tuple[str, ...]
+  exits: Tuple[str, ...]
+  packed: Tuple[str, ...]
+  halo: Dict[str, Tuple[int, int]]
+  reach: Dict[str, Tuple[int, int]]
+  strip: int
+  lanes: int
+  cells: int
+  edge: Tuple[int, int]
+  start: int
+  stride: int
+  windows: int
+  regs: int
+  off: Dict[str, str] = dataclasses.field(default_factory=dict)
+
+  def rows(self, name: str) -> int:
+    """Register rows of an array."""
+    up, down = self.halo[name]
+    return self.strip + up + down
+
+
+def _region_sides(order: Sequence[Stage], members: set):
+  """(stages that depend on a member, stages a member depends on)."""
+  by_name = {s.name: s for s in order}
+  kids: Dict[str, set] = {s.name: set() for s in order}
+  for s in order:
+    for p in s.load_offsets:
+      if p in kids:
+        kids[p].add(s.name)
+  after, todo = set(), [k for m in members for k in kids[m]]
+  while todo:
+    name = todo.pop()
+    if name not in after:
+      after.add(name)
+      todo.extend(kids[name])
+  before, todo = set(), [p for m in members for p in by_name[m].load_offsets
+                         if p in by_name]
+  while todo:
+    name = todo.pop()
+    if name not in before:
+      before.add(name)
+      todo.extend(p for p in by_name[name].load_offsets if p in by_name)
+  return after, before
+
+
+def _region_order(order: Sequence[Stage], members: set
+                  ) -> Optional[List[Stage]]:
+  """``order`` with the members in one run: the stages they depend on
+  first, those that depend on them after; None where a stage outside
+  the region both depends on a member and feeds one."""
+  after, before = _region_sides(order, members)
+  if (after & before) - members:
+    return None
+  return ([s for s in order if s.name not in members and s.name not in after]
+          + [s for s in order if s.name in members] +
+          [s for s in order if s.name not in members and s.name in after])
+
+
+def _stage_ops(stage: Stage) -> int:
+  """Operations one evaluation of a stage applies (its lets too), a
+  division, modulo or call counted as REGION_SLOW_OP."""
+  count = [0]
+
+  def visit(node, _):
+    if isinstance(node, ir.CHAIN_CLASSES):
+      count[0] += sum(REGION_SLOW_OP if op in ('/', '%') else 1
+                      for op in node.operator)
+    elif isinstance(node, ir.Unary):
+      count[0] += sum(op != '+' for op in node.operator)
+    elif isinstance(node, ir.Call):
+      count[0] += (max(len(node.operand) - 1, 1) if node.name in (
+          'min', 'max', 'select', 'abs') else REGION_SLOW_OP)
+    return node
+
+  stage.tensor.expr.visit(visit)
+  for let in stage.tensor.lets:
+    let.expr.visit(visit)
+  return count[0]
+
+
+def _region_regs(stencil, by_name, arrays, inline, packed, members, halo,
+                 vec, strip) -> int:
+  """Region.regs at a strip of ``strip`` rows: the peak, over the arrays
+  in order, of the live arrays' words, the array's own, the shifted
+  views it reads and its entries' register rows."""
+  def words(name, cells):
+    size = stencil.tensors[name].dtype.np_dtype.itemsize
+    return cells * (2 if size == 8 else 1)
+
+  def rows(name):
+    return strip + sum(halo[name])
+
+  last: Dict[str, str] = {}
+  for m in arrays:
+    for s in value_closure(by_name[m], by_name, inline) + [by_name[m]]:
+      for p in s.load_offsets:
+        if p in arrays:
+          last[p] = m
+  live: Dict[str, int] = {}
+  peak = 0
+  for m in arrays:
+    own = words(m, rows(m) * (vec // 2 if m in packed else vec))
+    views = 0
+    reads: Dict[str, List[Tuple[int, ...]]] = {}
+    for s in value_closure(by_name[m], by_name, inline) + [by_name[m]]:
+      for p in s.load_offsets:
+        if p in arrays:
+          reads.setdefault(p, []).extend(_array_offsets(s, p))
+    for p, offs in reads.items():
+      d0 = [o[0] for o in offs]
+      dl = [o[-1] for o in offs]
+      views += words(p, (rows(m) + max(d0) - min(d0)) *
+                     (vec + max(dl) - min(dl)))
+    # the entries' register rows of every row of the array: the rows'
+    # loop is unrolled, and its loads are issued ahead of their use
+    entry = rows(m) * sum(words(p, hi - lo) for (p, _), (lo, hi) in
+                          register_rows(stencil, by_name[m], by_name, inline,
+                                        vec, skip=members).items())
+    peak = max(peak, sum(live.values()) + own + views + entry)
+    live[m] = own
+    for p in [p for p, who in last.items() if who == m]:
+      live.pop(p, None)
+    if m not in last:
+      live.pop(m, None)
+  return peak
+
+
+def _region_geometry(stencil, order, spans, tile, members: set, vec: int,
+                     packable: set, strict: bool = True):
+  """(Region, None) for ``members``, or (None, (stage, why)): the member
+  that keeps them from a warp's registers or a window, or recomputes
+  its halo rows too often (``strict=False``: a strip of one row over the
+  budget)."""
+  last = len(tile) - 1
+  run = _region_order(order, members)
+  if run is None:  # drop the last member that feeds a stage closing a cycle
+    after, before = _region_sides(order, members)
+    closing = (after & before) - members
+    ancestors = set(closing)
+    for s in reversed(order):  # consumers before their producers
+      if s.name in ancestors:
+        ancestors.update(s.load_offsets)
+    victim = [s.name for s in order if s.name in members and
+              s.name in ancestors][-1]
+    return None, (victim, 'the region would both feed and follow a '
+                  'shared-memory stage')
+  by_name = {s.name: s for s in run}
+  mem = [s for s in run if s.name in members]
+  outputs = set(stencil.output_names)
+  mreaders: Dict[str, List[Stage]] = {s.name: [] for s in mem}
+  wider = set()
+  for s in run:
+    for p in s.load_offsets:
+      if p in members:
+        if s.name in members:
+          mreaders[p].append(s)
+        else:
+          wider.add(p)
+  exits = [m.name for m in mem if m.name in outputs or m.name in wider]
+  packed = [m.name for m in mem if m.name in packable]
+  inline = [m.name for m in mem if m.name not in exits and
+            m.name not in packed and
+            not any(any(any(o) for o in _array_offsets(r, m.name))
+                    for r in mreaders[m.name])]
+  packed = [p for p in packed if not value_closure(by_name[p], by_name,
+                                                    inline)]
+  arrays = [m.name for m in mem if m.name not in inline]
+  halo: Dict[str, Tuple[int, int]] = {}
+  for m in reversed(mem):
+    up = down = None
+    if m.name in exits:
+      up = down = 0
+    for r in mreaders[m.name]:
+      ru, rd = halo[r.name]
+      for o in _array_offsets(r, m.name):
+        up = ru - o[0] if up is None else max(up, ru - o[0])
+        down = rd + o[0] if down is None else max(down, rd + o[0])
+    halo[m.name] = (up, down)
+  reach: Dict[str, Tuple[int, int]] = {}
+  for m in mem:
+    left = right = 0
+    for p in m.load_offsets:
+      if p in members:
+        pl, pr = reach[p]
+        for o in _array_offsets(m, p):
+          left, right = max(left, pl - o[last]), max(right, pr + o[last])
+    reach[m.name] = (left, right)
+  lo = min(-_round_up(spans[e][0][last], vec) for e in exits)
+  hi = max(_round_up(tile[last] + spans[e][1][last], vec) for e in exits)
+  edge = (_round_up(max(reach[e][0] for e in exits), vec),
+          _round_up(max(reach[e][1] for e in exits), vec))
+  lanes = 32
+  for g in (1, 2, 4, 8, 16, 32):
+    if g * vec - sum(edge) >= hi - lo:
+      lanes = g
+      break
+  stride = lanes * vec - sum(edge)
+  if stride < vec:
+    worst = max(arrays, key=lambda n: (sum(reach[n]), arrays.index(n)))
+    return None, (worst, 'its minor-axis reach (%d, %d cells) leaves a warp '
+                  'no column to store' % reach[worst])
+  rows0 = max(tile[0] + spans[e][0][0] + spans[e][1][0] for e in exits)
+  strips = [s for s in REGION_STRIPS if s <= max(rows0, 1) and (
+      strict or s == 1)] or [1]
+  for strip in strips:
+    regs = _region_regs(stencil, by_name, arrays, inline, packed, members,
+                        halo, vec, strip)
+    if regs <= REGION_BUDGET or not strict:
+      break
+  else:
+    worst = max(arrays, key=lambda n: (sum(halo[n]), arrays.index(n)))
+    return None, (worst, 'its %d halo rows keep the region over %d register '
+                  'words a thread (%d)' % (sum(halo[worst]), REGION_BUDGET,
+                                           regs))
+
+  def recompute(name):
+    ops = sum(_stage_ops(s) for s in value_closure(by_name[name], by_name,
+                                                   inline) + [by_name[name]])
+    return sum(halo[name]) / strip * ops
+
+  worst = max(arrays, key=lambda n: (recompute(n), arrays.index(n)))
+  if strict and recompute(worst) > REGION_RECOMPUTE:
+    return None, (worst, 'its %d halo rows at a strip of %d rows recompute '
+                  '%g operations a row, more than %d' % (
+                      sum(halo[worst]), strip, recompute(worst),
+                      REGION_RECOMPUTE))
+  return Region(
+      members=tuple(m.name for m in mem), inline=tuple(inline),
+      arrays=tuple(arrays), exits=tuple(exits), packed=tuple(packed),
+      halo=halo, reach=reach, strip=strip, lanes=lanes, cells=vec,
+      edge=edge, start=lo - edge[0], stride=stride,
+      windows=-(-(hi - lo) // stride), regs=regs), None
+
+
+def region_plan(stencil, order: Sequence[Stage], spans: Dict[str, Span],
+                tile: Sequence[int], layout: LayoutConfig, vec: int
+                ) -> Tuple[Optional[Region], Dict[str, str]]:
+  """The value-mode region at ``tile`` (Region), and stage -> why it is
+  not a member. A stage is a candidate unless a stage reads it at
+  offsets on an axis between the first and the minor one (3-D: it stays
+  a shared-memory stage under hazard_barriers), or at minor-axis offsets
+  under ``lane_shift='slice'`` (a read of the shared frame) where the
+  two are not both in a transposed lane region (L2, whose minor-axis
+  taps are register indices). Members then leave, one at a time, while
+  the region would close a cycle through a shared-memory stage, leave a
+  window no column, hold more than REGION_BUDGET register words a
+  thread at a strip of one row (but its last member), or recompute more
+  than REGION_RECOMPUTE operations a row for a member's halo rows.
+  ``narrow16`` stages are packed where a lane's columns pair up (``vec``
+  even)."""
+  last = len(tile) - 1
+  off: Dict[str, str] = {}
+  cand = set()
+  for s in order:
+    for r in order:
+      for o in (_array_offsets(r, s.name) if s.name in r.load_offsets
+                else ()):
+        if any(o[1:last]):
+          off[s.name] = 'read at offsets on an axis between the first and ' \
+                        'the minor one (a shared-memory stage)'
+        elif o[last] and not layout.rotate and not (
+            s.name in layout.transposed and r.name in layout.transposed):
+          off.setdefault(s.name, "read at minor-axis offsets under lane_shift"
+                         "='slice' (a read of the shared frame)")
+    if s.name not in off:
+      cand.add(s.name)
+  packable = set(layout.narrow16) if vec % 2 == 0 else set()
+  while cand:
+    region, victim = _region_geometry(stencil, order, spans, tile, cand, vec,
+                                      packable)
+    if region is not None:
+      return dataclasses.replace(region, off=off), off
+    if len(cand) == 1 and 'shared-memory stage' not in victim[1]:
+      # the last member stays: at a strip of one row, over the budget
+      region, _ = _region_geometry(stencil, order, spans, tile, cand, vec,
+                                   packable, strict=False)
+      return dataclasses.replace(region, off=off), off
+    off[victim[0]] = victim[1]
+    cand.discard(victim[0])
+  return None, off
+
+
+class _Step:
+  """A region's place in the short form's stage sequence for liveness and
+  barriers: each buffered exit's write (``reads`` empty), then one read
+  of every entry."""
+
+  def __init__(self, name: str, reads: Sequence[str] = ()):
+    self.name = name
+    self.reads = tuple(reads)
+
+
 def _short_plan(stencil, shape, order, spans, margins, elements,
                 tile, config: KernelConfig = KernelConfig(),
                 drop: Optional[Dict[str, str]] = None) -> TilePlan:
@@ -1348,20 +1728,46 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
   ``config``'s modes: under ``stream_loop`` (which turns 'walk' on) a
   CTA walks ``steps_per_cta`` tiles, ``prefetch`` is the walk's depth,
   and ``out_dma`` adds one tile-sized staging buffer per output after
-  the others (``dma_split`` changes the fill's code only)."""
+  the others (``dma_split`` changes the fill's code only). A layout in
+  value mode adds its region (region_plan; ``narrow='on'`` its packed
+  pairs), whose members leave the stage sequence for one run at the
+  region's place; ``compute_chunk`` changes nothing (the short form's
+  stage loops already give each thread fixed cells of every chunk)."""
   off = dict(drop or {})
   if len(shape) < 2 and 'walk' in elements:
     off['walk'] = 'a 1-D grid has no axis-0 tiles to walk'
   asked = elements
   elements = tuple(e for e in elements if e not in off)
   last = len(shape) - 1
+  layout = config.layout
+  region, members, asks = None, (), ()
+  if layout is not None and layout.value:
+    asks = ('region',) + (('packed',) if layout.narrow16 else ())
+    vec = (vector_width(stencil, shape, tile, list(spans))
+           if 'vector' in elements else 1)
+    region, _ = region_plan(stencil, order, spans, tile, layout, vec)
+    if region is None:
+      off['region'] = 'no stage fits a warp\'s registers at this tile'
+    else:
+      members = region.members
+      order = _region_order(order, set(members))
+    if layout.narrow16 and not (region and region.packed):
+      off['packed'] = ('a lane holds an odd number of columns' if vec % 2
+                       else 'no narrow stage is a register row of the region')
+  elif layout is not None:
+    asks = ('chunk',)
   by_name = {s.name: s for s in order}
   values = (value_stages(stencil, order, spans) if 'values' in elements
             else ())
-  kernel = [s for s in order if s.name not in values]
+  if members:  # a register stage of the shared stages only
+    values = tuple(v for v in values if v not in members and not any(
+        v in by_name[m].load_offsets for m in members))
+  kernel = [s for s in order if s.name not in values and
+            s.name not in members]
   names = [n for n in spans if n not in values]
-  vec = (vector_width(stencil, shape, tile, names) if 'vector' in elements
-         else 1)
+  if region is None:
+    vec = (vector_width(stencil, shape, tile, names) if 'vector' in elements
+           else 1)
 
   def itemsize(name):
     return stencil.tensors[name].dtype.np_dtype.itemsize
@@ -1373,11 +1779,32 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
   frames = {n: (_round_up(spans[n][0][last], align(n)),
                 _round_up(tile[last] + spans[n][1][last], align(n)))
             for n in names}
+  # the sequences liveness and barriers see: the kernel stages, and at
+  # the region's place its buffered exits' writes and its entries' read
+  # (for liveness the writes first, so that no exit takes an entry's
+  # bytes; for barriers the read first: the region reads and writes in
+  # one barrier interval)
+  index = {s.name: k for k, s in enumerate(order)}
+  sequence: List[object] = list(kernel)
+  hazards: List[object] = list(kernel)
+  places = [index[s.name] for s in kernel]
+  if members:
+    wider = {p for s in kernel for p in s.load_offsets if p in members}
+    entries = sorted({p for m in members for p in by_name[m].load_offsets
+                      if p not in members})
+    first = index[members[0]]
+    place = sum(1 for k in places if k < first)
+    writes = [_Step(e) for e in region.exits if e in wider]
+    sequence[place:place] = writes + [_Step('<region>', entries)]
+    hazards[place:place] = [_Step('<region>', entries)] + writes
+    places[place:place] = [first] * (len(writes) + 1)
 
   def reads(stage):
+    if isinstance(stage, _Step):
+      return stage.reads
     return buffer_reads(stage, by_name, values)
 
-  readers = {p for s in kernel for p in reads(s)}
+  readers = {p for s in sequence for p in reads(s)}
   slack = {n: [0, 0] for n in names if n in readers}
   for stage in kernel:
     a, b = frames[stage.name]
@@ -1407,16 +1834,15 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
   if walk:  # every ring lives for the whole run
     starts, peak = {}, 0
     for name in [n for n in stencil.input_names if n in sizes] + [
-        s.name for s in kernel if s.name in sizes]:
+        s.name for s in sequence if s.name in sizes]:
       starts[name], peak = peak, peak + sizes[name]
   else:
-    starts, peak = _allocate(stencil, kernel, spans, tile, sizes=sizes,
+    starts, peak = _allocate(stencil, sequence, spans, tile, sizes=sizes,
                              reads=reads)
   offsets = {n: at + slack[n][0] * itemsize(n) for n, at in starts.items()}
   ranges = {n: (at, at + sizes[n]) for n, at in starts.items()}
-  index = {s.name: k for k, s in enumerate(order)}
-  barriers = tuple(index[kernel[k].name] for k in hazard_barriers(
-      stencil, kernel, offsets, spans, tile, ranges, reads, not walk))
+  barriers = tuple(sorted({places[k] for k in hazard_barriers(
+      stencil, hazards, offsets, spans, tile, ranges, reads, not walk)}))
   staging = {}
   if config.out_dma:
     peak = _round_up(peak, ALIGN)
@@ -1424,6 +1850,9 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
       staging[name] = peak
       peak += _round_up(_prod(tile) * itemsize(name), ALIGN)
   ctas = resident_ctas(peak)
+  if region is not None:  # registers for the region's words a thread
+    ctas = min(ctas, max(1, SM_REGISTERS // (32 * WARPS) // (
+        region.regs + REGION_OVERHEAD)))
   grid = [-(-x // t) for x, t in zip(shape, tile)]
   steps = 1
   if walk and config.stream_loop:
@@ -1440,6 +1869,16 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
   evaluations = sum(rows(s.name) * cross(s.name) *
                     (1 + len(value_closure(s, by_name, values)))
                     for s in kernel) / tile_cells
+  if region is not None:  # each array at its rows, in every window
+    strips = max(rows(e) for e in region.exits) / region.strip
+    mids = _prod(max(t + spans[e][0][a] + spans[e][1][a]
+                     for e in region.exits)
+                 for a, t in enumerate(tile[1:-1], 1))
+    width = region.windows * region.lanes * region.cells
+    evaluations += strips * mids * width * sum(
+        region.rows(m) * (1 + len(value_closure(by_name[m], by_name,
+                                                region.inline)))
+        for m in region.arrays) / tile_cells
   fills = sum(rows(n) * cross(n) for n in stencil.input_names
               if n in offsets) / tile_cells
   box_spans = dict(spans)
@@ -1456,7 +1895,8 @@ def _short_plan(stencil, shape, order, spans, margins, elements,
       slack={n: tuple(v) for n, v in slack.items()}, barriers=barriers,
       ctas=ctas, evaluations=evaluations, fills=fills,
       interior=_interior_box(stencil, shape, tile, box_spans, margins,
-                             offsets), rings=rings, depth=depth, off=off)
+                             offsets), rings=rings, depth=depth, off=off,
+      layout=asks, region=region)
   return TilePlan(stencil=stencil, shape=tuple(shape), tile=tuple(tile),
                   stages=tuple(order), spans=spans, offsets=offsets,
                   smem_bytes=peak, margins=margins, config=config,
@@ -1678,11 +2118,12 @@ def make_tile_plan(stencil, shape: Sequence[int],
   of DEEP_MIN_STAGES or more takes the many-stage form (DeepForm, the
   elements of DEEP_DEFAULT), a smaller one the short form (ShortForm,
   the elements of short_default). Any graph given a tile, block_rows,
-  mid_tile or mode key (``config`` without a layout) takes the short
-  form with short_default's elements: at ``tile``, or at the tile its
-  rule picks among those keeping the fixed extents, with the modes as
-  _short_plan carries them ('walk' on under ``stream_loop``). A layout
-  key builds the layout forms on the default form.
+  mid_tile, mode or layout key takes the short form with short_default's
+  elements: at ``tile``, or at the tile its rule picks among those
+  keeping the fixed extents, with the modes as _short_plan carries them
+  ('walk' on under ``stream_loop``) and a layout key's element on it
+  (ShortForm.layout: the value-mode region, region_plan; where the
+  rule's tile holds none, utils.InputError naming the keys).
 
   ``_deep`` and ``_short`` are private, for the tests and chip_smoke.py
   that measure the forms element by element and against the form they
@@ -1727,7 +2168,7 @@ def make_tile_plan(stencil, shape: Sequence[int],
                              len(stages) >= DEEP_MIN_STAGES) else ()
   if _short is None:
     _short = short_default(len(shape)) if (
-        config.layout is None and not _deep and not (kept and (
+        not _deep and not (kept and (
             not default or len(stages) >= DEEP_MIN_STAGES))) else ()
   if _deep and _short:
     raise ValueError('a plan takes the many-stage or the short form, not '
@@ -1735,8 +2176,6 @@ def make_tile_plan(stencil, shape: Sequence[int],
   if _deep and (fixed or not config.is_default):
     raise utils.InputError('the many-stage form takes no block_rows, '
                            'mid_tile, mode or layout key')
-  if _short and config.layout is not None:
-    raise utils.InputError('the short form takes no layout key')
   if _deep:
     elements = deep_elements(_deep)
     tp = _deep_plan(stencil, shape, order, spans, margins, elements, tile)
@@ -1770,8 +2209,16 @@ def make_tile_plan(stencil, shape: Sequence[int],
             'more than the %d a block may use' % (tp.smem_bytes, tile,
                                                   SMEM_LIMIT))
       return tp
-    return _short_tile(stencil, shape, order, spans, margins, elements,
-                       config, fixed)
+    tp = _short_tile(stencil, shape, order, spans, margins, elements,
+                     config, fixed)
+    if 'region' in tp.short.off:
+      raise utils.InputError(
+          'the layout keys %s: no short-form tile holds a value-mode region '
+          '(%s)' % (config.layout.name, '; '.join(
+              '%s: %s' % kv for kv in sorted(
+                  region_plan(stencil, order, spans, tp.tile, config.layout,
+                              tp.short.vec)[1].items()))))
+    return tp
   if tile is not None:
     tp = _plan_for_tile(stencil, shape, tile, order, spans, margins, config)
     if not config.is_default and tp.smem_bytes > SMEM_LIMIT:

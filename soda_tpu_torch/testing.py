@@ -16,6 +16,7 @@
 - ``SEED_CONFIGS``: the JAX package's 24 bench seed configurations at
   the benchmark shapes (``seed_small``: the CPU tests' shapes), and
   ``LAYOUT_EXTRA``, the layout forms its bench seeds do not reach;
+  ``LAYOUT_SHORT_EXTRA``, layout cases of the short form's element;
   ``check_exact``, bit-for-bit equality on the valid regions.
 - Test cases: tile geometries, the kernel modes and layout forms at
   small shapes (``MODE_CASES``, ``LAYOUT_CASES``), an output read by a stage, a program with params, a
@@ -43,7 +44,7 @@ from soda_tpu_torch.parallel.mesh import Mesh
 from soda_tpu_torch.utils import threshold_for
 
 __all__ = ['CELLS', 'CONV_PARAM', 'SHARDED', 'repeated_mesh', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
-           'GEOMETRY_CASES', 'LAYOUT_CASES', 'StepClock', 'build_cell_stepped', 'LAYOUT_EXTRA', 'MODE_CASES',
+           'GEOMETRY_CASES', 'LAYOUT_CASES', 'LAYOUT_SHORT_EXTRA', 'StepClock', 'build_cell_stepped', 'LAYOUT_EXTRA', 'MODE_CASES',
            'MODE_CELLS', 'MULTI_OUTPUT', 'NARROW_PAIRS', 'SEED_CONFIGS',
            'build_cell', 'check_exact', 'check_outputs', 'gen_program',
            'make_inputs', 'make_test_inputs', 'make_test_params',
@@ -276,6 +277,37 @@ LAYOUT_CASES = (
                           'block_rows': 4}, 1, 1),
 )
 
+# layout cases the short form's layout element takes beside LAYOUT_CASES:
+# a transposed lane region (L2 under 'slice') on the walk, a 3-D value
+# form whose stage is read at axis-1 offsets (a shared-memory stage
+# beside the region), an odd minor extent under narrow (a lane holds
+# one column: no pairs), and far taps (an exit stored into its buffer)
+LAYOUT_SHORT_EXTRA = (
+    ('xcorr+cr', (41, 70), {'lane_shift': 'slice', 'transpose_lanes': 'on',
+                            'block_rows': 4, 'stream_loop': True}, 1, 1),
+    ('denoise3d', (12, 10, 24), {'stage_mode': 'value', 'shift_mode': 'roll',
+                                 'block_rows': 4}, 1, 1),
+    ('narrow_pairs', (24, 37), {'stage_mode': 'value', 'narrow': 'on',
+                                'lane_shift': 'rotate'}, 1, 1),
+    ('far_taps', (20, 200), {'stage_mode': 'value', 'lane_shift': 'rotate',
+                             'block_rows': 8}, 1, 1),
+)
+
+# a stage read at far minor-axis offsets: its reader's shifted views pass
+# the region's register budget, so the reader is a shared-memory stage
+# and the region stores the stage into its buffer (an exit)
+FAR_TAPS = '''
+kernel: far
+burst width: 64
+unroll factor: 1
+iterate: 1
+border: ignore
+cluster: none
+input float: a(64, *)
+local float: t(0, 0) = a(0, 0) * 2.0f + a(0, 1)
+output float: o(0, 0) = t(0, 0) + t(40, 0) + t(-40, 0)
+'''
+
 # packed 16-bit stages reading a packed stage at odd minor offsets (the
 # JAX package's tests/test_narrow.py roll case)
 NARROW_PAIRS = '''
@@ -294,10 +326,10 @@ output int16: y(0, 0) = int16(t(0, 0) + t(1, 1) + t(2, 2))
 def mode_stencil(name: str):
   """The stencil a ``MODE_CASES`` or ``LAYOUT_CASES`` name stands for: a
   corpus kernel (``+cr``: with greedy computation reuse),
-  ``multi_output``, ``conv_param``, ``narrow_pairs`` or
+  ``multi_output``, ``conv_param``, ``narrow_pairs``, ``far_taps`` or
   ``fuzz<seed>``."""
   texts = {'multi_output': MULTI_OUTPUT, 'conv_param': CONV_PARAM,
-           'narrow_pairs': NARROW_PAIRS}
+           'narrow_pairs': NARROW_PAIRS, 'far_taps': FAR_TAPS}
   if name in texts:
     return build_stencil(texts[name])
   if name.startswith('fuzz'):

@@ -129,13 +129,13 @@ def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
   short form: the walk (``stream_loop``, prefetch 2 and 3; 'peel' builds
   the same kernel as True) where a CTA would walk more than one tile,
   split fills on 3-D grids, staged stores. Last the JAX tuner's layout
-  candidates (soda_tpu/tools/autotune.py:81-130), which build the layout
-  forms on the default form, at that form's axis-0 extent and twice it:
-  lane rotates on 2-D rows wider than 256, roll, and roll with
-  transposed lane regions on 2-D grids; chunked stage loops
-  (``compute_chunk=8``) at the largest mid tiles where a 3-D grid's
-  cross-section is wider than a tile holds. A candidate whose plan does
-  not fit is left out."""
+  candidates (soda_tpu/tools/autotune.py:81-130), which build the short
+  form with its layout element (tile_plan.Region), at the rule's axis-0
+  extent and twice it: lane rotates on 2-D rows wider than 256, roll,
+  and roll with transposed lane regions on 2-D grids; chunked stage
+  loops (``compute_chunk=8``, the short form at that mid tile) at the
+  largest mid tiles where a 3-D grid's cross-section is wider than a
+  tile holds. A candidate whose plan does not fit is left out."""
   from soda_tpu_torch.backend import tile_plan
 
   shape = tuple(shape)
@@ -159,9 +159,8 @@ def candidate_configs(stencil, shape) -> Tuple[Dict, ...]:
   if len(shape) >= 3:
     cands.append({'dma_split': 2})
   cands.append({'out_dma': True})
-  # the layout forms build on the default form, at its tile's rows
-  rows = tile_plan.make_tile_plan(stencil, shape, _deep=(),
-                                  _short=()).tile[0]
+  # the layout keys build the short form, at its rule's tile rows
+  rows = rule.tile[0]
   roll = {'stage_mode': 'value', 'shift_mode': 'roll'}
   if len(shape) == 2 and shape[-1] > 256:
     cands += [{'block_rows': r, 'lane_shift': 'rotate'}

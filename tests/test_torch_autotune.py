@@ -213,16 +213,16 @@ def test_first_candidate_is_the_default_kernel(name):
 @pytest.mark.parametrize('name', ['blur', 'jacobi3d', 'denoise3d',
                                   'contrast'])
 def test_candidates_are_the_short_form(name):
-  """Every candidate but the JAX tuner's layout ones builds the short
-  form (``{}`` contrast's many-stage form); the layout ones build the
-  layout forms."""
+  """Every candidate builds the short form (``{}`` contrast's many-stage
+  form), the JAX tuner's layout ones with the layout element on it."""
   from soda_tpu_torch import testing
   _, shape, overrides = next(c for c in testing.CELLS if c[0] == name)
   stencil = testing.build_cell_stepped(name, overrides)
   for cfg in autotune.candidate_configs(stencil, shape):
     plan = tile_plan.kernel_plan(stencil, shape, **cfg)
     if any(k in cfg for k in ('stage_mode', 'lane_shift', 'compute_chunk')):
-      assert plan.layout is not None and plan.short is None, cfg
+      assert plan.layout is not None and plan.short is not None, cfg
+      assert plan.warp is None and plan.short.layout, cfg
     elif cfg or name != 'contrast':
       assert plan.short is not None, cfg
     else:

@@ -408,3 +408,88 @@ def test_rule_tile_gives_the_default_kernel(name, shape, overrides):
   assert cuda_source.generate(got).digest == \
       cuda_source.generate(default).digest
   assert got == default
+
+
+# (index into testing.SEED_CONFIGS + LAYOUT_EXTRA, digest): the rows that
+# carry a layout key, at their CPU shapes (testing.seed_small), built with
+# ``_short=()``: the old layout forms (WarpPlan, _value_blocks, _kernel
+# and _mode_kernel), byte for byte
+OLD_LAYOUT_SOURCES = (
+    (0, 'cf097f7c947a73f5'), (3, 'e0722c75bb650d35'),
+    (6, '37534bda147ae01d'), (8, 'ac2cfdd572de7e9a'),
+    (9, 'a9503d2d1d4a1d3e'), (10, '1bb8861885804b14'),
+    (11, 'c0153ae12a1efe7e'), (12, 'da9dc81c5ad0c75c'),
+    (13, 'da9dc81c5ad0c75c'), (14, '4545d42d9d465d4e'),
+    (15, '866b9794534fa93d'), (18, '175eda75bf0ee730'),
+    (19, '645007e747ecb4d4'), (20, '95eb1163d588db1c'),
+    (21, 'f9b158efa6c53367'), (22, '412f8841cf0f2a87'),
+    (23, '3eb333be26f2ea17'), (24, '6597c53763ffccf3'),
+    (25, 'b00a3760cae2d965'),
+)
+
+
+def _seed_plan(index, **extra):
+  """The plan of a seed row at its CPU shape (MIN_CTAS 1, as the CPU
+  tests run the seeds)."""
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.backend import tile_plan
+  name, shape, overrides, keys = (testing.SEED_CONFIGS +
+                                  testing.LAYOUT_EXTRA)[index]
+  small, overrides = testing.seed_small(name, shape, overrides)
+  stencil = build_cell(name, overrides)
+  saved = tile_plan.MIN_CTAS
+  tile_plan.MIN_CTAS = 1
+  try:
+    return tile_plan.kernel_plan(stencil, small, **keys, **extra)
+  finally:
+    tile_plan.MIN_CTAS = saved
+
+
+@pytest.mark.parametrize('index,digest', OLD_LAYOUT_SOURCES,
+                         ids=['%s-%d' % ((__import__('soda_tpu_torch.testing')
+                                          .testing.SEED_CONFIGS +
+                                          __import__('soda_tpu_torch.testing')
+                                          .testing.LAYOUT_EXTRA)[i][0], i)
+                              for i, _ in OLD_LAYOUT_SOURCES])
+def test_old_layout_source_is_unchanged(index, digest):
+  """``_short=()`` with a layout key builds the old layout form byte for
+  byte; without it the same keys build the short form with its layout
+  element (no warp window)."""
+  old = _seed_plan(index, _short=())
+  assert old.short is None and old.layout is not None
+  assert cuda_source.generate(old).digest == digest
+  new = _seed_plan(index)
+  assert new.short is not None and new.warp is None
+  assert new.config == old.config
+  assert new.short.layout and new.short.layout[0] in ('region', 'chunk')
+
+
+def test_roll_and_window_build_one_source():
+  """shift_mode roll and window come to the same Hopper kernel (the
+  window's edge columns, which a wrapped rotate would fill, are never
+  stored): one source, one digest; so do rotate with and without
+  transposed lane regions."""
+  from soda_tpu_torch.backend.tile_plan import kernel_plan
+  stencil = _bench_stencil('erosion')
+  shape = (256, 512)
+  texts = {cuda_source.generate(kernel_plan(
+      stencil, shape, stage_mode='value', block_rows=32, **keys)).digest
+           for keys in ({'shift_mode': 'roll'},
+                        {'shift_mode': 'window', 'lane_shift': 'rotate'},
+                        {'shift_mode': 'roll', 'transpose_lanes': 'on'})}
+  assert len(texts) == 1
+
+
+def test_compute_chunk_builds_the_short_form_at_its_tile():
+  """compute_chunk (L4) is the short form at the tile its structural
+  keys give, one source with it: the short form's stage loops already
+  give each thread fixed cells of every chunk of planes."""
+  from soda_tpu_torch.backend.tile_plan import kernel_plan
+  stencil = _bench_stencil('jacobi3d_256')
+  shape = (256, 256, 256)
+  chunked = kernel_plan(stencil, shape, mid_tile=64, compute_chunk=8)
+  plain = kernel_plan(stencil, shape, mid_tile=64)
+  assert chunked.layout.form == 'L4' and chunked.short.layout == ('chunk',)
+  assert chunked.short.region is None and chunked.tile == plain.tile
+  assert cuda_source.generate(chunked).text == cuda_source.generate(
+      plain).text

@@ -343,9 +343,10 @@ def test_mode_kernel_matches_its_plain_version(case, monkeypatch):
 
 
 def _check_layout_on_card(stencil, shape, ex, grids, params, context):
-  """One launch, equal to ``layout_stencil_plain`` run on the card and
-  to the NumPy oracle, per grid."""
-  from soda_tpu_torch.backend.fused import layout_stencil_plain
+  """One launch, equal to the plan's plain version (the short form's
+  ``fused_stencil_plain`` or walk, an old form's ``layout_stencil_plain``)
+  run on the card and to the NumPy oracle, per grid."""
+  from soda_tpu_torch.backend.fused import plain_version
   reps = len(grids)
   batch = (grids[0] if ex.replicas is None else
            {n: np.stack([g[n] for g in grids]) for n in stencil.input_names})
@@ -357,8 +358,8 @@ def _check_layout_on_card(stencil, shape, ex, grids, params, context):
   for r, grid in enumerate(grids):
     pick = (lambda t: t) if ex.replicas is None else (lambda t, r=r: t[r])
     got = {o: pick(v) for o, v in zip(stencil.output_names, outs)}
-    plain = layout_stencil_plain(stencil, [pick(a) for a in args[:n_in]],
-                                 args[n_in:], tile=ex.plan)
+    plain = plain_version(ex.plan)(
+        stencil, [pick(a) for a in args[:n_in]], args[n_in:], tile=ex.plan)
     check_outputs(stencil, shape, got, dict(zip(stencil.output_names, plain)),
                   '%s vs plain on gpu' % context)
     with np.errstate(all='ignore'):
@@ -391,13 +392,36 @@ def test_layout_kernel_matches_its_plain_version(case, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize('case', LAYOUT_CASES,
+                         ids=['%s-%s-%s' % (c[0], 'x'.join(map(str, c[1])),
+                                            '-'.join('%s=%s' % kv for kv in
+                                                     sorted(c[2].items())))
+                              for c in LAYOUT_CASES])
+def test_old_layout_kernel_matches_its_plain_version(case, monkeypatch):
+  """Each old layout form (``_short=()``) on the card: one launch, equal
+  to ``layout_stencil_plain`` and to the NumPy oracle."""
+  _need_gpu()
+  from soda_tpu_torch.backend import tile_plan
+  name, shape, opts, min_ctas, reps = case
+  monkeypatch.setattr(tile_plan, 'MIN_CTAS', min_ctas)
+  stencil = mode_stencil(name)
+  ex = FusedExecutor(stencil, shape, device='cuda',
+                     replicas=None if reps == 1 else reps, _short=(), **opts)
+  assert ex.plan.short is None
+  grids = mode_inputs(stencil, name, shape, reps)
+  _check_layout_on_card(stencil, shape, ex, grids,
+                        reference.make_test_params(stencil),
+                        '%s %s old form' % (name, opts))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize('index', range(len(SEED_CONFIGS)),
                          ids=['%s-%d' % (c[0], i % 2)
                               for i, c in enumerate(SEED_CONFIGS)])
 def test_seed_config_on_the_card(index):
   """The JAX package's bench seeds (bench.py:51-163) at small shapes: a
-  layout seed against ``layout_stencil_plain``, every seed against the
-  NumPy oracle."""
+  layout seed against its plain version, every seed against the NumPy
+  oracle."""
   _need_gpu()
   name, shape, overrides, opts = SEED_CONFIGS[index]
   small, overrides = seed_small(name, shape, overrides)

@@ -2,9 +2,10 @@
 
 The JAX kernel's layout keys (``stage_mode``, ``shift_mode``,
 ``lane_shift``, ``transpose_lanes``, ``narrow``, ``compute_chunk``) go to
-the port's ``FusedExecutor`` as they are; on the CPU it runs the forms'
-plain version (``layout_stencil_plain``: warp windows, rolls, transposed
-regions, 16-bit narrow stages, chunks). Each case runs the JAX
+the port's ``FusedExecutor`` as they are and build the short form's
+layout element; on the CPU it runs the form's plain version (the short
+form's, ``fused_stencil_plain`` at the plan's tile, walked under
+``stream_loop``). Each case runs the JAX
 ``PallasExecutor`` / ``MidTiledPallasExecutor`` in interpret mode with the
 same keys on the cases of the JAX package's tests (tests/test_pallas.py,
 tests/test_narrow.py) and on the 24 seed configurations of its bench at
@@ -74,7 +75,8 @@ def test_roll_matches_jax(name, ov):
   ex = _corpus(name, dict(ov, tile_size=tile), shape,
                {'stage_mode': 'value', 'shift_mode': 'roll',
                 'block_rows': 32}, 'roll')
-  assert ex.plan.layout.roll and ex.plan.warp is not None
+  assert ex.plan.layout.roll and ex.plan.warp is None
+  assert ex.plan.short.region is not None  # the short form's value region
   assert ex.plan.tile[0] == 32
 
 
@@ -157,7 +159,7 @@ def test_seed_config_matches_jax(index):
     tile_plan.MIN_CTAS = saved
   keys = set(opts) & set(layout.LAYOUT_KEYS)
   if keys and opts.get('stage_mode', 'value') == 'value':
-    assert ex.plan.warp is not None
+    assert ex.plan.short.region is not None and ex.plan.warp is None
 
 
 @pytest.mark.parametrize('kw,exc,match', [
@@ -258,16 +260,21 @@ def test_sobel_seed_runs_in_value_mode():
   plan = tile_plan.kernel_plan(stencil, (256, 512), lane_shift='slice',
                                block_rows=64)
   assert plan.layout.value and plan.layout.shift_mode == 'window'
-  assert plan.warp.scratch > 0  # the slice rows
+  assert plan.short.region is not None  # the short form's value region
+  # the stages read at minor-axis offsets read the shared frame
+  assert any('slice' in why for why in plan.short.region.off.values())
+  old = tile_plan.kernel_plan(stencil, (256, 512), lane_shift='slice',
+                              block_rows=64, _short=())
+  assert old.warp.scratch > 0  # the old form's slice rows
 
 
 def test_value_plan_counts_its_scratch():
-  """A value plan's shared memory holds the input windows and every
-  warp's scratch; the stages live in registers."""
+  """An old value plan's (``_short=()``) shared memory holds the input
+  windows and every warp's scratch; the stages live in registers."""
   stencil = build_stencil(corpus.CORPUS['erosion'], **GREEDY)
   plan = tile_plan.kernel_plan(stencil, (512, 512), stage_mode='value',
                                shift_mode='roll', transpose_lanes='on',
-                               block_rows=64)
+                               block_rows=64, _short=())
   warp = plan.warp
   assert set(plan.offsets) == {'input'}
   assert warp.scratch >= 32 * warp.lane_rows * (warp.width + 1) * warp.word

@@ -162,9 +162,10 @@ def test_value_stages_need_offset_zero_over_the_readers_extent():
 
 
 def test_an_explicit_tile_or_mode_keeps_the_default_form():
-  """With ``_short=()`` an explicit tile, block_rows or mode key keeps
-  the default form (the kernels those keys built before the short form
-  took them); a layout key always does."""
+  """With ``_short=()`` an explicit tile, block_rows, mode or layout key
+  keeps the default form (the kernels those keys built before the short
+  form took them); without it a layout key builds the short form, and a
+  forced element set takes the layout element too."""
   stencil, shape = _small('blur')
   assert make_tile_plan(stencil, shape, (8, 64), _short=()).short is None
   assert tile_plan.kernel_plan(stencil, shape, block_rows=8,
@@ -172,15 +173,17 @@ def test_an_explicit_tile_or_mode_keeps_the_default_form():
   assert tile_plan.kernel_plan(stencil, shape, out_dma=True,
                                _short=()).short is None
   assert tile_plan.kernel_plan(stencil, shape,
-                               stage_mode='value').short is None
+                               stage_mode='value').short is not None
+  assert tile_plan.kernel_plan(stencil, shape, stage_mode='value',
+                               _short=()).short is None
   assert make_tile_plan(stencil, shape, _short=()).short is None
   with pytest.raises(ValueError):
     make_tile_plan(stencil, shape, _short=('values',))
   with pytest.raises(ValueError):
     make_tile_plan(stencil, shape, _short=('cells',), _deep=('tile',))
-  with pytest.raises(soda_tpu_torch.utils.InputError, match='layout'):
-    tile_plan.kernel_plan(stencil, shape, stage_mode='value',
-                          _short=('cells',))
+  forced = tile_plan.kernel_plan(stencil, shape, stage_mode='value',
+                                 _short=('cells',))
+  assert forced.short.on == ('cells',) and forced.short.region is not None
   with pytest.raises(soda_tpu_torch.utils.InputError, match='many-stage'):
     tile_plan.kernel_plan(stencil, shape, block_rows=8, _deep=('tile',))
 
