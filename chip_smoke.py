@@ -22,7 +22,7 @@ seconds:
    stencil overrides), the grouped cells' per-group kernels, the small
    replicated grid's kernel and the sharded cells' kernels at their
    halo-extended shard shapes, the mode, tuner, layout and gate kernels,
-   phase 26's options and their old kernels,
+   phase 26's options and their old kernels, phase 28's programs,
    the five hand-written probe sources (``probes.SOURCES``) and the fused
    kernels phases 17 and 18 run: one nvcc per source, all at once. Each
    cell must dispatch to the fused kernel under 'auto'.
@@ -82,11 +82,11 @@ seconds:
    fills, staged stores; each on the short form, phase 26 holds them
    against the old mode kernel) through ``get_executor(..., **options)``,
    each counter reset just before its run and read just after: one
-   launch per call; held against the mode's plain version
-   (``streamed_stencil_plain``, the kernel's walk: runs of tiles; taken
-   once for 'peel' and True, which build one kernel) and against
-   ``fused_stencil_plain`` over the whole grid; blur bit-exact against the
-   NumPy oracle; the cold-L2 median beside the default kernel's, the bound
+   launch per call; held against ``fused_stencil_plain`` over the whole
+   grid (the kernel's walk in plain PyTorch, ``streamed_stencil_plain``,
+   took 1-26 s a row at these shapes: the card-only tests hold each mode
+   kernel to it at small shapes); blur bit-exact against the NumPy
+   oracle; the cold-L2 median beside the default kernel's, the bound
    and its share, back-to-back device microseconds, CTAs and steps per CTA.
 14. tools: ``tune`` on blur and jacobi3d with a cache under
    ``build/chip_smoke/`` (the winner and its time against the default
@@ -287,13 +287,24 @@ seconds:
    form, tile, CTAs, the region's strip and register rows, registers,
    spills and barriers a tile. ``python -c "import chip_smoke;
    chip_smoke.layout_short_main()"`` runs this phase alone.
+28. conformance: every semantics fuzz program (``testing.FUZZ_SEEDS``,
+   wide and narrow), every conversion program (``testing.CAST_SEEDS``)
+   and faults C5's and C6's programs at CONFORMANCE_SHAPE, each through
+   ``get_executor(..., 'auto')`` (its counter reset just before and read
+   just after: one launch), ``fused_stencil_plain``, ``get_executor(...,
+   'xla')`` and the ``--emit-torch`` program, all on the card, held
+   against the NumPy oracle on the host: integers bit-exact, floats
+   within the threshold, and the conversion and fault programs equal to
+   it as numbers. One line a group; ``python -c "import chip_smoke;
+   chip_smoke.conformance_main()"`` runs this phase alone.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, a JSON object with each kernel's record (``{"kernels":
 ...}``: the fused kernel's per cell, mode, option and layout row, and each
 probe case and body, ``probe_stream``, ``probe_chain``,
-``probe_narrow``, ``probe_copy`` and ``probe_25d``, and the rank form's
-kernel cells), and ``{"ok": true,
+``probe_narrow``, ``probe_copy`` and ``probe_25d``, the rank form's
+kernel cells, and phase 28's ``conformance`` entry with its programs),
+and ``{"ok": true,
 "device": ...}``. Any failure raises and exits nonzero. Inputs are made from seeded numpy (make_test_inputs).
 """
 
@@ -371,6 +382,11 @@ OPTION_CALLS = 100
 OPTION_SETTLE_S = 0.2
 OPTION_FIXED = (('jacobi3d_256', {'block_rows': 16}),
                 ('jacobi3d_256', {'mid_tile': 64}))
+# phase 28: the conformance programs' shape (several short-form tiles,
+# ragged on both axes) and the cold-L2 calls timed of each kernel and
+# plain version
+CONFORMANCE_SHAPE = (200, 600)
+CONFORMANCE_REPS = 5
 # phase 24: the estimate's time against the measured one, and the slack a
 # measured share may take over the model's ceiling
 EST_RANGE = (0.67, 1.5)
@@ -1475,6 +1491,195 @@ def layout_short_phase(rows, lib, plain_ms, smi, log):
   return records
 
 
+def conformance_programs():
+  """(group, label, stencil, inputs) of phase 28 at CONFORMANCE_SHAPE:
+  every ``testing.FUZZ_SEEDS`` program, wide and narrow, on
+  ``make_inputs``; every ``testing.CAST_SEEDS`` program on
+  ``make_cast_inputs``; faults C5's and C6's programs
+  (``testing.regression_cases``)."""
+  from soda_tpu_torch import testing
+  from soda_tpu_torch.api import build_stencil
+  shape = CONFORMANCE_SHAPE
+  out = []
+  for narrow in (False, True):
+    for seed in testing.FUZZ_SEEDS:
+      stencil = build_stencil(testing.gen_program(seed, narrow))
+      out.append(('fuzz narrow' if narrow else 'fuzz', 'fuzz%d' % seed,
+                  stencil, testing.make_inputs(stencil, shape, seed)))
+  for seed in testing.CAST_SEEDS:
+    stencil = build_stencil(testing.gen_cast_program(seed))
+    out.append(('cast', 'cast%d' % seed, stencil,
+                testing.make_cast_inputs(stencil, shape, seed)))
+  for label, text, _, inputs in testing.regression_cases(shape):
+    out.append((label.split()[0], label, build_stencil(text), inputs))
+  return out
+
+
+def conformance_sources(programs):
+  """The kernel sources of phase 28: each program's default kernel."""
+  from soda_tpu_torch.backend import cuda_source
+  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+  return [cuda_source.generate(make_tile_plan(stencil, CONFORMANCE_SHAPE))
+          for _, _, stencil, _ in programs]
+
+
+def conformance_phase(programs, smi, log):
+  """Phase 28 ``[conformance]``: each of ``conformance_programs`` through
+  ``get_executor(..., 'auto')`` (its counter reset just before the call
+  and read just after: one launch), ``fused_stencil_plain`` on the card,
+  ``get_executor(..., 'xla')`` on the card and the ``--emit-torch``
+  program on the card, each held against the NumPy oracle run on the
+  host: by ``check_outputs`` (integers bit-exact, floats within the
+  threshold), and, for the conversion and fault programs, every output
+  equal as a number (``check_exact(..., values=True)``: a float or
+  double one rounding off fails); the fuzz programs' equality is
+  counted. One line a group. Returns the phase's kernel record: the
+  programs' launches, the kernel's largest error against the oracle, and
+  the kernels', plain versions' and bounds' milliseconds summed over the
+  programs (cold-L2 medians of CONFORMANCE_REPS calls)."""
+  import types
+  import numpy as np
+  import torch
+  import soda_tpu_torch
+  from soda_tpu_torch import profiling, testing
+  from soda_tpu_torch.backend import reference
+  from soda_tpu_torch.backend.fused import FusedExecutor, fused_stencil_plain
+  from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
+  from soda_tpu_torch.codegen import torch_source
+  from soda_tpu_torch.backend import semantics
+  shape = CONFORMANCE_SHAPE
+  t = time.time()
+  doubles, wides = testing.cast_values()
+  card = torch.device('cuda', 0)
+  x, u = torch.from_numpy(doubles).to(card), torch.from_numpy(
+      wides.view(np.int64)).to(card)
+  with np.errstate(over='ignore'):
+    pairs = [('double -> half', semantics.half_of_double(x),
+              x.to(torch.float16), doubles.astype(np.float16))] + [
+                  ('uint64 -> %s' % np.dtype(dt).name,
+                   semantics.float_of_u64(u, tdt),
+                   u.to(torch.float64).add(torch.where(u < 0, 2.0 ** 64,
+                                                       0.0)).to(tdt),
+                   wides.astype(dt))
+                  for dt, tdt in ((np.float64, torch.float64),
+                                  (np.float32, torch.float32),
+                                  (np.float16, torch.float16))]
+  # values whose bits differ, where any NaN matches a NaN (CUDA's float
+  # -> half gives its one NaN, 0x7fff, whatever the sign and payload)
+  def differ(got, want):
+    got = got.cpu().numpy()
+    bits = 'u%d' % want.dtype.itemsize
+    return int(((got.view(bits) != want.view(bits)) &
+                ~(np.isnan(got) & np.isnan(want))).sum())
+
+  for what, got, plain, want in pairs:
+    bad, twice = differ(got, want), differ(plain, want)
+    if bad:
+      raise RuntimeError('%s on the card: %d of %d values differ from '
+                         'numpy' % (what, bad, want.size))
+    log('%-17s %d values next to rounding boundaries: == numpy bit for bit '
+        '(NaN for NaN) on the card; torch\'s own conversion (the parent\'s) '
+        'differs in %d (%.1fs) | %s' % (what, want.size, twice,
+                                        time.time() - t, smi))
+    t = time.time()
+  launches, err, ms, plain_ms = 0, 0.0, 0.0, 0.0
+  bounds = {'bytes': 0.0, 'operations': 0.0}
+  groups = {}  # group -> [programs, equal as numbers on every path, s]
+  for group, label, stencil, inputs in programs:
+    t = time.time()
+    with np.errstate(all='ignore'):
+      want = reference.run(stencil, inputs)
+    ex = soda_tpu_torch.get_executor(stencil, shape)
+    wex = soda_tpu_torch.get_executor(stencil, shape, 'xla')
+    if not isinstance(ex, FusedExecutor) or \
+        not isinstance(wex, WholeGridExecutor):
+      raise RuntimeError('%s: auto is not the fused kernel or xla not the '
+                         'whole-grid executor' % label)
+    ex.launches = 0
+    got = {'kernel': ex(inputs)}
+    torch.cuda.synchronize()
+    if ex.launches != 1:
+      raise RuntimeError('%s: %d launches for one call' % (label,
+                                                            ex.launches))
+    launches += ex.launches
+    args = ex.prepare(inputs)
+    got['plain'] = dict(zip(stencil.output_names,
+                            fused_stencil_plain(stencil, args)))
+    got['whole-grid'] = wex(inputs)
+    module = types.ModuleType('emitted')
+    exec(compile(torch_source.generate(stencil, shape), '<%s>' % label,
+                 'exec'), module.__dict__)
+    got['printed'] = module.compute(*args)
+    torch.cuda.synchronize()
+    equal = True
+    for path, outs in got.items():
+      where = '%s %s on the card vs the oracle' % (label, path)
+      path_err = testing.check_outputs(stencil, shape, outs, want, where)
+      if path == 'kernel':
+        err = max(err, path_err)
+      try:
+        testing.check_exact(stencil, shape, outs, want, where, values=True)
+      except AssertionError:
+        if not group.startswith('fuzz'):
+          raise
+        equal = False
+    del got
+    ms += statistics.median(profiling.cuda_times_ms(
+        lambda: ex.fn(*args), reps=CONFORMANCE_REPS))
+    plain_ms += statistics.median(profiling.cuda_times_ms(
+        lambda: fused_stencil_plain(stencil, args), reps=CONFORMANCE_REPS,
+        warmup=1))
+    bound, bound_by = profiling.bound_ms(stencil, shape)
+    bounds[bound_by] += bound
+    row = groups.setdefault(group, [0, 0, 0.0])
+    row[0] += 1
+    row[1] += equal
+    row[2] += time.time() - t
+    del ex, wex, args, module
+  torch.cuda.empty_cache()
+  for group, (n, n_equal, seconds) in groups.items():
+    log('%-11s %d/%d programs at %s pass on the kernel (1 launch each), '
+        'fused_stencil_plain, the whole-grid executor and the printed '
+        'program against the NumPy oracle; %d/%d equal to it as numbers on '
+        'every path (%.1fs) | %s' % (group, n, n, shape, n_equal, n,
+                                     seconds, smi))
+  return {'name': 'conformance', 'route': 'cuda',
+          'source': 'soda_tpu_torch/backend/cuda_source.py',
+          'replaces': 'soda_tpu/backend/pallas_kernel.py:1543',
+          'launches': launches, 'max_abs_err': err, 'ms': ms,
+          'plain_ms': plain_ms, 'bound_ms': sum(bounds.values()),
+          'bound_by': max(bounds, key=bounds.get), 'library_ms': None,
+          'programs': len(programs)}
+
+
+def conformance_main() -> int:
+  """Phase 28 alone (``python -c 'import chip_smoke;
+  chip_smoke.conformance_main()'``): its programs' kernels built at once,
+  then the phase; one line a group and the kernel record."""
+  import torch
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device', file=sys.stderr)
+    return 1
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  from soda_tpu_torch import profiling
+  from soda_tpu_torch.backend import build
+  smi = profiling.device_report()['nvidia_smi']
+  say(smi)
+  t = time.time()
+  programs = conformance_programs()
+  sources = list({s.digest: s for s in conformance_sources(programs)}.values())
+  build.build_all(sources)
+  say('[build] nvcc: %d kernels at once (%.1fs)' % (len(sources),
+                                                    time.time() - t))
+  t = time.time()
+  entry = conformance_phase(programs, smi,
+                            lambda line: say('[conformance] ' + line))
+  say('[conformance] phase 28: %d programs (%.1fs)' % (entry['programs'],
+                                                       time.time() - t))
+  say(json.dumps(entry))
+  return 0
+
+
 def layout_short_main() -> int:
   """Phase 27 alone (``python -c 'import chip_smoke;
   chip_smoke.layout_short_main()'``): its rows' kernels built at once,
@@ -1525,8 +1730,7 @@ def main() -> int:
   from soda_tpu_torch.backend import build, cuda_source, grouped
   from soda_tpu_torch.backend.fused import (FusedExecutor,
                                             fused_stencil_plain,
-                                            replicated_stencil_plain,
-                                            streamed_stencil_plain)
+                                            replicated_stencil_plain)
   from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
   from soda_tpu_torch.experiments import (exp1_value_mode, exp2_diag,
                                           exp12_mosaic_reprobe,
@@ -1653,6 +1857,9 @@ def main() -> int:
   # RANKS ranks and at one rank a card
   sources += dryrun.kernel_sources(dryrun.configs(RANKS) +
                                    dryrun.configs(torch.cuda.device_count()))
+  # the conformance programs' kernels (phase 28)
+  conformance = conformance_programs()
+  sources += conformance_sources(conformance)
   sources = list({src.digest: src for src in sources}.values())
   t = time.time()
   build.build_all(sources)
@@ -2072,7 +2279,6 @@ def main() -> int:
                        plan.smem_bytes, plan.n_ctas, plan.steps, plan.slots,
                        ', rolling' if plan.rolling else ''))
     modes.append((name, opts, ex))
-  walked = {}  # the last row's kernel digest -> (its walk's outputs, ms)
   for name, opts, ex in modes:
     _, shape, stencil, _, inputs, params = by_name[name]
     ex.launches = 0
@@ -2081,33 +2287,18 @@ def main() -> int:
     torch.cuda.synchronize()
     count = ex.launches
     args = ex.prepare(inputs, params)
-    n_in = len(stencil.input_names)
     if count != 1:
       raise RuntimeError('%s %s: %d launches for one call' % (name, opts,
                                                               count))
     label = '%s %s' % (name, cuda_source.mode_name(ex.config))
     check_finite(stencil, shape, got, label)
-    testing.check_outputs(stencil, shape, got, plains[name],
-                          label + ' vs whole-grid plain')
-    # 'peel' builds the kernel stream_loop=True builds (the row before):
-    # that kernel's walk in plain PyTorch is taken once
-    digest = cuda_source.generate(ex.plan).digest
-    if digest not in walked:
-      streamed = []
-      p_ms = profiling.cuda_times_ms(
-          lambda: streamed.append(streamed_stencil_plain(
-              stencil, args[:n_in], args[n_in:], tile=ex.plan)),
-          reps=1, warmup=0)[0]
-      walked = {digest: (streamed, p_ms)}
-    streamed, p_ms = walked[digest]
-    err = testing.check_outputs(stencil, shape, got,
-                                dict(zip(stencil.output_names, streamed[0])),
-                                label + ' vs streamed plain')
+    err = testing.check_outputs(stencil, shape, got, plains[name],
+                                label + ' vs whole-grid plain')
+    p_ms = plain_ms_of[name]
     exact = ''
     if name == FLAGSHIP:
       check_oracle(got, label)
       exact = ', bit-exact vs the NumPy oracle'
-    del streamed
     k_ms = profiling.cuda_times_ms(lambda: ex.fn(*args), reps=KERNEL_REPS)
     ms = statistics.median(k_ms)
     _, device_us = profiling.back_to_back_us(lambda: ex.fn(*args),
@@ -2122,16 +2313,14 @@ def main() -> int:
     bound = kernels[-1]['bound_ms']
     plan = ex.plan
     say('[modes] %-30s tile %s, %d CTAs x %d steps, %d slot(s)%s, smem %d B: '
-        '1 launch, == whole-grid plain and == streamed plain (max |err| '
-        '%.3g)%s  kernel %.4f ms (default kernel %.4f ms, %.2fx)  bound '
-        '%.4f ms (%.0f%%)  streamed plain %.1f ms  back to back %.1f us/call '
-        '(%.1fs) | %s' % (
+        '1 launch, == whole-grid plain (max |err| %.3g)%s  kernel %.4f ms '
+        '(default kernel %.4f ms, %.2fx)  bound %.4f ms (%.0f%%)  whole-grid '
+        'plain %.1f ms  back to back %.1f us/call (%.1fs) | %s' % (
             label, plan.tile, plan.n_ctas, plan.steps, plan.slots,
             ', rolling' if plan.rolling else '', plan.smem_bytes, err, exact,
             ms, kernel_ms[name], ms / kernel_ms[name], bound,
             100 * bound / ms, p_ms, device_us, time.time() - t, smi))
     del got, args
-  del walked
   torch.cuda.empty_cache()
 
   # 14. tools: the tuner, the validation gate, compiled statistics, and
@@ -2689,6 +2878,15 @@ def main() -> int:
                                 lambda line: say('[layout-short] ' + line))
   say('[layout-short] phase 27: %d rows (%.1fs)' % (
       len(short_layout_rows), time.time() - t27))
+
+  # 28. conformance: the fuzz, conversion and fault programs through the
+  # kernel, its plain version, the whole-grid executor and the printed
+  # program, each against the NumPy oracle
+  t28 = time.time()
+  kernels.append(conformance_phase(conformance, smi,
+                                   lambda line: say('[conformance] ' + line)))
+  say('[conformance] phase 28: %d programs (%.1fs)' % (
+      len(conformance), time.time() - t28))
 
   launch.no_jax_loaded()
   say('[done] every phase passed (%.1fs)' % (time.time() - t_start))

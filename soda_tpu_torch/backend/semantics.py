@@ -37,7 +37,8 @@ from soda_tpu_torch.backend.c_semantics import binary_type, promote
 from soda_tpu_torch.ir import nodes as ir
 from soda_tpu_torch.ir.types import Type
 
-__all__ = ['Evaluator', 'binary_type', 'c_int_div', 'c_int_mod', 'promote',
+__all__ = ['Evaluator', 'binary_type', 'c_int_div', 'c_int_mod',
+           'float_of_u64', 'half_of_double', 'promote',
            'require_device_support', 'to_repr', 'to_storage', 'wrap',
            'wrap_promoted']
 
@@ -183,6 +184,37 @@ def _to_int(value: torch.Tensor, dtype: Type) -> torch.Tensor:
   return value.to(rep)
 
 
+def half_of_double(value: torch.Tensor) -> torch.Tensor:
+  """float64 -> float16 rounded once, as numpy's ``astype`` and the
+  kernel's ``soda::d2h`` round it. torch converts through float32 with
+  two roundings to nearest: a double just off a half midpoint lands on
+  it in float32, and ties-to-even then picks the wrong side. Here the
+  float32 step rounds to odd instead (toward zero, then the lowest
+  mantissa bit set where inexact), which keeps the side; float32's 24
+  bits are at least half's 11 + 2, so the conversion to half then rounds
+  as a single rounding would. Infinities, overflow past 65504 and half's
+  subnormals come out as numpy gives them, and a NaN stays a NaN (CUDA's
+  float -> half drops its sign and payload)."""
+  f = value.to(torch.float32)
+  wide = f.to(torch.float64)
+  bits = f.view(torch.int32)
+  bits = bits - (wide.abs() > value.abs()).to(torch.int32)
+  bits = bits | ((wide != value) & torch.isfinite(value)).to(torch.int32)
+  return bits.view(torch.float32).to(torch.float16)
+
+
+def float_of_u64(value: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+  """uint64 bit patterns (carried as int64) -> float ``dtype`` rounded
+  once, as C's and numpy's conversions round them. A pattern of 2**63
+  or more is halved with its lowest bit kept (so the value still shows
+  whether it lies between two floats), converted as a signed value,
+  which torch rounds once, and doubled, which is exact."""
+  big = value < 0
+  halved = ((value >> 1) & ((1 << 63) - 1)) | (value & 1)
+  wide = torch.where(big, halved, value).to(dtype)
+  return torch.where(big, wide * 2, wide)
+
+
 def _as(ctx: _Ctx, value, dtype: Type, src: Optional[Type] = None):
   """numpy's ``asarray(value).astype(dtype)`` on representations."""
   if not isinstance(value, torch.Tensor):
@@ -190,9 +222,9 @@ def _as(ctx: _Ctx, value, dtype: Type, src: Optional[Type] = None):
   if dtype.is_float:
     fdt = repr_dtype(dtype)
     if _is_u64(src):
-      wide = value.to(torch.float64) + torch.where(
-          value < 0, 2.0 ** 64, 0.0).to(torch.float64)
-      return wide.to(fdt)
+      return float_of_u64(value, fdt)
+    if fdt == torch.float16 and value.dtype == torch.float64:
+      return half_of_double(value)
     return value.to(fdt)
   return _to_int(value, dtype)
 
@@ -276,7 +308,9 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
   """IEEE square root. torch's vectorized CPU float32 sqrt is off by an
   ulp at times; through float64 it rounds correctly (53 >= 2 * 24 + 2
   bits, so the double rounding is exact), as numpy's and CUDA's do."""
-  if x.dtype in (torch.float16, torch.float32):
+  if x.dtype == torch.float16:
+    return half_of_double(torch.sqrt(x.to(torch.float64)))
+  if x.dtype == torch.float32:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
   return torch.sqrt(x)
 

@@ -25,12 +25,14 @@ uint16 carried as int32, uint32 as int64 masked to 32 bits, uint64 as
 its int64 bit pattern (compared and divided as unsigned); integer
 division by zero and ``MIN // -1`` give numpy's results (C's division
 by zero then follows from the Evaluator's ``c_int_div``, as in the
-oracle); square roots round through float64. The torch Evaluator is not
-traced instead: it branches on the dtypes of real tensors and keeps
-constants as cached device tensors, which a trace would freeze into the
-program, while the symbolic namespace knows each value's dtype as it
-prints and prints only the branch taken. Neither target has the JAX
-package's ``fast_int_div`` or ``fast_rsqrt``.
+oracle); square roots round through float64; a double converted to
+half, and a uint64 to any float, rounds once, as numpy's ``astype``
+rounds it (semantics.half_of_double, float_of_u64). The torch Evaluator
+is not traced instead: it branches on the dtypes of real tensors and
+keeps constants as cached device tensors, which a trace would freeze
+into the program, while the symbolic namespace knows each value's dtype
+as it prints and prints only the branch taken. Neither target has the
+JAX package's ``fast_int_div`` or ``fast_rsqrt``.
 """
 
 from __future__ import annotations
@@ -96,14 +98,35 @@ def _c(value, name, device):
   return _CONSTANTS[key]
 
 
+def _half_of_double(x):
+  """float64 -> float16 rounded once, as numpy rounds it (torch rounds
+  twice, through float32): the float32 step rounds to odd instead."""
+  f = x.to(torch.float32)
+  wide = f.to(torch.float64)
+  bits = f.view(torch.int32)
+  bits = bits - (wide.abs() > x.abs()).to(torch.int32)
+  bits = bits | ((wide != x) & torch.isfinite(x)).to(torch.int32)
+  return bits.view(torch.float32).to(torch.float16)
+
+
+def _float_of_u64(x, dtype):
+  """uint64 bit patterns -> float ``dtype`` rounded once: a pattern of
+  2**63 or more halved with its lowest bit kept, converted, doubled."""
+  big = x < 0
+  halved = ((x >> 1) & ((1 << 63) - 1)) | (x & 1)
+  wide = torch.where(big, halved, x).to(dtype)
+  return torch.where(big, wide * 2, wide)
+
+
 def _cast(x, src, dst):
   """numpy's ``x.astype(dst)`` for a representation of type ``src``."""
   if dst == 'bool':
     return x != 0
   if dst.startswith('float'):
     if src == 'uint64':
-      x = x.to(torch.float64) + torch.where(x < 0, 2.0 ** 64, 0.0).to(
-          torch.float64)
+      return _float_of_u64(x, _STORAGE[dst])
+    if dst == 'float16' and x.dtype == torch.float64:
+      return _half_of_double(x)
     return x.to(_STORAGE[dst])
   if x.is_floating_point():
     x = torch.trunc(x).to(torch.int64)
@@ -153,7 +176,9 @@ def _umax(a, b):
 def _sqrt(x):
   """IEEE square root: torch's vectorised float32 one is off by an ulp at
   times; through float64 it rounds as numpy's and CUDA's do."""
-  if x.dtype in (torch.float16, torch.float32):
+  if x.dtype == torch.float16:
+    return _half_of_double(torch.sqrt(x.to(torch.float64)))
+  if x.dtype == torch.float32:
     return torch.sqrt(x.to(torch.float64)).to(x.dtype)
   return torch.sqrt(x)
 

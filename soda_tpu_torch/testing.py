@@ -23,6 +23,10 @@
   seeded generator of random DSL programs over every integer width and
   sign, half, float and double, and distinct inputs per replica of a
   replicated batch.
+- Conversions: ``gen_cast_program`` (``CAST_SEEDS``) and
+  ``make_cast_inputs``, programs and inputs where a conversion rounded
+  twice would show; ``cast_values``, such values alone; faults C5's and
+  C6's programs (``regression_cases``).
 """
 
 from __future__ import annotations
@@ -43,7 +47,10 @@ from soda_tpu_torch.ir.types import Type
 from soda_tpu_torch.parallel.mesh import Mesh
 from soda_tpu_torch.utils import threshold_for
 
-__all__ = ['CELLS', 'CONV_PARAM', 'SHARDED', 'repeated_mesh', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
+__all__ = ['CAST_SEEDS', 'C5_SEEDS', 'C6_CASES', 'cast_values', 'c6_program',
+           'gen_cast_program', 'half_midpoints', 'make_cast_inputs',
+           'regression_cases',
+           'CELLS', 'CONV_PARAM', 'SHARDED', 'repeated_mesh', 'FUZZ_SEEDS', 'FUZZ_SHAPE',
            'GEOMETRY_CASES', 'LAYOUT_CASES', 'LAYOUT_SHORT_EXTRA', 'StepClock', 'build_cell_stepped', 'LAYOUT_EXTRA', 'MODE_CASES',
            'MODE_CELLS', 'MULTI_OUTPUT', 'NARROW_PAIRS', 'SEED_CONFIGS',
            'build_cell', 'check_exact', 'check_outputs', 'gen_program',
@@ -432,18 +439,25 @@ def check_outputs(stencil, shape, got, want, context: str,
   return worst
 
 
-def check_exact(stencil, shape, got, want, context: str) -> None:
+def check_exact(stencil, shape, got, want, context: str,
+                values: bool = False) -> None:
   """Bit-for-bit equality of ``got`` and ``want`` on each output's valid
   region (floats compared as their bits, so equal NaNs match). Raises
-  AssertionError naming the first differing index."""
+  AssertionError naming the first differing index. ``values``: floats
+  compared as numbers instead, NaN matching NaN and +0 matching -0 (C
+  leaves open which zero min and max pick); unlike ``check_outputs``'
+  threshold, this sees a float or double one rounding off."""
   for out in stencil.output_names:
     region = output_valid_slices(stencil, shape, out)
     g, w = _numpy(got[out])[region], _numpy(want[out])[region]
     where = '%s:%s' % (context, out)
     assert g.dtype == w.dtype and g.shape == w.shape, (where, g.dtype,
                                                        w.dtype)
-    bits = 'u%d' % g.dtype.itemsize
-    diff = g.view(bits) != w.view(bits)
+    if values and g.dtype.kind == 'f':
+      diff = (g != w) & ~(np.isnan(g) & np.isnan(w))
+    else:
+      bits = 'u%d' % g.dtype.itemsize
+      diff = g.view(bits) != w.view(bits)
     if diff.any():
       first = tuple(int(i) for i in np.argwhere(diff)[0])
       raise AssertionError('%s: %d/%d cells differ; first at %s (of the '
@@ -641,3 +655,234 @@ def make_inputs(stencil, shape, seed: int):
       v = v.view(np.int64) if t.is_signed else v
     out[name] = oracle.wrap(np, v.reshape(shape), t)
   return out
+
+
+# the random programs whose conversions round where a second rounding
+# would show: uint64/int64/uint32 -> float, double, half and double ->
+# float, half, then half arithmetic and selects on the results
+CAST_SEEDS = range(400, 416)
+CAST_INT_TYPES = ('uint64', 'int64', 'uint32', 'int32', 'uint64', 'int64')
+CAST_FLOAT_TYPES = ('double', 'double', 'float', 'half')
+
+
+def gen_cast_program(seed: int) -> str:
+  """A DSL program over int inputs ``a``, ``b`` (one of them uint64) and
+  a float input ``x`` (mostly double) with two outputs: ``o``, one
+  conversion that torch would round twice (a double to half, or a
+  uint64 to double or float), and ``p``, a random float, double or half
+  expression that converts integers and doubles to each float type and
+  computes on the halves."""
+  rng = np.random.default_rng(seed)
+
+  def pick(seq):
+    return seq[int(rng.integers(0, len(seq)))]
+
+  t_a, t_b = pick(CAST_INT_TYPES), pick(CAST_INT_TYPES)
+  if 'uint64' not in (t_a, t_b):
+    t_b = 'uint64'
+  t_x = pick(CAST_FLOAT_TYPES)
+  wide = 'a' if t_a == 'uint64' else 'b'
+  probes = [('double', 'double(%s(0, 0))' % wide),
+            ('float', 'float(%s(1, 0))' % wide)]
+  if t_x == 'double':
+    probes += [('half', 'half(x(0, 1))')] * 2
+  t_probe, probe = pick(probes)
+
+  def int_src():
+    return pick(('a(0, 0)', 'a(1, 0)', 'b(0, 0)', 'b(0, 1)',
+                 '(a(0, 0) + b(0, 0))', '(a(1, 0) * 3)',
+                 '(b(0, 1) - a(0, 0))', '(a(0, 0) ^ b(0, 1))'))
+
+  def half_src():  # integers that round to half rather than overflow
+    return pick(('(a(0, 0) & 65535)', '(b(0, 1) & 65535)',
+                 '(a(1, 0) & 4095)', 'b(0, 0)', int_src()))
+
+  def cond(depth):
+    k = int(rng.integers(0, 3))
+    op = pick(('<', '<=', '>', '>=', '==', '!='))
+    if k == 0:
+      return '(a(0, 0) %s b(0, 0))' % op
+    gen = gen_half if k == 1 else gen_double
+    return '(%s %s %s)' % (gen(depth - 1), op, gen(depth - 1))
+
+  def gen_double(depth):
+    if depth <= 0 or rng.random() < 0.3:
+      return pick(('double(%s)' % int_src(), 'x(0, 0)', 'x(0, 1)',
+                   'double(%s)' % int_src(), '(x(0, 1) * 1.25)'))
+    k = int(rng.integers(0, 4))
+    if k <= 1:
+      return '(%s %s %s)' % (gen_double(depth - 1), pick(('+', '-', '*', '/')),
+                             gen_double(depth - 1))
+    if k == 2:
+      return 'double(%s)' % gen_half(depth - 1)
+    return 'select(%s, %s, %s)' % (cond(depth - 1), gen_double(depth - 1),
+                                   gen_double(depth - 1))
+
+  def gen_float(depth):
+    if depth <= 0 or rng.random() < 0.3:
+      return 'float(%s)' % int_src()
+    if rng.random() < 0.5:
+      return 'float(%s)' % gen_double(depth - 1)
+    return '(%s %s %s)' % (gen_float(depth - 1), pick(('+', '-', '*')),
+                           gen_float(depth - 1))
+
+  def gen_half(depth):
+    if depth <= 0 or rng.random() < 0.25:
+      return 'half(%s)' % pick((half_src(), 'x(0, 0)', 'x(0, 1)',
+                                half_src()))
+    k = int(rng.integers(0, 6))
+    if k == 0:
+      return 'half(%s)' % gen_double(depth - 1)
+    if k == 1:
+      return 'half(%s)' % gen_float(depth - 1)
+    if k == 2:
+      return 'half(%s %s %s)' % (gen_half(depth - 1), pick(('+', '-', '*')),
+                                 gen_half(depth - 1))
+    if k == 3:
+      return 'select(%s, %s, %s)' % (cond(depth - 1), gen_half(depth - 1),
+                                     gen_half(depth - 1))
+    if k == 4:
+      return '%s(%s, %s)' % (pick(('min', 'max')), gen_half(depth - 1),
+                             gen_half(depth - 1))
+    return '-(%s)' % gen_half(depth - 1)
+
+  t_out = pick(('float', 'double', 'half'))
+  expr = pick((gen_half, gen_double, gen_float, gen_half))(3)
+  return '\n'.join([
+      'kernel: cast', 'burst width: 64', 'unroll factor: 1', 'iterate: 1',
+      'border: ignore', 'cluster: none',
+      'input dram 0 %s: a(16, *)' % t_a,
+      'input dram 1 %s: b' % t_b,
+      'input dram 2 %s: x' % t_x,
+      'output dram 3 %s: o(0, 0) = %s' % (t_probe, probe),
+      'output dram 4 %s: p(0, 0) = %s' % (t_out, expr),
+  ])
+
+
+def _near_midpoints(rng, n: int, bits: int, lo: int, hi: int) -> np.ndarray:
+  """``n`` integers in [2**lo, 2**hi) (as uint64), half of them in the
+  top binade, each within one of a midpoint between two neighbouring
+  floats of ``bits`` significant bits."""
+  one = np.uint64(1)
+  exp = np.where(rng.random(n) < 0.5, hi - 1,
+                 rng.integers(lo, hi, n)).astype(np.uint64)
+  step = exp - np.uint64(bits - 1)  # floats in [2**e, 2**(e + 1)) are 2**step apart
+  top = rng.integers(0, 1 << 62, n, dtype=np.int64).astype(np.uint64)
+  v = (one << exp) | ((top << step) & ((one << exp) - one))
+  v = (v & ~((one << step) - one)) + (one << (step - one))
+  delta = rng.integers(0, 3, n).astype(np.uint64)
+  return v + delta - one
+
+
+def half_midpoints() -> np.ndarray:
+  """Every midpoint between neighbouring finite halves, both signs (as
+  doubles: each exact)."""
+  halves = np.arange(0, 0x7c00, dtype=np.uint16).view(np.float16)
+  wide = halves.astype(np.float64)
+  mids = (wide[:-1] + wide[1:]) / 2
+  return np.concatenate([mids, -mids])
+
+
+def cast_values(seed: int = 16):
+  """(doubles, uint64s) where a conversion rounded twice shows: every
+  midpoint between neighbouring finite halves of both signs, one
+  double-ulp below, on and above it, infinities, NaNs, half's overflow
+  and subnormal edges; and uint64 values within one of float and double
+  midpoints in [2**53, 2**64) with a few listed edges."""
+  rng = np.random.default_rng(seed)
+  mids = half_midpoints()
+  tiny = 2.0 ** -24  # the least half subnormal
+  edges = [np.inf, -np.inf, np.nan, -np.nan, 0.0, -0.0, 65504.0, 65520.0,
+           np.nextafter(65520.0, 0), np.nextafter(65520.0, np.inf),
+           1e300, -1e300, 1e-300, -1e-300, 3.5e38, 1e-40, tiny / 2,
+           np.nextafter(tiny / 2, 0), np.nextafter(tiny / 2, 1)]
+  doubles = np.concatenate([mids, np.nextafter(mids, np.inf),
+                            np.nextafter(mids, -np.inf), edges,
+                            rng.normal(0, 8, 20000)])
+  listed = np.array([2**63 + 1025, 2**63 + 2**39 + 1, 2**64 - 1, 2**63,
+                     2**63 - 1, 2**53 + 1, 0, 1, 65520], np.uint64)
+  wides = np.concatenate([listed, _near_midpoints(rng, 50000, 24, 53, 64),
+                          _near_midpoints(rng, 50000, 53, 53, 64)])
+  return doubles, wides
+
+
+def make_cast_inputs(stencil, shape, seed: int):
+  """``make_inputs``' grids with about half of each input's cells moved
+  next to a rounding boundary: a double one double-ulp to either side of
+  a midpoint between two halves or two float32s; a 64-bit integer within
+  one of a midpoint between two floats or two doubles in [2**53, 2**64)
+  (below 2**63, of either sign, if signed); a 32-bit one near a float32
+  midpoint in [2**24, 2**31)."""
+  rng = np.random.default_rng(seed + 2000)
+  out = make_inputs(stencil, shape, seed)
+  n = int(np.prod(shape))
+  for name in stencil.input_names:
+    t = stencil.symbol_table[name]
+    moved = rng.random(n) < 0.5
+    if t.is_float:
+      halves = rng.integers(0, 0x7bff, n).astype(np.uint16).view(np.float16)
+      mids = (halves.astype(np.float64) +
+              np.nextafter(halves, np.float16(np.inf)).astype(np.float64)) / 2
+      singles = (rng.normal(0, 64, n).astype(np.float32) *
+                 np.float32(2.0) ** rng.integers(-20, 20, n).astype(np.float32))
+      mids32 = (singles.astype(np.float64) + np.nextafter(
+          singles, np.float32(np.inf)).astype(np.float64)) / 2
+      v = np.where(rng.random(n) < 0.5, mids, mids32)
+      side = rng.integers(0, 3, n)
+      v = np.where(side == 0, np.nextafter(v, -np.inf),
+                   np.where(side == 1, np.nextafter(v, np.inf), v))
+      v = np.where(rng.random(n) < 0.5, -v, v)
+      with np.errstate(over='ignore'):
+        v = v.astype(t.np_dtype)
+    elif t.storage_width == 64:
+      hi = 64 if not t.is_signed else 63
+      bits = np.where(rng.random(n) < 0.5, 24, 53)
+      v = np.where(bits == 24, _near_midpoints(rng, n, 24, 53, hi),
+                   _near_midpoints(rng, n, 53, 53, hi))
+      if t.is_signed:
+        v = v.view(np.int64) * np.where(rng.random(n) < 0.5, -1, 1)
+    elif t.storage_width == 32:
+      v = _near_midpoints(rng, n, 24, 24, 31).astype(np.int64)
+      if t.is_signed:
+        v = v * np.where(rng.random(n) < 0.5, -1, 1)
+    else:
+      continue
+    v = oracle.wrap(np, v.reshape(shape), t)
+    out[name] = np.where(moved.reshape(shape), v, out[name]).astype(
+        out[name].dtype)
+  return out
+
+
+def c6_program(out_type: str) -> str:
+  """Fault C6's program: a uint64 input converted to ``out_type``."""
+  return '\n'.join([
+      'kernel: c6', 'burst width: 64', 'unroll factor: 1', 'iterate: 1',
+      'border: ignore', 'cluster: none',
+      'input dram 0 uint64: a(16, *)',
+      'output dram 1 %s: o(0, 0) = %s(a(0, 0))' % (out_type, out_type)])
+
+
+# fault C5: gen_program seeds whose double -> half conversions were
+# rounded twice (221 at C5_SHAPES[221], the others at C5_SHAPE)
+C5_SEEDS = (221, 288, 515, 794, 852, 879, 1153, 1261, 1750, 1971)
+C5_SHAPE = (40, 96)
+C5_SHAPES = {221: (20, 48)}
+# fault C6: (output type, the uint64 in every cell) whose conversion was
+# rounded twice (numpy: 2**63 + 2048 and 9.223373e+18)
+C6_CASES = (('double', 2**63 + 1025), ('float', 2**63 + 2**39 + 1))
+
+
+def regression_cases(shape=None):
+  """(label, DSL text, shape, inputs) of faults C5 and C6, at their own
+  shapes or at ``shape``."""
+  cases = []
+  for seed in C5_SEEDS:
+    text = gen_program(seed)
+    at = shape or C5_SHAPES.get(seed, C5_SHAPE)
+    cases.append(('c5 fuzz%d' % seed, text, at,
+                  make_inputs(build_stencil(text), at, seed)))
+  for out_type, value in C6_CASES:
+    at = shape or FUZZ_SHAPE
+    cases.append(('c6 %s' % out_type, c6_program(out_type), at,
+                  {'a': np.full(at, value, np.uint64)}))
+  return cases

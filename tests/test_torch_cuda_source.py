@@ -8,6 +8,8 @@ behaviour trapped where the toolchain links the sanitizer) and it is
 held against the NumPy oracle on the 11 corpus kernels and the
 semantics fuzz programs: integers bit-exact, floats within the
 reference threshold; with two replicas, each grid at its own offset.
+On faults C5's and C6's programs and the conversion programs every
+output equals the oracle's as a number (its casts round once).
 The source (also of the grouped sub-stencils and of a sharded
 executor's halo-extended shard) must not depend on the hash seed, the
 12 benchmark cells' sources are pinned by their hashes, and the nvcc
@@ -31,9 +33,11 @@ from soda_tpu_torch.api import build_stencil
 from soda_tpu_torch.backend import build, cuda_source, reference
 from soda_tpu_torch.backend.tile_plan import make_tile_plan
 from soda_tpu_torch.optimization import cr_schedules
-from soda_tpu_torch.testing import (CELLS, FUZZ_SEEDS, FUZZ_SHAPE, build_cell,
-                                    check_outputs, gen_program, make_inputs,
-                                    replica_inputs)
+from soda_tpu_torch.testing import (CAST_SEEDS, CELLS, FUZZ_SEEDS, FUZZ_SHAPE,
+                                    build_cell, check_exact, check_outputs,
+                                    gen_cast_program, gen_program,
+                                    make_cast_inputs, make_inputs,
+                                    regression_cases, replica_inputs)
 
 torch.set_num_threads(1)
 
@@ -58,6 +62,22 @@ def _cases():
 CASES = _cases()
 
 
+def _cast_cases():
+  """(name, stencil, shape, inputs, params) of faults C5 and C6 and the
+  conversion programs (testing.CAST_SEEDS)."""
+  cases = [(label.replace(' ', '-'), build_stencil(text), shape, inputs, {})
+           for label, text, shape, inputs in regression_cases()]
+  for seed in CAST_SEEDS:
+    st = build_stencil(gen_cast_program(seed))
+    cases.append(('cast%d' % seed, st, CAST_SHAPE,
+                  make_cast_inputs(st, CAST_SHAPE, seed), {}))
+  return cases
+
+
+CAST_SHAPE = (24, 64)
+CAST_CASES = _cast_cases()
+
+
 def _flags(gxx, tmp):
   """Compiler flags, with the undefined-behaviour sanitizer when this
   toolchain can link it into a shared library."""
@@ -79,7 +99,7 @@ def host_lib(tmp_path_factory):
     pytest.skip('no g++ on this machine')
   tmp = tmp_path_factory.mktemp('host')
   sources, symbols = [], {}
-  for name, st, shape, _, _ in CASES:
+  for name, st, shape, _, _ in CASES + CAST_CASES:
     kernel = cuda_source.generate(make_tile_plan(st, shape))
     path = tmp / ('%s.cpp' % name)
     path.write_text(kernel.text)
@@ -105,6 +125,24 @@ def test_host_loop_matches_oracle(host_lib, case):
   args += [np.ascontiguousarray(params[s.name]) for s in st.param_stmts]
   args += [outs[o] for o in st.output_names]
   assert _host_call(lib, symbols[name], args, 1) == 0
+  check_outputs(st, shape, outs, want, name)
+
+
+@pytest.mark.parametrize('case', range(len(CAST_CASES)),
+                         ids=[c[0] for c in CAST_CASES])
+def test_host_loop_rounds_casts_as_the_oracle(host_lib, case):
+  """The kernel's conversions (``soda::d2h`` from double, ``cvt`` from
+  uint64) round once: every output equal as a number to the oracle's."""
+  lib, symbols = host_lib
+  name, st, shape, inputs, params = CAST_CASES[case]
+  with np.errstate(all='ignore'):
+    want = reference.run(st, inputs, params)
+  outs = {o: np.zeros(shape, st.symbol_table[o].np_dtype)
+          for o in st.output_names}
+  args = [np.ascontiguousarray(inputs[n]) for n in st.input_names]
+  args += [outs[o] for o in st.output_names]
+  assert _host_call(lib, symbols[name], args, 1) == 0
+  check_exact(st, shape, outs, want, name, values=True)
   check_outputs(st, shape, outs, want, name)
 
 
