@@ -137,9 +137,11 @@ seconds:
    point's ``run`` with every probe counter reset just before and read
    just after: its 67 bodies on the scripts' inputs, each kernel against
    its plain version (a chain at 1, 2, 5 and the script's n_small
-   iterations), a one-shot body's cold-L2 ms and host and device µs a
-   call back to back, a chain's µs per iteration (the slope between the
-   script's n_small and n_big; exp2's n_big raised), ps per element-op,
+   iterations), a one-shot body's device µs a call replayed from a CUDA
+   graph and its library call's, further its cold-L2 ms and host and
+   device µs a call back to back from Python, a chain's µs per iteration
+   (the slope between the script's n_small and n_big; exp2's n_big
+   raised), ps per element-op,
    the bound (the least operations each body's function needs, or the
    bytes its taps read) and share, which may not exceed
    ``narrow.MAX_SHARE``, the plain version's and the library call's
@@ -149,10 +151,19 @@ seconds:
    cases in both stage modes through ``get_executor`` (value bit for
    bit against vmem on the valid regions), each launched. Every body
    launched, no kernel spills, every register chain's main loop holding
-   the instructions of each of its iterations (none folded). Then each
-   body's kernel against
-   ``NarrowBody.plain`` again (integers bit for bit, float32 within
-   ``probes.CHAIN_RTOL``; the record's error).
+   the instructions of each of its iterations (none folded). The 37
+   one-shot bodies' default kernels (``vec_binary``, ``tile_fold``) beside
+   their old forms (``binary``, ``fold``; ``narrow.launch(...,
+   _old=True)``): registers, spills, CTAs an SM, and its key SASS ops
+   (``narrow.KEY_OPS``) kept in kind: a packed op where the old form has
+   one and nowhere else, each scalar one the old form has; then
+   ``narrow_oneshot.run``: each body bit for bit against its plain
+   version and its old form, replayed old, new, new, old and its library
+   call, beside the byte bound, at the scripts' shapes and at erosion's
+   bench shape (8192, 2048) with a fold's margin. Then each body's kernel
+   against ``NarrowBody.plain`` again (integers bit for bit, float32
+   within ``probes.CHAIN_RTOL``; the record's error); a one-shot body's
+   record has its replayed ms and library ms.
 18. copyshift: exp32's copy-shift probe (``csrc/probe_copy.cu``: a
    shared-memory slab copied into another at an offset by
    ``cp.async.bulk`` with ``mbarrier`` completion, as a shift; its rotate
@@ -1652,6 +1663,67 @@ def conformance_phase(programs, smi, log):
           'programs': len(programs)}
 
 
+def oneshot_phase(log):
+  """Phase 17's one-shot part: the 37 one-shot bodies' default kernels
+  (``vec_binary``, ``tile_fold``) beside their old forms (the first
+  ``binary`` and ``fold``, ``narrow.launch(..., _old=True)``): each key
+  SASS op kept in kind (``narrow.key_ops_kept``), registers, spills,
+  CTAs an SM; then
+  ``narrow_oneshot.run``: each body bit for bit against its plain
+  version and its old form, replayed old, new, new, old and its library
+  call, at the scripts' shapes and at erosion's bench shape. Returns
+  narrow_oneshot's rows."""
+  from soda_tpu_torch.experiments import narrow, narrow_oneshot
+  changed = []
+  for body in narrow_oneshot.ONE_SHOT:
+    new_keys, old_keys = narrow.key_ops(body), narrow.key_ops(body, old=True)
+    if not narrow.key_ops_kept(body):
+      changed.append((body.name, old_keys, new_keys))
+    geo = narrow.geometry(body)
+    rep, old_rep = (narrow.sass_report(old)[(body.form, body.op)]
+                    for old in (False, True))
+    log('%-56s %s: regs %d, spills %d B, %d CTAs/SM, grid %d, smem %d B, '
+        '%d instrs; old %s: regs %d, spills %d B, %d instrs; key ops %s '
+        '(old %s)' % (
+            body.name, narrow.KERNEL_NAMES[body.form], rep['registers'],
+            rep['spills'], geo['ctas_per_sm'], geo['grid'], geo['smem'],
+            rep['total'], body.form, old_rep['registers'], old_rep['spills'],
+            old_rep['total'],
+            ' '.join('%s %d' % kv for kv in new_keys.items()) or 'none',
+            ' '.join('%s %d' % kv for kv in old_keys.items()) or 'none'))
+  if changed:
+    raise RuntimeError('narrow: one-shot kernels whose key SASS ops changed '
+                       'kind %s' % changed)
+  rows = narrow_oneshot.run(log=log)
+  differ = [(r['body'], r['shape']) for r in rows if not r['ok']]
+  if differ:
+    raise RuntimeError('narrow: one-shot kernels differ from their plain '
+                       'versions or old forms %s' % differ)
+  return rows
+
+
+def oneshot_main() -> int:
+  """Phase 17's one-shot part alone (``python -c 'import chip_smoke;
+  chip_smoke.oneshot_main()'``): the narrow probe built, then
+  ``oneshot_phase``; one line a body and shape."""
+  import torch
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device', file=sys.stderr)
+    return 1
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  from soda_tpu_torch import profiling
+  from soda_tpu_torch.backend import build
+  from soda_tpu_torch.experiments import narrow
+  say(profiling.device_report()['nvidia_smi'])
+  t = time.time()
+  build.build(build.csrc_source(narrow.SOURCE))
+  say('[build] nvcc: %s (%.1fs)' % (narrow.SOURCE, time.time() - t))
+  t = time.time()
+  rows = oneshot_phase(lambda line: say('[narrow] ' + line))
+  say('[narrow] %d one-shot timings (%.1fs)' % (len(rows), time.time() - t))
+  return 0
+
+
 def conformance_main() -> int:
   """Phase 28 alone (``python -c 'import chip_smoke;
   chip_smoke.conformance_main()'``): its programs' kernels built at once,
@@ -2660,14 +2732,16 @@ def main() -> int:
     raise RuntimeError('narrow: bodies not run %s, wrong or not launched %s,'
                        ' fused kernels not launched %s' % (missing, bad,
                                                            unlaunched))
-  spilled = {key: rep['spills'] for key, rep in narrow.sass_report().items()
-             if rep['spills']}
+  spilled = {key: rep['spills'] for old in (False, True)
+             for key, rep in narrow.sass_report(old).items() if rep['spills']}
   folded = sorted({body.op for body in narrow.BODIES.values()
                    if body.form == 'ew' and
                    not narrow.ew_loop_holds_every_iteration(body)})
   if spilled or folded:
     raise RuntimeError('narrow: kernels spill %s; register chains whose '
                        'iterations fold %s' % (spilled, folded))
+  oneshot = oneshot_phase(log17)
+  replayed = {r['body']: r for r in oneshot if r['shape'] == 'script'}
   for name, body in narrow.BODIES.items():
     row, launches = narrow_rows[name]
     xs = narrow.body_inputs(body, 'cuda')
@@ -2676,27 +2750,34 @@ def main() -> int:
     if not narrow.narrow_ok(body, abs_err, rel_err):
       raise RuntimeError('%s: narrow probe differs from its plain version '
                          '(%g, relative %g)' % (name, abs_err, rel_err))
+    # a one-shot body's ms: the default kernel replayed (the faster of its
+    # two readings), its library call's the same way
+    ms, library_ms = row['ms'], row['library_ms']
+    if not body.chain:
+      us = replayed[name]['us']
+      ms = min(us['new']) / 1e3
+      library_ms = (min(us['library']) / 1e3 if 'library' in us else None)
     kernels.append({
         'name': 'probe_narrow[%s]' % name, 'route': 'cuda',
         'source': 'soda_tpu_torch/csrc/probe_narrow.cu',
         'replaces': 'experiments/%s.py:%d' % (narrow.SCRIPTS[body.script],
                                               body.line),
-        'launches': launches, 'max_abs_err': abs_err, 'ms': row['ms'],
+        'launches': launches, 'max_abs_err': abs_err, 'ms': ms,
         'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
-        'bound_by': row['bound_by'], 'library_ms': row['library_ms']})
+        'bound_by': row['bound_by'], 'library_ms': library_ms})
     log17('%-56s == plain (n=%s, max |err| %.3g, relative %.3g); %s %.6g '
           'ms%s, bound %.6g ms (%s), plain %.6g ms, library %s, %d launches '
           '| %s' % (name, ','.join(map(str, iters)), abs_err, rel_err,
-                    'per iteration' if body.chain else 'cold', row['ms'],
-                    '' if body.chain else ' (back to back: host %.1f, '
-                    'device %.1f us a call)' % (row['host_us'],
-                                                row['b2b_us']),
+                    'per iteration' if body.chain else 'replayed', ms,
+                    '' if body.chain else ' (cold %.6g ms; back to back: '
+                    'host %.1f, device %.1f us a call)' % (
+                        row['ms'], row['host_us'], row['b2b_us']),
                     row['bound_ms'], row['bound_by'],
-                    row['plain_ms'], '%.6g ms' % row['library_ms']
-                    if row['library_ms'] is not None else 'none', launches,
+                    row['plain_ms'], '%.6g ms' % library_ms
+                    if library_ms is not None else 'none', launches,
                     smi))
-  log17('%d bodies, %d other rows (%.1fs)' % (
-      len(narrow_rows), len(fused_rows), time.time() - t17))
+  log17('%d bodies, %d other rows, %d one-shot timings (%.1fs)' % (
+      len(narrow_rows), len(fused_rows), len(oneshot), time.time() - t17))
 
   # 18. copyshift: exp32's copy-shift probe and exp9's 2.5-D jacobi
   # through their entry points, every probe counter reset just before each

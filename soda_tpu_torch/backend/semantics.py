@@ -172,11 +172,22 @@ class _Ctx:
                         lambda: torch.as_tensor(arr, device=self.device))
 
 
+def trunc_int64(value: torch.Tensor) -> torch.Tensor:
+  """A float tensor truncated toward zero into int64, as C converts it
+  to a 64-bit integer: a value in [2**63, 2**64), a uint64's, as its bit
+  pattern (torch's own conversion gives -2**63 there). The subtraction
+  of 2**63 is exact in either float type."""
+  t = torch.trunc(value)
+  big = t >= 2.0 ** 63
+  low = torch.where(big, t - 2.0 ** 63, t).to(torch.int64)
+  return torch.where(big, low | -2**63, low)
+
+
 def _to_int(value: torch.Tensor, dtype: Type) -> torch.Tensor:
   """Integer/bool/float tensor -> representation of integer ``dtype``
   with C (modular) conversion; floats truncate toward zero."""
   if value.is_floating_point():
-    value = torch.trunc(value).to(torch.int64)
+    value = trunc_int64(value)
   rep = repr_dtype(dtype)
   mask = _mask_bits(dtype)
   if mask is not None:
@@ -239,7 +250,7 @@ def wrap(value, dtype: Type, src: Optional[Type] = None,
     return _as(ctx, value, dtype, src)
   value = ctx.tensor(value)
   if value.is_floating_point():
-    value = torch.trunc(value).to(torch.int64)
+    value = trunc_int64(value)
   if dtype.needs_mask:
     n = dtype.width_in_bits
     wide = value.to(torch.int64) & ((1 << n) - 1)

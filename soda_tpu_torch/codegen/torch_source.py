@@ -118,6 +118,15 @@ def _float_of_u64(x, dtype):
   return torch.where(big, wide * 2, wide)
 
 
+def _trunc_int64(x):
+  """Floats truncated toward zero into int64: a value in [2**63, 2**64)
+  as its uint64 bit pattern (torch gives -2**63 there)."""
+  t = torch.trunc(x)
+  big = t >= 2.0 ** 63
+  low = torch.where(big, t - 2.0 ** 63, t).to(torch.int64)
+  return torch.where(big, low | -2**63, low)
+
+
 def _cast(x, src, dst):
   """numpy's ``x.astype(dst)`` for a representation of type ``src``."""
   if dst == 'bool':
@@ -129,7 +138,7 @@ def _cast(x, src, dst):
       return _half_of_double(x)
     return x.to(_STORAGE[dst])
   if x.is_floating_point():
-    x = torch.trunc(x).to(torch.int64)
+    x = _trunc_int64(x)
   if dst in _MASK:
     return (x.to(torch.int64) & _MASK[dst]).to(_REPR[dst])
   return x.to(_rep(dst))

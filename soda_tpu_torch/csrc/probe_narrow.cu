@@ -16,8 +16,8 @@
 // output once, so its bytes bound it; a chain keeps its block on chip
 // for all n iterations, so its operations do. Four forms:
 //
-//   binary: y = f(a, b), a thread per cell (or per 32-bit word of two
-//     packed int16).
+//   binary: y = f(a, b), a cell (or a 32-bit word of two packed int16)
+//     at a time; vec_binary on the card, 16 bytes a thread and access.
 //   ew: y = f^n(x), each cell in a register for all n iterations, no
 //     barrier. Each iteration's body takes a runtime zero (a launch
 //     argument) into one of its own operations, so that neither nvcc's
@@ -26,7 +26,8 @@
 //     a trip, each with the body's instructions.
 //   fold: y[i, j] = x[i + di0, j + dj0] (+ or min) x[i + di1, j + dj1]
 //     ..., indices wrapping modulo x's extents: a fold over shifted
-//     slices of an input with a margin, or (one tap) a roll.
+//     slices of an input with a margin, or (one tap) a roll; tile_fold
+//     on the card, each tile's input in shared memory once.
 //   strip: a chain of wrap-around shifts, n iterations in one launch. A
 //     CTA holds a strip of whole lines along a phase's axis (rows for a
 //     lane shift, columns for a sublane shift) in registers and
@@ -261,6 +262,264 @@ __global__ void __launch_bounds__(kThreads)
       v = Op::f(v, fold_at(x, i, j, t.di[q], t.dj[q], in_rows, in_cols));
   y[c] = v;
 }
+
+// -- the one-shot forms on Hopper: vec_binary, tile_fold ---------------------
+//
+// The forms above (binary and fold, the first forms, kept for comparisons
+// as forms 4 and 5) move 2 or 4 bytes a thread, one cell each; fold also
+// recomputes a wrapped 64-bit index and reads device memory (through L1)
+// once a tap.
+// These two move 16 bytes a thread and access, and read each input byte
+// from device memory once (a tile).
+
+// an empty asm on each cell's result: nvcc's front end cannot merge the
+// ops of two 16-bit cells that share a register into one packed op
+// (VIMNMX.S16x2, VIADD.16x2), so each op under test stays the scalar op it
+// is in the old forms (one cell an instruction); it emits no instruction
+__device__ __forceinline__ void own_cell(short& v) { asm volatile("" : "+h"(v)); }
+__device__ __forceinline__ void own_cell(unsigned short& v) {
+  asm volatile("" : "+h"(v));
+}
+__device__ __forceinline__ void own_cell(int& v) { asm volatile("" : "+r"(v)); }
+__device__ __forceinline__ void own_cell(unsigned& v) {
+  asm volatile("" : "+r"(v));
+}
+__device__ __forceinline__ void own_cell(float& v) { asm volatile("" : "+f"(v)); }
+
+// 16 bytes as cells of T
+template <class T>
+union Vec16 {
+  uint4 v;
+  T t[16 / sizeof(T)];
+};
+
+#ifdef __CUDACC__
+// 16 bytes from global `src` to shared `dst` (both 16-byte aligned), cached
+// in L2 only: the copy a tile's box is filled by
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+// close this thread's current group of cp.async copies
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group of this thread but its newest landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+#endif
+
+// vec_binary: y = f(a, b), a 16-byte vector of each a thread and step (8
+// int16, 4 int32 or 4 packed words), a grid of the SMs' resident CTAs
+// striding over the vectors; the cells past the last whole vector (every
+// cell where a pointer is not 16-byte aligned: vecs 0) one a thread. Bound
+// by its bytes: the 16-byte accesses and the resident grid keep enough
+// loads in flight to stream them; Op::f on each cell as in binary.
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+    vec_binary(const typename Op::T* __restrict__ a,
+               const typename Op::T* __restrict__ b,
+               typename Op::T* __restrict__ y, int vecs, int cells) {
+  using T = typename Op::T;
+  constexpr int kV = 16 / sizeof(T);
+  const int stride = gridDim.x * kThreads;
+  const uint4* const a4 = reinterpret_cast<const uint4*>(a);
+  const uint4* const b4 = reinterpret_cast<const uint4*>(b);
+  uint4* const y4 = reinterpret_cast<uint4*>(y);
+  for (int v = blockIdx.x * kThreads + threadIdx.x; v < vecs; v += stride) {
+    Vec16<T> va, vb, vy;
+    va.v = a4[v];
+    vb.v = b4[v];
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      vy.t[k] = Op::f(va.t[k], vb.t[k]);
+      own_cell(vy.t[k]);
+    }
+    y4[v] = vy.v;
+  }
+  for (int c = vecs * kV + blockIdx.x * kThreads + threadIdx.x; c < cells;
+       c += stride)
+    y[c] = Op::f(a[c], b[c]);
+}
+
+// tile_fold's taps, resolved at launch (fold_plan). A tile is 8 * per
+// rows by 32 runs of kV cells (a warp a row, a thread a run of adjacent
+// cells along the minor axis). Its box, the input cells its taps read,
+// starts lo_i rows and lo_j - shift columns past the tile (the taps'
+// shortest arc, so that a roll's wrapped tap reads a narrow box), each
+// index modulo x's extents. A CTA walks tiles blockIdx.x, + gridDim.x,
+// ..., the next tile's box filled by cp.async while it computes the
+// current one (two boxes). The taps fall into windows, each a mask of
+// taps a run reads from shared memory at compile-time offsets (a branch
+// on one uniform bit a tap; no index arithmetic, no indirect branch): a
+// row window, up to kWin 16-byte vectors of one box row, which a run
+// loads once for all its taps (bit o: a tap at cell o); or a column
+// window, taps at one vector-aligned column in up to kColumn rows (bit k:
+// a tap k rows down, one vector load each). A tap that repeats another
+// opens a window of its own.
+constexpr int kWin = 6;
+constexpr int kColumn = 48;
+struct FoldPlan {
+  int rows, cols, in_rows, in_cols;
+  int lo_i, lo_j, shift;
+  int box_rows, box_vecs;  // rows, 16-byte vectors a row
+  int per;  // rows a warp computes, 8 apart
+  int tiles, tiles_c;  // tiles, and along the minor axis
+  int vec_in, vec_out;  // 16-byte copies in, 16-byte stores out
+  int windows;
+  int w_vec[kMaxFold];  // window w's first vector past a run's own
+  int w_vecs[kMaxFold];  // a row window's vectors; 0: a column window
+  unsigned long long w_taps[kMaxFold];  // its taps, one bit each
+};
+
+// the fold's starting value: a first tap combined with it gives the tap
+template <class Op>
+__device__ __forceinline__ typename Op::T fold_start() {
+  return 0;
+}
+template <>
+__device__ __forceinline__ short fold_start<FoldMinI16>() {
+  return 32767;
+}
+
+// the kV cells of a run's tap at cell Off of the N vectors w
+template <class Op, int Off, int N>
+__device__ __forceinline__ void fold_tap(
+    typename Op::T (&acc)[16 / sizeof(typename Op::T)],
+    const uint4 (&w)[N]) {
+  using T = typename Op::T;
+  constexpr int kV = 16 / sizeof(T);
+  if constexpr (Off + kV <= N * kV) {
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      Vec16<T> u;
+      u.v = w[(Off + k) / kV];
+      acc[k] = Op::f(acc[k], u.t[(Off + k) % kV]);
+      own_cell(acc[k]);
+    }
+  }
+}
+
+// a row window's tap at cell o; a column window's tap o rows down
+#define FOLD_ROW(o) \
+  if ((taps >> (o)) & 1) fold_tap<Op, o>(acc, w);
+#define FOLD_COLUMN(o)                         \
+  if ((taps >> (o)) & 1) {                     \
+    const uint4 v[1] = {src[(o) * stride]};    \
+    fold_tap<Op, 0>(acc, v);                   \
+  }
+// eight bits, skipped at once where none is set
+#define FOLD_BITS8(F, o)                                                  \
+  if ((taps >> (o)) & 0xff) {                                             \
+    F(o) F(o + 1) F(o + 2) F(o + 3) F(o + 4) F(o + 5) F(o + 6) F(o + 7)   \
+  }
+#define FOLD_BITS48(F)                                                    \
+  FOLD_BITS8(F, 0) FOLD_BITS8(F, 8) FOLD_BITS8(F, 16) FOLD_BITS8(F, 24)   \
+      FOLD_BITS8(F, 32) FOLD_BITS8(F, 40)
+
+// i modulo n, for i >= 0: a division only where i wraps
+__device__ __forceinline__ int wrapped(int i, int n) {
+  return i < n ? i : i % n;
+}
+
+// tile `tile`'s box into `box`: its row r from x's row (i0 + lo_i + r),
+// its vector k from x's columns (j0 + lo_j - shift + k * kV), each
+// wrapped; a warp a row, a lane a vector; 16-byte cp.async copies, or
+// cell by cell where x's rows are not 16-byte aligned
+template <class T>
+__device__ __forceinline__ void fill_box(const T* x, uint4* box,
+                                         const FoldPlan& p, int tile) {
+  constexpr int kV = 16 / sizeof(T);
+  const int ti = tile / p.tiles_c;
+  const int row0 = (ti * 8 * p.per + p.lo_i) % p.in_rows;
+  const int col0 =
+      ((tile - ti * p.tiles_c) * 32 * kV + p.lo_j - p.shift) % p.in_cols;
+  for (int r = threadIdx.x >> 5; r < p.box_rows; r += kThreads / 32) {
+    const T* const row =
+        x + static_cast<size_t>(wrapped(row0 + r, p.in_rows)) * p.in_cols;
+    uint4* const line = box + r * p.box_vecs;
+    for (int k = threadIdx.x & 31; k < p.box_vecs; k += 32) {
+      if (p.vec_in) {
+        cp_async16(line + k, row + wrapped(col0 + k * kV, p.in_cols));
+      } else {
+        T* const cells = reinterpret_cast<T*>(line + k);
+        for (int e = 0; e < kV; ++e)
+          cells[e] = row[wrapped(col0 + k * kV + e, p.in_cols)];
+      }
+    }
+  }
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kThreads)
+    tile_fold(const typename Op::T* __restrict__ x,
+              typename Op::T* __restrict__ y,
+              const __grid_constant__ FoldPlan p) {
+  using T = typename Op::T;
+  constexpr int kV = 16 / sizeof(T);
+  static_assert(kWin * 16 / sizeof(T) <= 48 && kColumn == 48,
+                "FOLD_BITS48 covers 48 bits");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint4* const boxes = reinterpret_cast<uint4*>(smem_raw);
+  const int box_size = p.box_rows * p.box_vecs;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int tile = blockIdx.x;
+  if (tile < p.tiles) fill_box(x, boxes, p, tile);
+  cp_async_commit();
+  for (int parity = 0; tile < p.tiles; tile += gridDim.x, parity ^= 1) {
+    if (tile + gridDim.x < p.tiles)
+      fill_box(x, boxes + (parity ^ 1) * box_size, p, tile + gridDim.x);
+    cp_async_commit();
+    cp_async_wait_one();  // all but the next tile's copies landed
+    __syncthreads();
+    const uint4* const box = boxes + parity * box_size;
+    const int ti = tile / p.tiles_c;
+    const int i0 = ti * 8 * p.per;
+    const int j = (tile - ti * p.tiles_c) * 32 * kV + lane * kV;
+    for (int m = 0; m < p.per; ++m) {
+      const int r = warp + 8 * m;
+      const int i = i0 + r;
+      if (i >= p.rows || j >= p.cols) continue;
+      const int stride = p.box_vecs;
+      const uint4* const run = box + r * stride + lane;
+      T acc[kV];
+#pragma unroll
+      for (int k = 0; k < kV; ++k) acc[k] = fold_start<Op>();
+      for (int g = 0; g < p.windows; ++g) {
+        const uint4* const src = run + p.w_vec[g];
+        const unsigned long long taps = p.w_taps[g];
+        if (p.w_vecs[g] == 0) {
+          FOLD_BITS48(FOLD_COLUMN)
+        } else {
+          uint4 w[kWin];
+#pragma unroll
+          for (int v = 0; v < kWin; ++v)
+            if (v < p.w_vecs[g]) w[v] = src[v];
+          FOLD_BITS48(FOLD_ROW)
+        }
+      }
+      T* const out = y + static_cast<size_t>(i) * p.cols + j;
+      if (p.vec_out && j + kV <= p.cols) {
+        Vec16<T> u;
+#pragma unroll
+        for (int k = 0; k < kV; ++k) u.t[k] = acc[k];
+        *reinterpret_cast<uint4*>(out) = u.v;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kV; ++k)
+          if (j + k < p.cols) out[k] = acc[k];
+      }
+    }
+    __syncthreads();  // the next fill writes this box
+  }
+}
+#undef FOLD_BITS48
+#undef FOLD_BITS8
+#undef FOLD_COLUMN
+#undef FOLD_ROW
 
 // -- strip: chains of wrap-around shifts -------------------------------------
 
@@ -590,6 +849,225 @@ cudaError_t launch_fold(const void* x, void* y, int in_rows, int in_cols,
   return cudaGetLastError();
 }
 
+// the SMs of the current device, and the CTAs of `kernel` (with `smem`
+// bytes of dynamic shared memory) each holds at once
+cudaError_t residency(const void* kernel, int smem, int* sms, int* per_sm) {
+  int device = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                       kThreads, smem);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+// vec_binary's geometry: out[0] CTAs an SM, [1] dynamic shared memory, [2]
+// the grid (the resident CTAs, or fewer where the vectors are fewer), [3]
+// the whole vectors (0 where a pointer is misaligned)
+template <class Op>
+cudaError_t binary_geometry(int cells, bool aligned, int* out) {
+  constexpr int kV = 16 / sizeof(typename Op::T);
+  int sms = 0;
+  const cudaError_t err = residency(
+      reinterpret_cast<const void*>(vec_binary<Op>), 0, &sms, &out[0]);
+  if (err != cudaSuccess) return err;
+  const int vecs = aligned ? cells / kV : 0;
+  const int rest = cells - vecs * kV;
+  const int want = ((vecs > rest ? vecs : rest) + kThreads - 1) / kThreads;
+  const int resident = sms * out[0];
+  out[1] = 0;
+  out[2] = want < 1 ? 1 : want < resident ? want : resident;
+  out[3] = vecs;
+  return cudaSuccess;
+}
+
+template <class Op>
+cudaError_t launch_vec_binary(const void* a, const void* b, void* y,
+                              int cells, cudaStream_t stream, int* ctas) {
+  using T = typename Op::T;
+  int g[4];
+  const cudaError_t err = binary_geometry<Op>(
+      cells, aligned16(a) && aligned16(b) && aligned16(y), g);
+  if (err != cudaSuccess) return err;
+  *ctas = g[2];
+  vec_binary<Op><<<g[2], kThreads, 0, stream>>>(static_cast<const T*>(a),
+                                                 static_cast<const T*>(b),
+                                                 static_cast<T*>(y), g[3],
+                                                 cells);
+  return cudaGetLastError();
+}
+
+// the shortest arc of [0, extent), wrapping, that holds the n offsets d:
+// its first offset, its length less one, and each offset's place past it
+void shortest_arc(const int* d, int n, int extent, int* lo, int* span,
+                  int* rel) {
+  int s[kMaxFold];
+  for (int q = 0; q < n; ++q) {
+    int k = q;
+    for (; k > 0 && s[k - 1] > d[q]; --k) s[k] = s[k - 1];
+    s[k] = d[q];
+  }
+  int gap = -1;
+  for (int k = 0; k < n; ++k) {
+    const int next = k + 1 < n ? s[k + 1] : s[0] + extent;
+    if (next - s[k] > gap) {
+      gap = next - s[k];
+      *lo = k + 1 < n ? s[k + 1] : s[0];
+    }
+  }
+  *span = extent - gap;
+  for (int q = 0; q < n; ++q) rel[q] = (d[q] - *lo + extent) % extent;
+}
+
+constexpr long long kMaxSmem = 232448;  // a CTA's shared memory (227 KB)
+
+// tile_fold's plan (FoldPlan) for the taps t, on a card of `sms` SMs: 4
+// rows a warp (32-row tiles), or fewer where that leaves under two tiles an
+// SM or two boxes past shared memory; out[1] the two boxes' bytes, out[2]
+// the tiles. Two boxes past shared memory even at 8 rows a tile are
+// refused.
+template <class T>
+cudaError_t fold_plan(int in_rows, int in_cols, int rows, int cols,
+                      const Taps& t, bool x_aligned, bool y_aligned, int sms,
+                      FoldPlan* p, int* out) {
+  constexpr int kV = 16 / sizeof(T);
+  int ri[kMaxFold], rj[kMaxFold], span_i = 0, span_j = 0;
+  shortest_arc(t.di, t.n, in_rows, &p->lo_i, &span_i, ri);
+  shortest_arc(t.dj, t.n, in_cols, &p->lo_j, &span_j, rj);
+  p->rows = rows;
+  p->cols = cols;
+  p->in_rows = in_rows;
+  p->in_cols = in_cols;
+  p->shift = p->lo_j % kV;
+  p->box_vecs = (p->shift + 32 * kV + span_j + kV - 1) / kV;
+  p->tiles_c = (cols + 32 * kV - 1) / (32 * kV);
+  p->vec_in = in_cols % kV == 0 && x_aligned;
+  p->vec_out = cols % kV == 0 && y_aligned;
+  p->windows = 0;
+  for (int k = 0; k < kMaxFold; ++k) {
+    p->w_vec[k] = p->w_vecs[k] = 0;
+    p->w_taps[k] = 0;
+  }
+  // the taps by column, then row: a vector-aligned column with taps in
+  // two rows or more makes column windows, the rest row windows
+  int order[kMaxFold], e[kMaxFold];
+  bool column[kMaxFold];
+  for (int q = 0; q < t.n; ++q) {
+    e[q] = p->shift + rj[q];
+    int k = q;
+    for (; k > 0 && (e[order[k - 1]] > e[q] ||
+                     (e[order[k - 1]] == e[q] && ri[order[k - 1]] > ri[q]));
+         --k)
+      order[k] = order[k - 1];
+    order[k] = q;
+  }
+  for (int k = 0; k < t.n; ++k) {
+    const int q = order[k];
+    const bool same_prev = k > 0 && e[order[k - 1]] == e[q];
+    const bool same_next = k + 1 < t.n && e[order[k + 1]] == e[q];
+    column[q] = e[q] % kV == 0 && (same_prev || same_next);
+  }
+  int first = 0;  // the current window's first row or vector
+  for (int k = 0; k < t.n; ++k) {
+    const int q = order[k];
+    if (!column[q]) continue;
+    const int w = p->windows - 1;
+    if (w < 0 || p->w_vecs[w] != 0 || e[order[k - 1]] != e[q] ||
+        ri[q] - first >= kColumn || ((p->w_taps[w] >> (ri[q] - first)) & 1)) {
+      first = ri[q];
+      p->w_vec[p->windows++] = first * p->box_vecs + e[q] / kV;
+    }
+    p->w_taps[p->windows - 1] |= 1ULL << (ri[q] - first);
+  }
+  // the row windows: the taps by row, then column
+  for (int q = 0; q < t.n; ++q) {
+    int k = q;
+    for (; k > 0 && (ri[order[k - 1]] > ri[q] ||
+                     (ri[order[k - 1]] == ri[q] && e[order[k - 1]] > e[q]));
+         --k)
+      order[k] = order[k - 1];
+    order[k] = q;
+  }
+  int last = -1;  // the previous row-window tap
+  for (int k = 0; k < t.n; ++k) {
+    const int q = order[k];
+    if (column[q]) continue;
+    const int w = p->windows - 1;
+    if (last < 0 || ri[q] != ri[last] || e[q] - first * kV > (kWin - 1) * kV ||
+        ((p->w_taps[w] >> (e[q] - first * kV)) & 1)) {
+      first = e[q] / kV;
+      p->w_vec[p->windows++] = ri[q] * p->box_vecs + first;
+    }
+    const int g = p->windows - 1, off = e[q] - first * kV;
+    const int vecs = (off + kV - 1) / kV + 1;
+    p->w_taps[g] |= 1ULL << off;
+    if (vecs > p->w_vecs[g]) p->w_vecs[g] = vecs;
+    last = q;
+  }
+  long long bytes = 0, tiles = 0;
+  for (p->per = 4;; p->per /= 2) {
+    bytes = 2 * (8LL * p->per + span_i) * p->box_vecs * 16;
+    tiles = (rows + 8LL * p->per - 1) / (8 * p->per) * p->tiles_c;
+    if (p->per == 1 || (tiles >= 2LL * sms && bytes <= kMaxSmem)) break;
+  }
+  p->box_rows = 8 * p->per + span_i;
+  if (bytes > kMaxSmem || tiles > (1LL << 31) - 1) return cudaErrorInvalidValue;
+  p->tiles = static_cast<int>(tiles);
+  out[1] = static_cast<int>(bytes);
+  out[2] = p->tiles;
+  return cudaSuccess;
+}
+
+// tile_fold's geometry: out[0] CTAs an SM, [1] the boxes' bytes, [2] the
+// grid (the resident CTAs, or fewer where the tiles are fewer), [3] rows
+// a tile
+template <class Op>
+cudaError_t fold_geometry(int in_rows, int in_cols, int rows, int cols,
+                          const Taps& t, bool x_aligned, bool y_aligned,
+                          FoldPlan* p, int* out) {
+  const void* kernel = reinterpret_cast<const void*>(tile_fold<Op>);
+  int sms = 0, ignored = 0;
+  cudaError_t err = residency(kernel, 0, &sms, &ignored);
+  if (err != cudaSuccess ||
+      (err = fold_plan<typename Op::T>(in_rows, in_cols, rows, cols, t,
+                                       x_aligned, y_aligned, sms, p, out)) !=
+          cudaSuccess)
+    return err;
+  if (out[1] > 48 * 1024 &&
+      (err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, out[1])) !=
+          cudaSuccess)
+    return err;
+  out[3] = 8 * p->per;
+  if ((err = residency(kernel, out[1], &sms, &out[0])) != cudaSuccess)
+    return err;
+  if (out[0] < 1) return cudaErrorInvalidValue;
+  if (out[2] > sms * out[0]) out[2] = sms * out[0];
+  return cudaSuccess;
+}
+
+template <class Op>
+cudaError_t launch_tile_fold(const void* x, void* y, int in_rows, int in_cols,
+                             int rows, int cols, const Taps& taps,
+                             cudaStream_t stream, int* ctas) {
+  using T = typename Op::T;
+  FoldPlan p;
+  int g[4];
+  const cudaError_t err =
+      fold_geometry<Op>(in_rows, in_cols, rows, cols, taps, aligned16(x),
+                        aligned16(y), &p, g);
+  if (err != cudaSuccess) return err;
+  *ctas = g[2];
+  tile_fold<Op><<<g[2], kThreads, g[1], stream>>>(static_cast<const T*>(x),
+                                                  static_cast<T*>(y), p);
+  return cudaGetLastError();
+}
+
 template <class B>
 cudaError_t launch_strip(const void* x, void* y, void* tmp, const Plan& plan,
                          long long n, cudaStream_t stream, int* ctas) {
@@ -649,6 +1127,18 @@ const EwLaunch kEw[] = {EW_OPS(EW_ENTRY)};
 const FoldLaunch kFold[] = {FOLD_OPS(FOLD_ENTRY)};
 const StripLaunch kStrip[] = {STRIP_OPS(STRIP_ENTRY)};
 
+#define VEC_BINARY_ENTRY(op) &launch_vec_binary<op>,
+#define TILE_FOLD_ENTRY(op) &launch_tile_fold<op>,
+#define BINARY_GEOMETRY_ENTRY(op) &binary_geometry<op>,
+#define FOLD_GEOMETRY_ENTRY(op) &fold_geometry<op>,
+using BinaryGeometry = cudaError_t (*)(int, bool, int*);
+using FoldGeometry = cudaError_t (*)(int, int, int, int, const Taps&, bool,
+                                     bool, FoldPlan*, int*);
+const BinaryLaunch kVecBinary[] = {BINARY_OPS(VEC_BINARY_ENTRY)};
+const FoldLaunch kTileFold[] = {FOLD_OPS(TILE_FOLD_ENTRY)};
+const BinaryGeometry kBinaryGeometry[] = {BINARY_OPS(BINARY_GEOMETRY_ENTRY)};
+const FoldGeometry kFoldGeometry[] = {FOLD_OPS(FOLD_GEOMETRY_ENTRY)};
+
 template <class T, int N>
 constexpr int count(T (&)[N]) {
   return N;
@@ -698,6 +1188,23 @@ int plan_phase(const int* args, int avail, int rows, int cols, Phase* p) {
   return 4 + steps + cross;
 }
 
+// a fold's taps from its arguments (n_args / 2 of (di, dj), each
+// wrapped into [0, in_rows) and [0, in_cols)); false if they are not taps
+// the kernels take
+bool taps_of(const int* args, int n_args, int in_rows, int in_cols, Taps* t) {
+  if (n_args < 2 || n_args > 2 * kMaxFold || n_args % 2 || in_rows < 1 ||
+      in_cols < 1)
+    return false;
+  t->n = n_args / 2;
+  for (int q = 0; q < kMaxFold; ++q) {
+    const int di = q < t->n ? args[2 * q] : 0;
+    const int dj = q < t->n ? args[2 * q + 1] : 0;
+    t->di[q] = ((di % in_rows) + in_rows) % in_rows;
+    t->dj[q] = ((dj % in_cols) + in_cols) % in_cols;
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -709,13 +1216,14 @@ const char* probe_narrow_ops() {
       NAME);
 }
 
-// Form 0, binary: y = op(a, b) over rows x cols cells. 1, ew: y =
-// op^n(a). 2, fold: y (rows x cols) from a (in_rows x in_cols); args:
-// n_args / 2 taps (di, dj), each index wrapping. 3, strip: op's chain on
-// the rows x cols block a, n iterations; args: 1 to kMaxPhases phases,
-// each (axis, independent, steps, that many distances, cross taps, that
-// many distances); tmp: a second block (a cooperative plan). ctas
-// receives the grid size.
+// Form 0, binary: y = op(a, b) over rows x cols cells (vec_binary). 1,
+// ew: y = op^n(a). 2, fold: y (rows x cols) from a (in_rows x in_cols;
+// tile_fold); args: n_args / 2 taps (di, dj), each index wrapping. 3,
+// strip: op's chain on the rows x cols block a, n iterations; args: 1 to
+// kMaxPhases phases, each (axis, independent, steps, that many distances,
+// cross taps, that many distances); tmp: a second block (a cooperative
+// plan). 4 and 5: the old forms of 0 and 2 (binary, fold), for
+// comparisons. ctas receives the grid size.
 int probe_narrow_launch(int form, int op, const int* args, int n_args,
                         int rows, int cols, int in_rows, int in_cols,
                         const void* a, const void* b, void* y, void* tmp,
@@ -726,26 +1234,19 @@ int probe_narrow_launch(int form, int op, const int* args, int n_args,
     return static_cast<int>(bad);
   const long long cells = static_cast<long long>(rows) * cols;
   if (cells > (1 << 30)) return static_cast<int>(bad);
-  if (form == 0 && op < count(kBinary))
-    return static_cast<int>(kBinary[op](a, b, y, static_cast<int>(cells), s,
-                                        ctas));
+  if ((form == 0 || form == 4) && op < count(kBinary))
+    return static_cast<int>((form == 0 ? kVecBinary : kBinary)[op](
+        a, b, y, static_cast<int>(cells), s, ctas));
   if (form == 1 && op < count(kEw))
     return static_cast<int>(kEw[op](a, y, static_cast<int>(cells), n, s,
                                     ctas));
-  if (form == 2 && op < count(kFold)) {
-    if (n_args < 2 || n_args > 2 * kMaxFold || n_args % 2 || in_rows < 1 ||
-        in_cols < 1)
-      return static_cast<int>(bad);
+  if ((form == 2 || form == 5) && op < count(kFold)) {
     Taps t;
-    t.n = n_args / 2;
-    for (int q = 0; q < kMaxFold; ++q) {
-      const int di = q < t.n ? args[2 * q] : 0, dj = q < t.n ? args[2 * q + 1]
-                                                            : 0;
-      t.di[q] = ((di % in_rows) + in_rows) % in_rows;
-      t.dj[q] = ((dj % in_cols) + in_cols) % in_cols;
-    }
-    return static_cast<int>(kFold[op](a, y, in_rows, in_cols, rows, cols, t,
-                                      s, ctas));
+    if (!taps_of(args, n_args, in_rows, in_cols, &t) ||
+        static_cast<long long>(in_rows) * in_cols > (1 << 30))
+      return static_cast<int>(bad);
+    return static_cast<int>((form == 2 ? kTileFold : kFold)[op](
+        a, y, in_rows, in_cols, rows, cols, t, s, ctas));
   }
   if (form == 3 && op < count(kStrip)) {
     Plan plan;
@@ -770,6 +1271,31 @@ int probe_narrow_launch(int form, int op, const int* args, int n_args,
     plan.cooperative |= plan.phases > 1;
     for (int r = plan.phases; r < kMaxPhases; ++r) plan.ph[r] = plan.ph[0];
     return static_cast<int>(kStrip[op](a, y, tmp, plan, n, s, ctas));
+  }
+  return static_cast<int>(bad);
+}
+
+// The geometry of form 0 or 2's launch of op on rows x cols cells (a
+// fold's args and input as probe_narrow_launch takes them), its pointers
+// 16-byte aligned: out[0] its CTAs an SM holds at once, [1] its dynamic
+// shared memory, [2] its grid, [3] a fold tile's rows (a binary launch's
+// whole vectors). A fold whose box passes shared memory is refused.
+int probe_narrow_geometry(int form, int op, const int* args, int n_args,
+                          int rows, int cols, int in_rows, int in_cols,
+                          int* out) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  if (rows < 1 || cols < 1 || op < 0 || out == nullptr ||
+      static_cast<long long>(rows) * cols > (1 << 30))
+    return static_cast<int>(bad);
+  if (form == 0 && op < count(kBinaryGeometry))
+    return static_cast<int>(kBinaryGeometry[op](rows * cols, true, out));
+  Taps t;
+  if (form == 2 && op < count(kFoldGeometry) &&
+      taps_of(args, n_args, in_rows, in_cols, &t) &&
+      static_cast<long long>(in_rows) * in_cols <= (1 << 30)) {
+    FoldPlan p;
+    return static_cast<int>(kFoldGeometry[op](in_rows, in_cols, rows, cols,
+                                              t, true, true, &p, out));
   }
   return static_cast<int>(bad);
 }

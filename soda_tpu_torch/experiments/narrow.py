@@ -28,7 +28,11 @@ sequence) share one plain version.
 
 ``narrow_probe`` launches the kernel for CUDA tensors (raising if CUDA
 refuses) and runs the plain version only for CPU tensors; each launch
-adds one to ``probes.LAUNCHES[('probe_narrow', body name)]``.
+adds one to ``probes.LAUNCHES[('probe_narrow', body name)]``. On the
+card the one-shot forms run ``vec_binary`` and ``tile_fold``; the first
+``binary`` and ``fold`` kernels stay for comparisons
+(``launch(..., _old=True)``). ``narrow_oneshot`` times the one-shot
+bodies replayed from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -62,6 +66,9 @@ SCRIPTS = {'exp13': 'exp13_narrow_i16', 'exp29': 'exp29_pack_i16',
 SLOPE = {'exp13': (32, 512), 'exp2': (32, 16384), 'exp16': (64, 2048),
          'exp29': (64, 16384)}
 FORMS = ('binary', 'ew', 'fold', 'strip')
+# the old one-shot kernels' form indices (the first binary and fold, kept
+# byte for byte for comparisons; the public path never passes them)
+OLD_FORMS = {'binary': 4, 'fold': 5}
 _I16, _I32, _F32 = torch.int16, torch.int32, torch.float32
 # the SASS opcodes each body's row shows (cuobjdump -sass), beside the
 # total: integer min (sm_90's VIMNMX; IMNMX before it), the packed pair
@@ -350,6 +357,28 @@ def _body(script, case, line, form, op, shape, dtype, ops, **kw):
                     tuple(shape), dtype, tuple(float(o) for o in ops), **kw)
 
 
+# a fold body's input margin along its taps' axis, past its output
+MARGIN = 32
+
+
+def _sliced_add(axis: int, d: int) -> Callable:
+  """The library call of a two-tap add fold: two slices of x, 0 and
+  ``d`` along ``axis``, added (any shape with the margin)."""
+  def call(x):
+    n = x.shape[axis] - MARGIN
+    return torch.add(x.narrow(axis, 0, n), x.narrow(axis, d, n))
+  return call
+
+
+def _windowed(reduce: Callable, axis: int, taps: int, **kw) -> Callable:
+  """The library call of a ``taps``-tap fold along ``axis``: ``reduce``
+  over x's sliding windows (any shape with the margin)."""
+  def call(x):
+    n = x.shape[axis] - MARGIN
+    return reduce(x.unfold(axis, taps, 1).narrow(axis, 0, n), -1, **kw)
+  return call
+
+
 # the least operations of a body's function (NarrowBody.ops)
 _ALU, _INT = (1, 0, 0), (0, 1, 0)
 
@@ -375,24 +404,20 @@ EXP13_LEGAL = tuple(
          None))) + (
     _body('exp13', 'i16 lane-shifted slice add (off 3)', 57, 'fold',
           'FoldAddI16', (256, 512), _I16, _INT, in_shape=(256, 544),
-          taps=((0, 0), (0, 3)), exact=True,
-          library=lambda x: torch.add(x[:, 0:512], x[:, 3:515])),
+          taps=((0, 0), (0, 3)), exact=True, library=_sliced_add(1, 3)),
     _body('exp13', 'i16 sublane-shifted slice add (off 5)', 57, 'fold',
           'FoldAddI16', (256, 512), _I16, _INT, in_shape=(288, 512),
-          taps=((0, 0), (5, 0)), exact=True,
-          library=lambda x: torch.add(x[0:256], x[5:261])),
+          taps=((0, 0), (5, 0)), exact=True, library=_sliced_add(0, 5)),
     _body('exp13', 'i16 19-tap lane add fold', 57, 'fold', 'FoldAddI16',
           (256, 512), _I16, (0, 18, 0), in_shape=(256, 544), taps=_LANE,
-          exact=True, library=lambda x: torch.sum(
-              x.unfold(1, 19, 1)[:, :512], -1, dtype=_I16)),
+          exact=True, library=_windowed(torch.sum, 1, 19, dtype=_I16)),
     _body('exp13', 'i16 19-tap lane where-min fold', 57, 'fold',
           'FoldMinI16', (256, 512), _I16, (18, 0, 0), in_shape=(256, 544),
-          taps=_LANE, exact=True,
-          library=lambda x: torch.amin(x.unfold(1, 19, 1)[:, :512], -1)),
+          taps=_LANE, exact=True, library=_windowed(torch.amin, 1, 19)),
     _body('exp13', 'i16 19-tap sublane where-min fold', 57, 'fold',
           'FoldMinI16', (256, 512), _I16, (18, 0, 0), in_shape=(288, 512),
           taps=tuple((i, 0) for i in range(19)), exact=True,
-          library=lambda x: torch.amin(x.unfold(0, 19, 1)[:256], -1)),
+          library=_windowed(torch.amin, 0, 19)),
 )
 _DT = {'int32': _I32, 'int16': _I16}
 _STRIP_OP = {('min', 'int32'): 'MinI32', ('add', 'int32'): 'AddI32',
@@ -482,9 +507,8 @@ EXP12 = (
 ) + tuple(
     _body('exp12', '%d-operand shifted add-chain' % n, 147, 'fold',
           'FoldAddI32', (256, 512), _I32, (0, n - 1, 0), in_shape=(256, 544),
-          taps=tuple((0, i) for i in range(n)), library=functools.partial(
-              lambda n, x: torch.sum(x.unfold(1, n, 1)[:, :512], -1,
-                                     dtype=_I32), n))
+          taps=tuple((0, i) for i in range(n)),
+          library=_windowed(torch.sum, 1, n, dtype=_I32))
     for n in (8, 13, 16, 24)) + (
     _body('exp12', 'pltpu.roll axis=0 wide 2-D', 161, 'fold', 'RollI32',
           (256, 2048), _I32, (0, 0, 0), taps=((-3, 0),),
@@ -671,6 +695,9 @@ def _lib() -> Dict[str, object]:
                            [c.c_longlong, c.c_void_p, c.POINTER(c.c_int)]),
       'error': build.bind(lib, 'probe_narrow_error_string', [c.c_int],
                           c.c_char_p),
+      'geometry': build.bind(lib, 'probe_narrow_geometry',
+                             [c.c_int, c.c_int, c.POINTER(c.c_int), c.c_int] +
+                             [c.c_int] * 4 + [c.POINTER(c.c_int)]),
   }
 
 
@@ -730,9 +757,18 @@ def narrow_probe(body, *xs: torch.Tensor, n: int = 1,
 
 
 def launch(body: NarrowBody, xs: Sequence[torch.Tensor], n: int,
-           ctas: Optional[List[int]] = None) -> torch.Tensor:
+           ctas: Optional[List[int]] = None,
+           _old: bool = False) -> torch.Tensor:
   """One launch of ``body``'s kernel on the CUDA tensors ``xs`` (checked
-  by the caller, which counts the launch), on the current stream."""
+  by the caller, which counts the launch), on the current stream.
+  ``_old`` (a one-shot body; private to the tests, chip_smoke.py and
+  ``narrow_oneshot``): the old form of its kernel, for comparisons."""
+  form = FORMS.index(body.form)
+  if _old:
+    if body.form not in OLD_FORMS:
+      raise utils.InputError('narrow probe %s: no old form of a %s body' % (
+          body.name, body.form))
+    form = OLD_FORMS[body.form]
   device = xs[0].device
   lib = _lib()
   op = lib['ops'][body.form].index(body.op)
@@ -744,7 +780,7 @@ def launch(body: NarrowBody, xs: Sequence[torch.Tensor], n: int,
   grid = ctypes.c_int(0)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream().cuda_stream
-    status = lib['launch'](FORMS.index(body.form), op, args, len(flat), rows,
+    status = lib['launch'](form, op, args, len(flat), rows,
                            cols, in_rows, in_cols, xs[0].data_ptr(), b,
                            y.data_ptr(),
                            tmp.data_ptr() if tmp is not None else None, n,
@@ -835,10 +871,16 @@ def bound_ms(body, sms: int, clock_hz: float) -> Tuple[float, str]:
   return (by_bytes, 'bytes') if by_bytes >= by_ops else (by_ops, 'operations')
 
 
-def _mangled_op(form: str, op: str) -> str:
+# each form's kernel template in the source (the default one; the old
+# one-shot forms keep their form's name)
+KERNEL_NAMES = {'binary': 'vec_binary', 'ew': 'ew', 'fold': 'tile_fold',
+                'strip': 'strip'}
+
+
+def _mangled_op(kernel: str, op: str) -> str:
   """What the entry of ``op``'s kernel has in its mangled name: the
   template's identifier and the op's, each after its length."""
-  return '%d%s' % (len(form), form), '%d%s' % (len(op), op)
+  return '%d%s' % (len(kernel), kernel), '%d%s' % (len(op), op)
 
 
 def parse_listing(text: str) -> Dict[str, List[Tuple[int, str, str]]]:
@@ -900,19 +942,23 @@ def cuobjdump_sass(source) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def sass_report() -> Dict[Tuple[str, str], Dict[str, object]]:
+def sass_report(old: bool = False) -> Dict[Tuple[str, str],
+                                           Dict[str, object]]:
   """(form, op) -> {'opcodes': counts, 'total', 'loop' (instructions of
   its largest loop), 'registers', 'spills' (bytes stored and loaded)} of
   each kernel as built: ``cuobjdump -sass`` of the library beside nvcc,
-  and the ``-Xptxas -v`` report."""
+  and the ``-Xptxas -v`` report. ``old``: the old one-shot forms'
+  kernels (``OLD_FORMS``) in place of the default ones."""
   from soda_tpu_torch.backend import build
   source = build.csrc_source(SOURCE)
   listings = parse_listing(cuobjdump_sass(source))
   ptxas = build.ptxas_report(source)
   out = {}
   for form, ops in _lib()['ops'].items():
+    if old and form not in OLD_FORMS:
+      continue
     for op in ops:
-      marks = _mangled_op(form, op)
+      marks = _mangled_op(form if old else KERNEL_NAMES[form], op)
       entries = [e for e in listings if all(m in e for m in marks)]
       regs = [r for e, r in ptxas.items() if all(m in e for m in marks)]
       if len(entries) != 1 or len(regs) != 1:
@@ -928,19 +974,69 @@ def sass_report() -> Dict[Tuple[str, str], Dict[str, object]]:
   return out
 
 
-def sass_line(body) -> str:
+def sass_line(body, old: bool = False) -> str:
   """A body's kernel as the card runs it: registers, spilled bytes,
   instructions, the count of each of SASS_OPS it has, and for a
   register chain its main loop's instructions a trip (EW_UNROLL
-  iterations)."""
+  iterations). ``old``: a one-shot body's old form."""
   body = _get(body)
-  rep = sass_report()[(body.form, body.op)]
+  rep = sass_report(old)[(body.form, body.op)]
   ops = ' '.join('%s %d' % (op, rep['opcodes'][op]) for op in SASS_OPS
                  if rep['opcodes'][op])
   loop = ('; main loop %d instrs for %d iterations' % (rep['loop'], EW_UNROLL)
           if body.form == 'ew' else '')
   return 'regs %d, spills %d B, %d instrs: %s%s' % (
       rep['registers'], rep['spills'], rep['total'], ops, loop)
+
+
+# the SASS opcodes that carry an op under test: a scalar integer min
+# (IMNMX, sm_90's VIMNMX) and the packed pair min and add, which ptxas
+# also uses for one 16-bit min (the old binary where-min) and which a
+# packed body asks for
+KEY_OPS = ('IMNMX', 'VIMNMX', 'VIMNMX.S16x2', 'VIADD.16x2')
+PACKED_OPS = ('VIMNMX.S16x2', 'VIADD.16x2')
+
+
+def key_ops(body, old: bool = False) -> Dict[str, int]:
+  """The count of each of KEY_OPS a body's kernel has (``old``: its old
+  form's), those it has none of left out."""
+  body = _get(body)
+  counts = sass_report(old)[(body.form, body.op)]['opcodes']
+  return {op: counts[op] for op in KEY_OPS if counts[op]}
+
+
+def key_ops_kept(body) -> bool:
+  """Whether a one-shot body's default kernel keeps its old form's key
+  ops in kind: a packed op where the old form has one and nowhere else
+  (no scalar op merged into a packed one), and each scalar one the old
+  form has. (Its own index arithmetic may add a scalar min.)"""
+  new, old = key_ops(body), key_ops(body, old=True)
+  return ({op for op in new if op in PACKED_OPS} ==
+          {op for op in old if op in PACKED_OPS} and set(old) <= set(new))
+
+
+def geometry(body) -> Dict[str, int]:
+  """A one-shot body's default launch as the card would make it, its
+  pointers 16-byte aligned: 'ctas_per_sm' (resident at once), 'smem'
+  (dynamic shared memory bytes), 'grid', and a fold's 'tile_rows' (a
+  binary body's whole 16-byte 'vectors'). A fold whose box passes shared
+  memory raises."""
+  body = _get(body)
+  if body.chain:
+    raise utils.InputError('narrow probe %s: geometry of one-shot bodies '
+                           'only' % body.name)
+  lib = _lib()
+  flat, rows, cols, in_rows, in_cols = launch_geometry(body)
+  args = (ctypes.c_int * max(len(flat), 1))(*flat)
+  out = (ctypes.c_int * 4)()
+  status = lib['geometry'](FORMS.index(body.form),
+                           lib['ops'][body.form].index(body.op), args,
+                           len(flat), rows, cols, in_rows, in_cols, out)
+  if status:
+    raise RuntimeError('narrow probe kernel (%s): no launch: %s' % (
+        body.name, lib['error'](status).decode()))
+  last = 'tile_rows' if body.form == 'fold' else 'vectors'
+  return dict(zip(('ctas_per_sm', 'smem', 'grid', last), out))
 
 
 def ew_loop_holds_every_iteration(body) -> bool:
@@ -954,15 +1050,24 @@ def ew_loop_holds_every_iteration(body) -> bool:
 
 # -- the entry points' common run ----------------------------------------------
 
+# a one-shot body's cold-L2 calls (their median the cold ms; 20 before
+# the replayed times took their place, cut to keep chip_smoke.py's phase
+# 17 inside its time)
+COLD_REPS = 5
+SETTLE_S = 0.1  # seconds of a one-shot body's calls before it is replayed
+
+
 def run_bodies(bodies: Sequence[NarrowBody], device='cuda', n_small: int = 32,
                n_big: int = 512, log: Callable[[str], None] = print,
                reps: int = 5) -> List[Dict[str, object]]:
   """Each body on its script's inputs. On the card: the kernel against
   its plain version (a chain at CHECK_ITERS and ``n_small``
-  iterations), its time (a one-shot body's cold-L2 median ms, and the
-  host's and the device's µs a call back to back: whether the wrapper's
-  enqueue or the kernel sets the pace; a chain's µs per iteration, the
-  slope from ``n_small`` to ``n_big``),
+  iterations), its time (a one-shot body's device µs a call replayed
+  from a CUDA graph, and its library call's, the time with no host
+  between calls; further, its cold-L2 median ms, and the host's and the
+  device's µs a call back to back from Python, which read the wrapper's
+  enqueue; a chain's µs per iteration, the slope from ``n_small`` to
+  ``n_big``),
   ps per element-op, grid barriers, the bound and its share, the plain
   version's time, the library call's (a chain's: one call, one
   iteration), the SASS row. A body fails where its kernel differs from
@@ -1006,18 +1111,28 @@ def run_bodies(bodies: Sequence[NarrowBody], device='cuda', n_small: int = 32,
       timing = '%9.3f us/iter  %8.3f ps/elem-op' % (us, per_op)
     else:
       ms = statistics.median(profiling.cuda_times_ms(
-          lambda: narrow_probe(body, *xs), reps=20))
+          lambda: narrow_probe(body, *xs), reps=COLD_REPS))
       plain_ms = statistics.median(profiling.cuda_times_ms(
           lambda: body.plain(*xs), reps=5))
       if body.library is not None:
         lib_ms = statistics.median(profiling.cuda_times_ms(
-            lambda: body.library(*xs), reps=20))
+            lambda: body.library(*xs), reps=COLD_REPS))
       row['host_us'], row['b2b_us'] = profiling.back_to_back_us(
           lambda: narrow_probe(body, *xs))
-      per_op = ms * 1e9 / (body.cells * body.elems)
-      timing = ('%9.4f ms cold (back to back: host %.1f, device %.1f us a '
-                'call)  %8.3f ps/elem' % (ms, row['host_us'], row['b2b_us'],
-                                          per_op))
+      # the device alone: replayed from one CUDA graph after a settle run
+      # (the timing launches are not counted)
+      kernel = lambda: launch(body, xs, 1)
+      profiling.settle(kernel, SETTLE_S)
+      row['replay_us'] = profiling.replay_us(kernel)
+      row['library_replay_us'] = (
+          profiling.replay_us(lambda: body.library(*xs))
+          if body.library is not None else None)
+      per_op = row['replay_us'] * 1e6 / (body.cells * body.elems)
+      timing = ('%9.3f us a call replayed (library %s; cold %.4f ms; back '
+                'to back: host %.1f, device %.1f us a call)  %8.3f '
+                'ps/elem' % (row['replay_us'], '%.3f us' % row[
+                    'library_replay_us'] if lib_ms is not None else 'none',
+                             ms, row['host_us'], row['b2b_us'], per_op))
     right = narrow_ok(body, abs_err, rel_err)
     ok = right and within_bound(bound, ms)
     row.update(ok=ok, ms=ms, bound_ms=bound, bound_by=bound_by,

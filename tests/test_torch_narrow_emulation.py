@@ -21,6 +21,7 @@ version at 1, 2 and 5 iterations (a register chain also at
 
 import ctypes
 import dataclasses
+import hashlib
 import pathlib
 import re
 import shutil
@@ -39,8 +40,11 @@ CSRC = (pathlib.Path(__file__).resolve().parents[1] / 'soda_tpu_torch' /
 SMALL = (16, 32)
 
 PRELUDE = r'''
+#include <atomic>
 #include <barrier>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -50,6 +54,9 @@ PRELUDE = r'''
 #define __forceinline__ inline
 #define __launch_bounds__(n)
 #define __align__(n) alignas(n)
+#define __grid_constant__
+
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 
 struct SodaDim { unsigned x = 0, y = 0, z = 0; };
 static thread_local SodaDim threadIdx, blockIdx;
@@ -109,6 +116,52 @@ static unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   return r;
 }
 
+// cp.async of 16 bytes: both ends 16-byte aligned, the source inside the
+// input the test named (soda_emu_configure); it lands when the thread
+// waits for its group (deferred) or at once (eager)
+struct SodaEmuCopy { void* dst; const void* src; };
+static thread_local std::vector<SodaEmuCopy> soda_emu_copies;
+static thread_local std::vector<std::vector<SodaEmuCopy>> soda_emu_groups;
+static bool soda_emu_eager = false;
+static const unsigned char* soda_emu_in_lo = nullptr;
+static const unsigned char* soda_emu_in_hi = nullptr;
+// what the emulation caught in the last launch (0: nothing): 1 a
+// misaligned copy, 2 a copy from outside the input, 3 copies never
+// waited for, 4 copies never committed
+static std::atomic<int> soda_emu_fault{0};
+extern "C" int soda_emu_last_fault() { return soda_emu_fault.exchange(0); }
+static void cp_async16(void* dst, const void* src) {
+  const unsigned char* s = (const unsigned char*)src;
+  if ((uintptr_t)dst % 16 || (uintptr_t)src % 16) {
+    soda_emu_fault = 1;
+    return;
+  }
+  if (soda_emu_in_lo && (s < soda_emu_in_lo || s + 16 > soda_emu_in_hi)) {
+    soda_emu_fault = 2;
+    return;
+  }
+  if (soda_emu_eager)
+    memcpy(dst, src, 16);
+  else
+    soda_emu_copies.push_back({dst, src});
+}
+static void cp_async_commit() {
+  soda_emu_groups.push_back(soda_emu_copies);
+  soda_emu_copies.clear();
+}
+static void cp_async_wait_one() {
+  while (soda_emu_groups.size() > 1) {
+    for (const SodaEmuCopy& c : soda_emu_groups.front())
+      memcpy(c.dst, c.src, 16);
+    soda_emu_groups.erase(soda_emu_groups.begin());
+  }
+}
+extern "C" void soda_emu_configure(int eager, const void* in, long long bytes) {
+  soda_emu_eager = eager != 0;
+  soda_emu_in_lo = (const unsigned char*)in;
+  soda_emu_in_hi = in ? (const unsigned char*)in + bytes : nullptr;
+}
+
 // one launch: an ordinary one CTA by CTA, a cooperative one all at once
 template <class F>
 static void soda_emu_launch(bool coop, int grid, int block, int smem, void*,
@@ -134,6 +187,11 @@ static void soda_emu_launch(bool coop, int grid, int block, int smem, void*,
           soda_emu_cta = bars[c];
           soda_emu_smem = mems[c].data();
           f();
+          for (const auto& group : soda_emu_groups)
+            if (!group.empty()) soda_emu_fault = 3;
+          if (!soda_emu_copies.empty()) soda_emu_fault = 4;
+          soda_emu_groups.clear();
+          soda_emu_copies.clear();
         });
     for (auto& th : threads) th.join();
     for (auto* b : bars) delete b;
@@ -158,14 +216,15 @@ def emulated_source() -> str:
       'soda_emu_launch(true, blocks, kThreads, smem, stream, [=]() '
       '{ strip<B>(xg, yg, tg, p, n); });\n  return cudaSuccess;', text,
       flags=re.S)
-  assert (ordinary, coop) == (4, 1), (ordinary, coop)
+  assert (ordinary, coop) == (6, 1), (ordinary, coop)
   text, opaque = re.subn(r'asm volatile\(""[^;]*\);', '', text)
-  assert opaque == 4, opaque
+  assert opaque == 9, opaque
   return PRELUDE + text
 
 
 @pytest.fixture(scope='module')
-def lib(tmp_path_factory):
+def emu_so(tmp_path_factory):
+  """The emulated library, its entry points' types set."""
   gxx = shutil.which('g++')
   if gxx is None:
     pytest.skip('needs g++')
@@ -186,11 +245,27 @@ def lib(tmp_path_factory):
                      [c.c_int] * 4 + [c.c_void_p] * 4 +
                      [c.c_longlong, c.c_void_p, c.POINTER(c.c_int)])
   launch.restype = c.c_int
+  so.probe_narrow_geometry.argtypes = (
+      [c.c_int, c.c_int, c.POINTER(c.c_int), c.c_int] + [c.c_int] * 4 +
+      [c.POINTER(c.c_int)])
+  so.probe_narrow_geometry.restype = c.c_int
+  so.soda_emu_configure.argtypes = [c.c_int, c.c_void_p, c.c_longlong]
+  so.soda_emu_last_fault.restype = c.c_int
   so.probe_narrow_ops.restype = c.c_char_p
-  names = so.probe_narrow_ops().decode()
+  return so
+
+
+@pytest.fixture(scope='module')
+def lib(emu_so):
+  """(launch, ops by form, configure, fault): ``configure(eager, input,
+  bytes)`` sets how the next launch's cp.async copies land and the input
+  they must read inside; ``fault()`` what the emulation caught since it
+  was last asked (0: nothing)."""
+  names = emu_so.probe_narrow_ops().decode()
   ops = dict(zip(narrow.FORMS, ([n for n in part.split(',') if n]
                                 for part in names.split(';'))))
-  return launch, ops
+  return (emu_so.probe_narrow_launch, ops, emu_so.soda_emu_configure,
+          emu_so.soda_emu_last_fault)
 
 
 def small_body(body: narrow.NarrowBody) -> narrow.NarrowBody:
@@ -218,19 +293,28 @@ def small_inputs(body: narrow.NarrowBody, seed: int):
   return out
 
 
-def emulate(lib, body, xs, n):
-  launch, ops = lib
+def emulate(lib, body, xs, n, old=False, eager=False):
+  """``body``'s launch on the CPU tensors ``xs`` (``old``: its old form,
+  as ``narrow.launch(..., _old=True)``; ``eager``: cp.async copies land
+  at once, not at their wait); (output, grid)."""
+  launch, ops, configure, fault = lib
+  configure(int(eager), xs[0].data_ptr(),
+            xs[0].untyped_storage().nbytes() -
+            xs[0].storage_offset() * xs[0].element_size())
   flat, rows, cols, in_rows, in_cols = narrow.launch_geometry(body)
   args = (ctypes.c_int * max(len(flat), 1))(*flat)
   y = torch.empty(body.shape, dtype=body.dtype)
   tmp = torch.empty_like(y)
   ctas = ctypes.c_int(0)
-  status = launch(narrow.FORMS.index(body.form),
-                  ops[body.form].index(body.op), args, len(flat), rows, cols,
+  form = (narrow.OLD_FORMS[body.form] if old else
+          narrow.FORMS.index(body.form))
+  status = launch(form, ops[body.form].index(body.op), args, len(flat),
+                  rows, cols,
                   in_rows, in_cols, xs[0].data_ptr(),
                   xs[-1].data_ptr(), y.data_ptr(), tmp.data_ptr(), n, None,
                   ctypes.byref(ctas))
   assert status == 0, (body.name, status)
+  assert fault() == 0, (body.name, 'cp.async fault')
   return y, ctas.value
 
 
@@ -274,7 +358,7 @@ def test_emulated_kernel_matches_its_plain_version(lib, body):
 
 
 def test_emulated_launch_refuses_what_the_kernel_does_not_take(lib):
-  launch, ops = lib
+  launch, ops, _, _ = lib
   x = torch.zeros(SMALL, dtype=torch.int32)
   c = ctypes
   ctas = c.c_int(0)
@@ -301,3 +385,217 @@ def test_emulated_launch_refuses_what_the_kernel_does_not_take(lib):
   assert status(strip, 0, one, n=0) != 0
   assert status(strip, len(ops['strip']), one) != 0
   assert status(narrow.FORMS.index('fold'), 0, [0] * 50) != 0  # 25 taps
+
+
+# -- the one-shot forms on Hopper: vec_binary and tile_fold -------------------
+
+ONE_SHOT = [b for b in narrow.BODIES.values() if not b.chain]
+BINARY = [b for b in ONE_SHOT if b.form == 'binary']
+FOLD = [b for b in ONE_SHOT if b.form == 'fold']
+# binary: 481 cells (a scalar tail past 60 int16 or 120 int32 vectors),
+# 1024 cells (whole vectors), and inputs one cell past a 16-byte boundary
+# (every cell one a thread)
+BINARY_SHAPES = {'ragged': (13, 37), 'whole': (16, 64),
+                 'misaligned': (13, 37)}
+# fold: outputs of 21 x 296 (int16: two tile columns, the second 40 cells;
+# int32: three; tile rows ragged) and 13 x 300 (int16: rows of 300 cells,
+# no 16-byte stores, an input row of 332 copied cell by cell), each with
+# the body's margin; and 'wrap', the input no larger than the output, so
+# that the taps wrap round both extents inside a tile's box
+FOLD_SHAPES = {'margin': (21, 296), 'ragged': (13, 300), 'wrap': (21, 296)}
+
+
+def at_shape(body, shape, margin=True):
+  in_shape = None
+  if body.in_shape is not None and margin:
+    in_shape = tuple(s + i - o for s, i, o in
+                     zip(shape, body.in_shape, body.shape))
+  return dataclasses.replace(body, shape=shape, kshape=None,
+                             in_shape=in_shape)
+
+
+def aligned_inputs(body, seed, offset=0):
+  """Seeded inputs in fresh (64-byte aligned) memory, each starting
+  ``offset`` cells past its allocation."""
+  out = []
+  for x in small_inputs(body, seed):
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype)
+    flat[offset:] = x.reshape(-1)
+    out.append(flat[offset:].view(x.shape))
+  return out
+
+
+def _ids(cases):
+  return ['%s-%s' % (b.name, v) for b, v, *_ in cases]
+
+
+BINARY_CASES = [(b, v) for b in BINARY for v in BINARY_SHAPES]
+
+
+@pytest.mark.parametrize('body,variant', BINARY_CASES,
+                         ids=_ids(BINARY_CASES))
+def test_vec_binary_matches_plain_and_old_form(lib, body, variant):
+  """Each binary body on vec_binary, bit for bit against its plain
+  version and the old binary kernel; the grid strides (two SMs, one CTA
+  each, in the emulation)."""
+  small = at_shape(body, BINARY_SHAPES[variant])
+  xs = aligned_inputs(small, 11, offset=int(variant == 'misaligned'))
+  assert (xs[0].data_ptr() % 16 != 0) == (variant == 'misaligned')
+  got, ctas = emulate(lib, small, xs, 1)
+  old, _ = emulate(lib, small, xs, 1, old=True)
+  want = small.plain(*xs)
+  assert torch.equal(got, want), body.name
+  assert torch.equal(old, want), body.name
+  assert ctas <= 2
+
+
+FOLD_CASES = [(b, v, e) for b in FOLD for v in FOLD_SHAPES
+              for e in (False, True)]
+
+
+@pytest.mark.parametrize('body,variant,eager', FOLD_CASES,
+                         ids=['%s-%s' % (i, 'eager' if e else 'deferred')
+                              for i, (_, _, e) in zip(_ids(FOLD_CASES),
+                                                      FOLD_CASES)])
+def test_tile_fold_matches_plain_and_old_form(lib, body, variant, eager):
+  """Each fold body on tile_fold, bit for bit against its plain version
+  and the old fold kernel, its box's copies landing at their wait or at
+  once, each inside the input (the float roll is a copy)."""
+  small = at_shape(body, FOLD_SHAPES[variant], margin=variant != 'wrap')
+  xs = aligned_inputs(small, 13)
+  got, ctas = emulate(lib, small, xs, 1, eager=eager)
+  old, _ = emulate(lib, small, xs, 1, old=True)
+  want = small.plain(*xs)
+  assert torch.equal(got, want), body.name
+  assert torch.equal(old, want), body.name
+  assert ctas >= 2
+
+
+def _geometry(emu_so, lib, body):
+  _, ops, _, _ = lib
+  flat, rows, cols, in_rows, in_cols = narrow.launch_geometry(body)
+  args = (ctypes.c_int * max(len(flat), 1))(*flat)
+  out = (ctypes.c_int * 4)()
+  status = emu_so.probe_narrow_geometry(
+      narrow.FORMS.index(body.form), ops[body.form].index(body.op), args,
+      len(flat), rows, cols, in_rows, in_cols, out)
+  return status, list(out)
+
+
+def test_fold_box_past_shared_memory_is_refused(emu_so, lib):
+  """A fold whose taps' box cannot fit a CTA's 227 KB raises at launch
+  (the old form, which reads device memory, takes it): two boxes of 2008
+  rows of 256 int16 cells."""
+  body = dataclasses.replace(
+      narrow.BODIES['exp13 i16 19-tap sublane where-min fold'],
+      shape=(64, 256), in_shape=(4096, 256), taps=((0, 0), (2000, 0)))
+  status, _ = _geometry(emu_so, lib, body)
+  assert status != 0
+  launch, ops, configure, _ = lib
+  flat, rows, cols, in_rows, in_cols = narrow.launch_geometry(body)
+  x = torch.zeros(body.input_shape, dtype=body.dtype)
+  y = torch.zeros(body.shape, dtype=body.dtype)
+  args = (ctypes.c_int * len(flat))(*flat)
+  ctas = ctypes.c_int(0)
+  configure(0, None, 0)
+  for form, refused in ((2, True), (narrow.OLD_FORMS['fold'], False)):
+    status = launch(form, ops['fold'].index(body.op), args, len(flat), rows,
+                    cols, in_rows, in_cols, x.data_ptr(), None, y.data_ptr(),
+                    None, 1, None, ctypes.byref(ctas))
+    assert (status != 0) == refused, form
+  # a margin of 216 rows fits at 8 rows a tile, two boxes (16 rows would
+  # pass 227 KB); two CTAs walk its 8 tiles (two SMs in the emulation)
+  fits = dataclasses.replace(body, taps=((0, 0), (216, 0)))
+  status, (_, smem, grid, tile_rows) = _geometry(emu_so, lib, fits)
+  assert status == 0 and tile_rows == 8 and smem == 2 * 224 * 32 * 16
+  assert grid == 2
+
+
+@pytest.mark.parametrize('name', [b.name for b in FOLD])
+def test_fold_boxes_fit_at_the_scripts_and_the_bench_shape(emu_so, lib,
+                                                           name):
+  """Every fold body's box at its script's shape and at (8192, 2048) with
+  its margin: inside shared memory, 32-row tiles at the bench shape."""
+  body = narrow.BODIES[name]
+  for shape in (body.shape, (8192, 2048)):
+    status, (_, smem, grid, tile_rows) = _geometry(
+        emu_so, lib, at_shape(body, shape))
+    assert status == 0 and 0 < smem <= 232448, (name, shape)
+    if shape == (8192, 2048):
+      assert tile_rows == 32 and grid == 2, (name, grid)
+
+
+# sha256 (first 16 hex digits) of what stays as the parent had it: each
+# kernel section (the old binary and fold forms, ew, strip; their op
+# structs) from its header to the next, and the launchers and planners
+PARENT_SECTIONS = {
+    '// -- binary: y = f(a, b)': 'b8e8fd8ba863eb96',
+    '// -- ew: y = f^n(x)': '868c4be63d6fbc36',
+    '// -- fold: shifted slices': 'a89d7ed92d9d8219',
+    '// -- strip: chains': 'e9bc381f77727bb3',
+}
+PARENT_DEFINITIONS = {
+    'template <class Op>\ncudaError_t launch_binary(': 'cf174a5105a9941b',
+    'template <class Op>\ncudaError_t launch_ew(': '92d04b873d62a196',
+    'template <class Op>\ncudaError_t launch_fold(': '6ab97c0db8595c40',
+    'template <class B>\ncudaError_t launch_strip(': '181ec82d46bbc271',
+    'int plan_phase(': '183086006337f9f6',
+    'int log2_exact(': 'bada8e1859dc53a7',
+    'int blocks_for(': 'c7df25162ee0f6df',
+}
+
+
+def _digest(text):
+  return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+@pytest.mark.parametrize('header', sorted(PARENT_SECTIONS))
+def test_old_forms_and_other_kernels_are_unchanged(header):
+  text = CSRC.read_text()
+  assert text.count(header) == 1
+  start = text.index(header)
+  end = text.index('\n// -- ', start + 1) + 1
+  assert _digest(text[start:end]) == PARENT_SECTIONS[header]
+
+
+@pytest.mark.parametrize('head', sorted(PARENT_DEFINITIONS))
+def test_old_launchers_are_unchanged(head):
+  text = CSRC.read_text()
+  assert text.count(head) == 1
+  start = text.index(head)
+  end = text.index('\n}\n', start) + 3
+  assert _digest(text[start:end]) == PARENT_DEFINITIONS[head]
+
+
+def test_default_path_launches_the_new_forms_only():
+  """The public forms dispatch to vec_binary and tile_fold; binary and
+  fold run only under their private form indices (4, 5)."""
+  text = CSRC.read_text()
+  launch = text[text.index('int probe_narrow_launch('):]
+  assert '(form == 0 ? kVecBinary : kBinary)' in launch
+  assert '(form == 2 ? kTileFold : kFold)' in launch
+  assert narrow.OLD_FORMS == {'binary': 4, 'fold': 5}
+  assert narrow.KERNEL_NAMES['binary'] == 'vec_binary'
+  assert narrow.KERNEL_NAMES['fold'] == 'tile_fold'
+
+
+@pytest.mark.parametrize('name,taps', [
+    ('exp13 i16 lane-shifted slice add (off 3)', ((0, 0), (0, 0), (0, 3))),
+    ('exp12 8-operand shifted add-chain', ((0, 5), (2, 5), (0, 5), (0, 1))),
+    ('exp13 i16 19-tap lane where-min fold',
+     ((3, 30), (0, 0), (3, 2), (1, 31), (0, 0))),
+    # column windows: a repeated row, rows 60 apart, two columns
+    ('exp13 i16 sublane-shifted slice add (off 5)',
+     ((0, 0), (3, 0), (3, 0), (60, 0), (7, 8), (1, 8), (2, 3))),
+])
+def test_tile_fold_takes_repeated_and_scattered_taps(lib, name, taps):
+  """A tap that repeats another (an add counts it twice), taps over
+  several rows and past a window's reach, in any order: tile_fold, its
+  plain version and the old form agree bit for bit."""
+  body = dataclasses.replace(narrow.BODIES[name], shape=(21, 296),
+                             in_shape=(85, 336), taps=taps)
+  xs = aligned_inputs(body, 17)
+  got, _ = emulate(lib, body, xs, 1)
+  old, _ = emulate(lib, body, xs, 1, old=True)
+  want = body.plain(*xs)
+  assert torch.equal(got, want) and torch.equal(old, want)
