@@ -126,9 +126,16 @@ seconds:
    iteration as the slope from CHAIN_N_SMALL to CHAIN_N_BIG, grid
    barriers, the operation bound; exp24's shift chains run in the narrow
    probe's strip kernel); each entry point is one run, so a case's
-   launches are its own. Then each streaming case against
-   ``stream_probe_plain`` (walking the card's schedule) bit for bit
-   beside ``torch.add``'s time, and each chain body against
+   launches are its own (the streaming cases launch the bulk kernel,
+   the default). Then the streaming probe on the device alone
+   (``stream_replay``): the SASS check (every bulk-kernel entry copies
+   by UBLKCP and no LDGSTS, the old kernel by LDGSTS, none spills), and
+   each case's default kernel and old form
+   (``stream_probe(..., _old=True)``) bit for bit against
+   ``stream_probe_plain`` (walking each kernel's schedule) and x + 1,
+   replayed old, new, new, old beside ``torch.add`` replayed; a
+   streaming record's ``ms`` and ``library_ms`` are the replayed ones.
+   Each chain body against
    ``chain_probe_plain`` at 1, 2, 5 and CHAIN_N_SMALL iterations (int32
    bit-exact, float32 within ``probes.CHAIN_RTOL`` relative; the largest
    error is the record's).
@@ -192,8 +199,9 @@ seconds:
    run phase 3 counted: each element step
    (``deep_steps``) bit for bit against the default form, the new kernel
    within 1e-3 of the plain version; cold-L2 medians of the old and the
-   new kernel, device µs a call back to back as old, new, new, old and
-   each element's step likewise; barriers a tile, resident CTAs,
+   new kernel, device µs a call back to back as old, new, new, old (the
+   element steps' times are ``tile_sweep --deep``'s); barriers a tile,
+   resident CTAs,
    registers and spills; the bound (operations) and its share; and
    ``torch.nn.functional.conv2d`` with contrast's 17x17 table (TF32 off),
    timed as the cell's ``library_ms``.
@@ -207,7 +215,8 @@ seconds:
    bit against the default form (``_short=()``) and the new kernel
    within the threshold of the plain version; cold-L2 medians of the old
    and the new kernel, device µs a call back to back as old, new, new,
-   old and each element's step likewise; resident CTAs, registers,
+   old (the element steps' times are ``tile_sweep --short``'s); resident
+   CTAs, registers,
    spills, stage evaluations and input cells filled an output, barriers
    a tile; the bound and its share; and, where one PyTorch call computes
    the cell's function, that call (TF32 off) with its cold-L2 median and
@@ -253,7 +262,8 @@ seconds:
    memory equal to the built executor's plan; then ``--estimate -`` of
    the command line (blur at its bench shape) and ``python -m
    soda_tpu_torch.tools.perf_report --json`` (12 rows, a geomean over 11)
-   once each.
+   once each, with phase 25's NCCL runs (b) beside them (nothing is
+   timed then).
 25. ranks: the sharded executor's rank form
    (``parallel/distributed.py``, one process a shard over
    ``torch.distributed``). (a) Four gloo ranks on the card
@@ -272,8 +282,8 @@ seconds:
    graph, one rank at a time) and its halo bytes a call, beside the
    single-controller call's. (b) NCCL at
    one rank a card, through ``torchrun --standalone`` and the dry run's
-   own spawn: the nine configs against the oracle. A rank that fails
-   fails the run.
+   own spawn: the nine configs against the oracle, run beside phase 24's
+   command-line runs. A rank that fails fails the run.
 26. options: the public kernel options on the short form
    (``option_rows``: every ``testing.MODE_CELLS`` row, each short cell
    at its rule's tile and that tile's axis-0 extent halved,
@@ -440,8 +450,9 @@ def deep_phase(stencil, shape, ex, plain, plain_ms, smi, log):
   of ``deep_steps`` bit for bit against the default form (the old
   kernel) and the new kernel within the threshold of the plain version
   ``plain`` (phase 4's); cold-L2 medians of the old and the new kernel,
-  device µs a call back to back as old, new, new, old, and each
-  element's step as before, after, after, before; barriers a tile,
+  device µs a call back to back as old, new, new, old (each element
+  step is checked, not timed: ``tile_sweep --deep`` times them); barriers
+  a tile,
   resident CTAs, registers and spills; the bound and its share; and
   ``torch.nn.functional.conv2d`` with contrast's 17x17 table over the
   valid region (TF32 off; the port never calls it): its cold-L2 median
@@ -499,11 +510,6 @@ def deep_phase(stencil, shape, ex, plain, plain_ms, smi, log):
           old_ms, new_ms, new_ms / old_ms, seq[0], seq[1], seq[2], seq[3],
           (seq[1] + seq[2]) / (seq[0] + seq[3]), bound, bound_by,
           100 * bound / old_ms, 100 * bound / new_ms, plain_ms, err, smi))
-  for (before, b_ex), (after, a_ex) in zip(steps, steps[1:]):
-    seq = [b2b(b_ex), b2b(a_ex), b2b(a_ex), b2b(b_ex)]
-    log('step %-10s -> %-10s back to back %.1f/%.1f/%.1f/%.1f us/call '
-        '(%.3fx) | %s' % (before, after, seq[0], seq[1], seq[2], seq[3],
-                          (seq[1] + seq[2]) / (seq[0] + seq[3]), smi))
   torch.backends.cudnn.allow_tf32 = False
   x = args[0].reshape((1, 1) + shape)
   w = torch.from_numpy(corpus.contrast_table()).to(x.device)[None, None]
@@ -584,8 +590,9 @@ def short_phase(cells, plains, smi, log):
   ``tile_sweep.short_steps`` bit for bit against the default form (the
   old kernel) and the new kernel within the threshold of the plain
   version ``plains[name]`` (phase 4's); cold-L2 medians of the old and
-  the new kernel, device µs a call back to back as old, new, new, old,
-  and each element's step as before, after, after, before; resident
+  the new kernel, device µs a call back to back as old, new, new, old
+  (each element step is checked, not timed: ``tile_sweep --short`` times
+  them); resident
   CTAs, registers and spills, stage evaluations and input cells filled
   an output, barriers a tile; the bound and its share; and the library
   call (``library_call``, TF32 off; the port never calls it) with its
@@ -652,12 +659,6 @@ def short_phase(cells, plains, smi, log):
             name, old_ms, new_ms, new_ms / old_ms, seq[0], seq[1], seq[2],
             seq[3], (seq[1] + seq[2]) / (seq[0] + seq[3]), bound, bound_by,
             100 * bound / old_ms, 100 * bound / new_ms, err, smi))
-    for (before, b_ex), (after, a_ex) in zip(steps, steps[1:]):
-      seq = [b2b(b_ex), b2b(a_ex), b2b(a_ex), b2b(b_ex)]
-      log('%-12s step %-30s -> %-30s back to back %.1f/%.1f/%.1f/%.1f '
-          'us/call (%.3fx) | %s' % (
-              name, before, after, seq[0], seq[1], seq[2], seq[3],
-              (seq[1] + seq[2]) / (seq[0] + seq[3]), smi))
     call = library_call(name, stencil, shape, args[0])
     if call is None:
       lib[name] = None
@@ -1091,12 +1092,14 @@ def examples_phase(examples, card, smi, log):
       % (shape, relax['BATCHES'], relax['MESH'], err, seconds, smi))
 
 
-def estimate_phase(cells, here, env, smi, log):
+def estimate_phase(cells, here, env, smi, log, log_ranks):
   """Phase 24: the cost model against the default kernels phase 2 built
   (``cells``), then the command line's --estimate and perf_report once
-  each. Raises where an estimate's plan differs from the built one, a
-  measured share exceeds the ceiling x CEILING_SLACK, or an estimate
-  lies outside EST_RANGE of the measured time."""
+  each, with phase 25's NCCL runs (b) beside them (``nccl_start``; their
+  lines go to ``log_ranks``): nothing is timed while they run. Raises
+  where an estimate's plan differs from the built one, a measured share
+  exceeds the ceiling x CEILING_SLACK, an estimate lies outside
+  EST_RANGE of the measured time, or a run fails."""
   import torch
   from soda_tpu_torch import profiling
   from soda_tpu_torch.model import estimate as est
@@ -1137,41 +1140,97 @@ def estimate_phase(cells, here, env, smi, log):
       bad.append('%s: estimate %.2fx the measured time' % (name, ratio))
   if bad:
     raise RuntimeError('estimate: %s' % '; '.join(bad))
+  # nothing is timed from here on: the command line's runs, and phase
+  # 25's NCCL runs (b), side by side
   from soda_tpu_torch import corpus, testing
-  t = time.time()
-  name, shape, _ = testing.CELLS[0]
-  path = os.path.join(here, 'build', 'chip_smoke', name + '.soda')
-  with open(path, 'w') as f:
-    f.write(corpus.CORPUS[name])
-  out = subprocess.run(
-      [sys.executable, '-m', 'soda_tpu_torch', path, '--estimate', '-',
-       '--shape', ','.join(map(str, shape)), '--tile-size', str(shape[1])],
-      cwd=here, env=env, stdout=subprocess.PIPE, text=True, check=True,
-      timeout=300).stdout
-  got = json.loads(out)
-  missing = [k for k in ESTIMATE_KEYS if k not in got]
-  if missing or got['device'] != torch.cuda.get_device_name(0):
-    raise RuntimeError('--estimate -: keys missing %s, device %r' % (
-        missing, got['device']))
-  log('--estimate - (%s %s): %d keys, device %s, estimate %.2f us, bound '
-      '%.2f us (%s), ceiling %.3f, form %s, tile %s (%.1fs)' % (
-          name, shape, len(got), got['device'], got['est_time_s'] * 1e6,
-          got['ideal_time_s'] * 1e6, got['bound'], got['ceiling_frac'],
-          got['form'], got['tile'], time.time() - t))
-  t = time.time()
-  out = subprocess.run(
-      [sys.executable, '-m', 'soda_tpu_torch.tools.perf_report', '--json'],
-      cwd=here, env=env, stdout=subprocess.PIPE, text=True, check=True,
-      timeout=300).stdout
-  report = json.loads(out)
-  if len(report['rows']) != len(testing.CELLS) or \
-      report['geomean_cells'] != len(testing.CELLS) - 1:
-    raise RuntimeError('perf_report --json: %d rows, geomean over %d' % (
-        len(report['rows']), report['geomean_cells']))
-  log('perf_report --json: %d rows of %s (%s), geomean %.4f over %d cells '
-      '(%.1fs)' % (len(report['rows']), report['record'], report['device'],
-                   report['geomean'], report['geomean_cells'],
-                   time.time() - t))
+  runs = nccl_start(here, env) + [('perf_report', start(
+      ['-m', 'soda_tpu_torch.tools.perf_report', '--json'], here, env))]
+  try:
+    t = time.time()
+    name, shape, _ = testing.CELLS[0]
+    path = os.path.join(here, 'build', 'chip_smoke', name + '.soda')
+    with open(path, 'w') as f:
+      f.write(corpus.CORPUS[name])
+    out = subprocess.run(
+        [sys.executable, '-m', 'soda_tpu_torch', path, '--estimate', '-',
+         '--shape', ','.join(map(str, shape)), '--tile-size', str(shape[1])],
+        cwd=here, env=env, stdout=subprocess.PIPE, text=True, check=True,
+        timeout=300).stdout
+    got = json.loads(out)
+    missing = [k for k in ESTIMATE_KEYS if k not in got]
+    if missing or got['device'] != torch.cuda.get_device_name(0):
+      raise RuntimeError('--estimate -: keys missing %s, device %r' % (
+          missing, got['device']))
+    log('--estimate - (%s %s): %d keys, device %s, estimate %.2f us, bound '
+        '%.2f us (%s), ceiling %.3f, form %s, tile %s (%.1fs)' % (
+            name, shape, len(got), got['device'], got['est_time_s'] * 1e6,
+            got['ideal_time_s'] * 1e6, got['bound'], got['ceiling_frac'],
+            got['form'], got['tile'], time.time() - t))
+    rc, out, seconds = finish(runs.pop()[1], 300)
+    if rc != 0:
+      raise RuntimeError('perf_report --json: exit %d' % rc)
+    report = json.loads(out)
+    if len(report['rows']) != len(testing.CELLS) or \
+        report['geomean_cells'] != len(testing.CELLS) - 1:
+      raise RuntimeError('perf_report --json: %d rows, geomean over %d' % (
+          len(report['rows']), report['geomean_cells']))
+    log('perf_report --json: %d rows of %s (%s), geomean %.4f over %d cells '
+        '(%.1fs)' % (len(report['rows']), report['record'], report['device'],
+                     report['geomean'], report['geomean_cells'], seconds))
+    nccl_finish(runs, log_ranks)
+  finally:
+    for _, (_, proc) in runs:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start(cmd, here, env, merge=False):
+  """(its start time, the process) of ``python cmd`` run in ``here``,
+  its output piped (``merge``: its errors too)."""
+  return time.time(), subprocess.Popen(
+      [sys.executable] + cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+      stderr=subprocess.STDOUT if merge else None, text=True)
+
+
+def finish(started, timeout):
+  """(exit code, output, seconds since its start) of a ``start``ed
+  process, killed if it outlasts ``timeout`` seconds from now."""
+  t, proc = started
+  try:
+    out, _ = proc.communicate(timeout=timeout)
+  except subprocess.TimeoutExpired:
+    proc.kill()
+    proc.communicate()
+    raise
+  return proc.returncode, out, time.time() - t
+
+
+def nccl_start(here, env):
+  """Phase 25 (b), started: the dry run's nine configs over NCCL at one
+  rank a card, through ``torchrun --standalone`` and the dry run's own
+  spawn (a FileStore, no port), side by side. [(how, started), ...]"""
+  import torch
+  n = torch.cuda.device_count()
+  gate = ['-m', 'soda_tpu_torch.parallel.dryrun', '--backend', 'nccl']
+  return [(how, start(cmd, here, env, merge=True)) for how, cmd in (
+      ('torchrun', ['-m', 'torch.distributed.run', '--standalone',
+                    '--nproc-per-node', str(n)] + gate),
+      ('spawn', gate + ['--nproc', str(n)]))]
+
+
+def nccl_finish(runs, log):
+  """Waits for ``nccl_start``'s runs (emptying ``runs``); raises unless
+  each printed the dry run's OK on every card."""
+  import torch
+  want = 'dryrun_multichip OK on %d ranks' % torch.cuda.device_count()
+  while runs:
+    how, started = runs.pop(0)
+    rc, out, seconds = finish(started, 600)
+    if rc != 0 or want not in out:
+      raise RuntimeError('(b) NCCL %s: exit %d\n%s' % (how, rc, out[-3000:]))
+    log('(b) NCCL through %s: %s, the nine configs against the oracle '
+        '(%.1fs, beside phase 24\'s command-line runs)' % (how, want, seconds))
 
 
 def record(name, source, replaces, launches, err, ms, plain_ms, stencil,
@@ -1213,9 +1272,10 @@ def ranks_phase(by_name, sharded_stencil, plains, plain_ms_of, oracle, card,
   for 'fused', a group's count for 'grouped'); each rank's device and
   host µs a call back to back, its kernel inner's alone (replayed from
   a CUDA graph, one rank at a time) and its halo bytes a call, beside
-  the single-controller call's. (b)
-  NCCL at one rank a card, through ``torchrun`` and through the command
-  line's own spawn, the nine configs. Returns the kernel records of
+  the single-controller call's. (b), NCCL at one rank a card through
+  ``torchrun`` and through the command line's own spawn, the nine
+  configs, runs beside phase 24's command-line runs (``nccl_start``),
+  before (a). Returns the kernel records of
   (a)'s kernel cells: ``ms`` is the sum of the ranks' inners alone, the
   card time of one call's launches over the whole grid without the host
   and the exchange."""
@@ -1268,23 +1328,6 @@ def ranks_phase(by_name, sharded_stencil, plains, plain_ms_of, oracle, card,
     del ranks
   del single
 
-  # (b) NCCL, one rank a card: torchrun, and the command line's spawn
-  n = torch.cuda.device_count()
-  gate = ['-m', 'soda_tpu_torch.parallel.dryrun', '--backend', 'nccl']
-  for how, cmd in (('torchrun', ['-m', 'torch.distributed.run',
-                                 '--standalone', '--nproc-per-node', str(n)]
-                    + gate),
-                   ('spawn', gate + ['--nproc', str(n)])):
-    t = time.time()
-    proc = subprocess.run([sys.executable] + cmd, cwd=here, env=env,
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, timeout=600)
-    want = 'dryrun_multichip OK on %d ranks' % n
-    if proc.returncode != 0 or want not in proc.stdout:
-      raise RuntimeError('(b) NCCL %s: exit %d\n%s' % (
-          how, proc.returncode, proc.stdout[-3000:]))
-    log('(b) NCCL through %s: %s, the nine configs against the oracle '
-        '(%.1fs)' % (how, want, time.time() - t))
   return records
 
 
@@ -1404,8 +1447,10 @@ def layout_short_phase(rows, lib, plain_ms, smi, log):
   call and read just after: one launch), bit for bit equal on the valid
   regions to the old kernel the same keys build with ``_short=()`` (the
   PR 5 layout form) and to the stencil's default kernel; after a settle
-  run, device µs a call replayed back to back (``profiling.replay_us``)
-  as old, new, new, old, then the default kernel's; the form, tile,
+  run (a second of the default kernel's work for a cell's first row,
+  then OPTION_SETTLE_S of the new form's), device µs a call replayed back
+  to back (``profiling.replay_us``) as old, new, new, old, then the
+  default kernel's; the form, tile,
   CTAs, the region's strip and register rows, registers, spills and
   barriers a tile. Returns the rows' kernel records (``library_ms``: the
   cell's, ``lib``; ``plain_ms``: the whole-grid plain version's ms by
@@ -1417,6 +1462,7 @@ def layout_short_phase(rows, lib, plain_ms, smi, log):
   from soda_tpu_torch.backend.fused import FusedExecutor, fused_stencil_plain
   from soda_tpu_torch.model.compiled import compiled_stats
   records = []
+  settled = set()
   for name, label, shape, stencil, keys in rows:
     t = time.time()
     new = soda_tpu_torch.get_executor(stencil, shape, **keys)
@@ -1459,7 +1505,10 @@ def layout_short_phase(rows, lib, plain_ms, smi, log):
     def b2b(e):
       return profiling.replay_us(lambda: e.fn(*args), calls=OPTION_CALLS)
 
-    profiling.settle(lambda: new.fn(*args))
+    if name not in settled:  # a cell's first row: a second of its work
+      profiling.settle(lambda: default.fn(*args))
+      settled.add(name)
+    profiling.settle(lambda: new.fn(*args), OPTION_SETTLE_S)
     seq = [b2b(old), b2b(new), b2b(new), b2b(old)]
     default_us = b2b(default)
     new_us = (seq[1] + seq[2]) / 2
@@ -1814,7 +1863,7 @@ def main() -> int:
                                           exp32_dma_shift,
                                           exp45_transcendental_tax,
                                           exp9_layout25d, copyshift,
-                                          layout25d, narrow)
+                                          layout25d, narrow, stream_replay)
   from soda_tpu_torch.experiments import probes as exp_probes
   from soda_tpu_torch.model.compiled import compiled_stats
   from soda_tpu_torch.parallel import dryrun, launch, replicate, spmd
@@ -2635,36 +2684,49 @@ def main() -> int:
   if bad or len(chain_rows) != len(exp_probes.CHAIN_BODIES):
     raise RuntimeError('experiments: wrong results in %s' % bad)
 
+  # the streaming probe on the device alone: its SASS, then each case's
+  # default kernel and old form held to the plain walk and x + 1 and
+  # replayed old, new, new, old beside torch.add
+  stream_replay.sass_check(log16)
+  replayed = {row['case']: row for row in stream_replay.run(log=log16)}
+  differ = [name for name, row in replayed.items() if not row['ok']]
+  if differ:
+    raise RuntimeError('experiments: stream kernels differ from their plain '
+                       'versions or x + 1 in %s' % differ)
   x = exp_probes.stream_input(256, 'cuda')
-  lib_out = torch.empty_like(x)
-  lib_ms = statistics.median(profiling.cuda_times_ms(
-      lambda: torch.add(x, 1.0, out=lib_out), reps=KERNEL_REPS))
   for case, (row, launches, script, replaces) in stream_rows.items():
     t = time.time()
-    args = (case.kind, case.blk, case.split, case.depth)
-    got = exp_probes.stream_probe(x, *args)
-    plain = lambda: exp_probes.stream_probe_plain(x, *args, ctas=row['ctas'])
-    want = plain()
+    got = exp_probes.stream_probe(x, *case.args)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = exp_probes.stream_probe_plain(x, *case.args, ctas=row['ctas'])
+    end.record()
+    end.synchronize()
+    p_ms = start.elapsed_time(end)
     err, _ = exp_probes.max_error(got, want)
     if err != 0 or not torch.equal(got, want):
       raise RuntimeError('%s: stream probe differs from its plain version'
                          % case.name)
-    p_ms = profiling.cuda_times_ms(plain, reps=1, warmup=0)[0]
+    rep = replayed[case.name]
+    us = {k: min(v) for k, v in rep['us'].items()}
     kernels.append({
         'name': 'probe_stream[%s %s]' % (script.split('_')[0], case.name),
         'route': 'cuda', 'source': 'soda_tpu_torch/csrc/probe_stream.cu',
         'replaces': replaces, 'launches': launches,
-        'max_abs_err': err, 'ms': row['ms'], 'plain_ms': p_ms,
+        'max_abs_err': err, 'ms': us['new'] / 1e3, 'plain_ms': p_ms,
         'bound_ms': row['bound_ms'], 'bound_by': 'bytes',
-        'library_ms': lib_ms})
-    log16('%-18s == stream_probe_plain bit for bit; %.4f ms, bound %.4f ms '
-          '(share %.3f), %.3f us/step (%d CTAs x %d), back to back %.2f us, '
-          'plain %.1f ms, torch.add %.4f ms (%.1fs) | %s' % (
-              case.name, row['ms'], row['bound_ms'],
-              row['bound_ms'] / row['ms'], row['step_us'], row['ctas'],
-              row['steps'], row['b2b_us'], p_ms, lib_ms, time.time() - t,
-              smi))
-  del x, lib_out, got, want
+        'library_ms': us['library'] / 1e3})
+    log16('%-18s == stream_probe_plain bit for bit; replayed %.2f us (old '
+          '%.2f, torch.add %.2f; new/library %.3f), bound %.2f us (share '
+          '%.3f); cold %.4f ms, %.3f us/step (%d CTAs x %d), back to back '
+          '%.2f us, plain %.1f ms (%.1fs) | %s' % (
+              case.name, us['new'], us['old'], us['library'],
+              us['new'] / us['library'], row['bound_ms'] * 1e3,
+              row['bound_ms'] * 1e3 / us['new'], row['ms'], row['step_us'],
+              row['ctas'], row['steps'], row['b2b_us'], p_ms,
+              time.time() - t, smi))
+  del x, got, want
   torch.cuda.empty_cache()
   for name, body in exp_probes.CHAIN_BODIES.items():
     row, launches = chain_rows[name]
@@ -2935,8 +2997,9 @@ def main() -> int:
   # 24. the cost model against the default kernels, --estimate and
   # perf_report
   t24 = time.time()
-  estimate_phase(cells, here, env, smi, lambda line: say('[estimate] ' +
-                                                          line))
+  estimate_phase(cells, here, env, smi,
+                 lambda line: say('[estimate] ' + line),
+                 lambda line: say('[ranks] ' + line))
   say('[estimate] phase 24 (%.1fs)' % (time.time() - t24))
 
   # 25. the rank form: one process a shard over torch.distributed

@@ -6,7 +6,8 @@ through shared memory in tiles of 16 KiB (BLK = 4: 4 x 4 KiB), runs
 four ways: 'grid' (no CTA carries state to another: a tile per CTA, or
 with double buffering a run of 8 tiles per CTA) against 'loop' (a
 persistent grid of co-resident CTAs walking the tiles), each single
-buffered (sync) and double buffered (db). See probes.stream_probe.
+buffered (sync) and double buffered (db). See probes.stream_probe;
+stream_replay times the cases replayed from a CUDA graph.
 
     python -m soda_tpu_torch.experiments.exp27_gridloop [--device cpu]
         [--n N]

@@ -2,9 +2,10 @@
 
 The port of experiments/exp30_dma_granularity.py (its Pallas probe,
 main.make_loop_db at :110). The loop form of exp27 (a persistent grid,
-a cp.async ring) at fixed total bytes (a 256^3 float32 pass), swept
-over tile size (blk 2, 4, 8, 16: blk x 4 KiB a step), commit groups per
-fill (split 1, 2, 4) and ring depth (2, 3, 4). See probes.stream_probe.
+a ring of tiles filled and stored by bulk copies) at fixed total bytes
+(a 256^3 float32 pass), swept over tile size (blk 2, 4, 8, 16: blk x 4
+KiB a step), copies per fill (split 1, 2, 4) and ring depth (2, 3, 4).
+See probes.stream_probe; stream_replay times the cases replayed.
 
     python -m soda_tpu_torch.experiments.exp30_dma_granularity
         [--device cpu] [--n N]

@@ -7,7 +7,10 @@ package's ``experiments/``:
   shared memory a tile at a time, for exp27_gridloop.py:122 (one kernel
   entry per grid step against one entry with a loop, single and double
   buffered) and exp30_dma_granularity.py:110 (per-step bytes, copies per
-  fill, ring depth).
+  fill, ring depth). The default kernel fills and stores each tile by
+  the bulk-copy engine (``cp.async.bulk``, one thread a CTA, an
+  ``mbarrier`` a slot); the old one, per-thread ``cp.async`` fills and
+  register stores, stays behind ``_old=True`` for comparisons.
 - ``csrc/probe_chain.cu`` (``chain_probe``): a body applied n times to a
   (256, 1024) block, for exp24_stage_tax.py:75 and
   exp45_transcendental_tax.py:71 (``pallas_loop``); exp24's chains of
@@ -56,6 +59,8 @@ GRID_DB_RUN = 8  # tiles a CTA walks in the double-buffered grid form
 KINDS = {'grid': 0, 'loop': 1}
 # shared memory a CTA may use on sm_90 (227 KiB)
 MAX_CTA_SMEM = 232448
+# the bulk kernel's mbarriers, before its ring (the source's kBarBytes)
+STREAM_BAR_BYTES = 128
 # the loop form's CTAs in a plain walk on the CPU, where no card says how
 # many fit: few, so that each CTA walks several tiles, ragged runs too
 CPU_CTAS = 7
@@ -68,19 +73,29 @@ class StreamCase:
   name: str
   kind: str  # 'grid' or 'loop'
   blk: int  # tile rows / 4
-  split: int = 1  # commit groups per fill
+  split: int = 1  # copies per fill
   depth: int = 2  # ring slots
 
   @property
+  def args(self) -> Tuple[str, int, int, int]:
+    return self.kind, self.blk, self.split, self.depth
+
+  @property
   def key(self) -> Tuple[str, str]:
-    return _stream_key(self.kind, self.blk, self.split, self.depth)
+    """LAUNCHES' key of the default kernel (``old_key``: the old one)."""
+    return _stream_key(*self.args)
+
+  @property
+  def old_key(self) -> Tuple[str, str]:
+    return _stream_key(*self.args, old=True)
 
 
-def _stream_key(kind: str, blk: int, split: int, depth: int
-                ) -> Tuple[str, str]:
-  """LAUNCHES' key of the streaming kernel with these arguments."""
-  return ('probe_stream', '%s blk%d split%d depth%d' % (kind, blk, split,
-                                                        depth))
+def _stream_key(kind: str, blk: int, split: int, depth: int,
+                old: bool = False) -> Tuple[str, str]:
+  """LAUNCHES' key of the streaming kernel with these arguments: the
+  default kernel 'probe_stream', the old one 'probe_stream[old]'."""
+  return ('probe_stream[old]' if old else 'probe_stream',
+          '%s blk%d split%d depth%d' % (kind, blk, split, depth))
 
 
 # experiments/exp27_gridloop.py:142-147 (BLK = 4)
@@ -118,7 +133,7 @@ def _tile_floats(blk: int) -> int:
 
 def _check_stream(x: torch.Tensor, kind: str, blk: int, split: int,
                   depth: int) -> int:
-  """Raise utils.InputError unless the kernel takes these arguments;
+  """Raise utils.InputError unless the kernels take these arguments;
   returns the number of tiles."""
   if kind not in KINDS or depth not in (1, 2, 3, 4) or split not in (1, 2, 4):
     raise utils.InputError('stream probe: kind grid|loop, depth 1-4, split '
@@ -126,7 +141,7 @@ def _check_stream(x: torch.Tensor, kind: str, blk: int, split: int,
   if blk < 1 or blk % split:
     raise utils.InputError('stream probe: blk %d is not a multiple of split '
                            '%d' % (blk, split))
-  if depth * _tile_floats(blk) * 4 > MAX_CTA_SMEM:
+  if STREAM_BAR_BYTES + depth * _tile_floats(blk) * 4 > MAX_CTA_SMEM:
     raise utils.InputError('stream probe: %d slots of %d KiB exceed a '
                            'CTA\'s shared memory' % (depth, 4 * blk))
   if x.dtype != torch.float32 or not x.is_contiguous() or \
@@ -138,16 +153,18 @@ def _check_stream(x: torch.Tensor, kind: str, blk: int, split: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_lib() -> Dict[str, Callable]:
+def _stream_lib(old: bool) -> Dict[str, Callable]:
+  """The C entries of the old kernel (``old``) or of the bulk kernel."""
   from soda_tpu_torch.backend import build
   lib = build.load_library(build.csrc_source(SOURCES[0]))
   c = ctypes
+  prefix = 'probe_stream' if old else 'probe_stream_bulk'
   return {
-      'ctas': build.bind(lib, 'probe_stream_ctas',
+      'ctas': build.bind(lib, prefix + '_ctas',
                          [c.c_int] * 4 + [c.POINTER(c.c_int)]),
-      'launch': build.bind(lib, 'probe_stream_launch',
-                           [c.c_int] * 3 + [c.c_void_p, c.c_void_p,
-                                            c.c_longlong] +
+      'launch': build.bind(lib, prefix + '_launch',
+                           [c.c_int] * 3 +
+                           [c.c_void_p, c.c_void_p, c.c_longlong] +
                            [c.c_int] * 3 + [c.c_void_p]),
       'error': build.bind(lib, 'probe_stream_error_string', [c.c_int],
                           c.c_char_p),
@@ -159,23 +176,41 @@ def _stream_run(depth: int) -> int:
   return 1 if depth == 1 else GRID_DB_RUN
 
 
+@functools.lru_cache(maxsize=None)
+def _card_ctas(old: bool, kind: str, blk: int, split: int, depth: int,
+               index: int) -> int:
+  """CTAs of the kernel that fit on card ``index`` at once: its SMs x
+  the CTAs an SM holds, by the card's occupancy calculator."""
+  lib = _stream_lib(old)
+  out = ctypes.c_int(0)
+  with torch.cuda.device(index):
+    status = lib['ctas'](KINDS[kind], depth, split, _tile_floats(blk) // 4,
+                         ctypes.byref(out))
+  if status:
+    raise RuntimeError('stream probe: occupancy query failed: %s' %
+                       lib['error'](status).decode())
+  return out.value
+
+
+def stream_resident(kind: str, blk: int, split: int, depth: int, device,
+                    old: bool = False) -> int:
+  """CTAs of the bulk kernel (``old``: the old one) that the card holds
+  at once."""
+  index = torch.device(device).index
+  return _card_ctas(old, kind, blk, split, depth,
+                    torch.cuda.current_device() if index is None else index)
+
+
 def stream_ctas(kind: str, blk: int, split: int, depth: int, tiles: int,
-                device) -> int:
+                device, old: bool = False) -> int:
   """CTAs the kernel runs on: the grid form one per run of tiles; the
-  loop form every CTA that fits on the card at once, as the card's
-  occupancy calculator says (on the CPU: CPU_CTAS)."""
+  loop form every CTA that fits on the card at once
+  (``stream_resident``; on the CPU: CPU_CTAS)."""
   if kind == 'grid':
     return -(-tiles // _stream_run(depth))
   if torch.device(device).type == 'cpu':
     return CPU_CTAS
-  out = ctypes.c_int(0)
-  with torch.cuda.device(device):
-    status = _stream_lib()['ctas'](KINDS[kind], depth, split,
-                                   _tile_floats(blk) // 4, ctypes.byref(out))
-  if status:
-    raise RuntimeError('stream probe: occupancy query failed: %s' %
-                       _stream_lib()['error'](status).decode())
-  return out.value
+  return stream_resident(kind, blk, split, depth, device, old)
 
 
 def stream_schedule(kind: str, depth: int, tiles: int, ctas: int
@@ -191,20 +226,25 @@ def stream_schedule(kind: str, depth: int, tiles: int, ctas: int
 
 
 def stream_probe(x: torch.Tensor, kind: str, blk: int, split: int = 1,
-                 depth: int = 2) -> torch.Tensor:
+                 depth: int = 2, *, _old: bool = False) -> torch.Tensor:
   """``x + 1`` through the streaming probe kernel (a CUDA tensor) or its
   plain version (a CPU tensor): ``blk`` x 4 KiB tiles, ``kind`` 'grid'
   (no state carried between CTAs; depth 1: a tile per CTA, else a run
   of GRID_DB_RUN tiles) or 'loop' (a persistent grid), a ring of
-  ``depth`` slots, each fill ``split`` commit groups."""
+  ``depth`` slots, each fill ``split`` copies. The kernel is the bulk
+  kernel; ``_old`` (private: tests, chip_smoke.py and stream_replay)
+  launches the old one."""
   tiles = _check_stream(x, kind, blk, split, depth)
   if x.device.type == 'cpu':
     return stream_probe_plain(x, kind, blk, split, depth)
   if x.device.type != 'cuda':
     raise utils.InputError('stream probe: a cpu or cuda tensor, got %s' %
                            x.device)
-  lib = _stream_lib()
-  ctas = stream_ctas(kind, blk, split, depth, tiles, x.device)
+  if x.data_ptr() % 16:
+    raise utils.InputError('stream probe: the kernels copy 16 bytes at a '
+                           'time; x must start on a 16-byte boundary')
+  lib = _stream_lib(_old)
+  ctas = stream_ctas(kind, blk, split, depth, tiles, x.device, _old)
   y = torch.empty_like(x)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream().cuda_stream
@@ -214,15 +254,15 @@ def stream_probe(x: torch.Tensor, kind: str, blk: int, split: int = 1,
   if status:
     raise RuntimeError('stream probe kernel failed to launch: %s' %
                        lib['error'](status).decode())
-  LAUNCHES[_stream_key(kind, blk, split, depth)] += 1
+  LAUNCHES[_stream_key(kind, blk, split, depth, _old)] += 1
   return y
 
 
 def stream_probe_plain(x: torch.Tensor, kind: str, blk: int, split: int = 1,
                        depth: int = 2, ctas: Optional[int] = None
                        ) -> torch.Tensor:
-  """The streaming probe's function in plain PyTorch, walked as the
-  kernel walks it: per CTA (``ctas``; default: as ``stream_ctas``), its
+  """The streaming probe's function in plain PyTorch, walked as both
+  kernels walk it: per CTA (``ctas``; default: as ``stream_ctas``), its
   tiles in order; ``depth - 1`` fills ahead, each copied into its ring
   slot in ``split`` contiguous parts; each step's tile read back from
   its slot, plus 1, stored."""

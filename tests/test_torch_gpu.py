@@ -716,23 +716,36 @@ _STREAM_CASES = probes.EXP27_CASES + probes.EXP30_CASES
 @pytest.mark.parametrize('case', _STREAM_CASES,
                          ids=[c.name for c in _STREAM_CASES])
 def test_stream_probe_on_the_card(case, tiles):
-  """Each exp27/exp30 case: one launch, bit for bit equal to its plain
-  version walking the card's schedule and to x + 1, on the scripts'
-  64^3 input and on 13 tiles (ragged runs)."""
+  """Each exp27/exp30 case on both kernels, the default (the bulk
+  kernel) and the old one: one launch each, bit for bit equal to the
+  plain version walking that kernel's schedule on the card and to x + 1,
+  on the scripts' 64^3 input and on 13 tiles (ragged runs)."""
   _need_gpu()
-  args = (case.kind, case.blk, case.split, case.depth)
   if tiles is None:
     x = probes.stream_input(64, 'cuda')
   else:
     x = torch.randn(tiles * case.blk * 1024, device='cuda')
-  before = probes.LAUNCHES[case.key]
-  got = probes.stream_probe(x, *args)
-  torch.cuda.synchronize()
-  assert probes.LAUNCHES[case.key] == before + 1
-  ctas = probes.stream_ctas(*args[:2], case.split, case.depth,
-                            x.numel() // (case.blk * 1024), x.device)
-  assert torch.equal(got, probes.stream_probe_plain(x, *args, ctas=ctas))
-  assert torch.equal(got, x + 1)
+  n_tiles = x.numel() // (case.blk * 1024)
+  for key, old in ((case.key, False), (case.old_key, True)):
+    before = dict(probes.LAUNCHES)
+    got = probes.stream_probe(x, *case.args, _old=old)
+    torch.cuda.synchronize()
+    after = dict(probes.LAUNCHES)
+    assert after.pop(key) == before.pop(key, 0) + 1 and after == before
+    ctas = probes.stream_ctas(*case.args, n_tiles, x.device, old=old)
+    assert torch.equal(got, probes.stream_probe_plain(x, *case.args,
+                                                      ctas=ctas))
+    assert torch.equal(got, x + 1)
+
+
+@pytest.mark.gpu
+def test_stream_probe_sass_keeps_bulk_copies():
+  """Every bulk-kernel entry copies by UBLKCP and no LDGSTS, every old
+  entry by LDGSTS; none spills (stream_replay.sass_check raises else)."""
+  _need_gpu()
+  from soda_tpu_torch.experiments import stream_replay
+  rows = stream_replay.sass_check(log=lambda line: None)
+  assert all(stream_replay.sass_ok(r) for r in rows)
 
 
 @pytest.mark.gpu

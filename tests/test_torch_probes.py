@@ -9,7 +9,9 @@ kernels are held to, are held to the JAX scripts on the CPU:
   so each script runs in interpret mode in a subprocess and must print
   OK for every case; then ``stream_probe_plain`` walks every case's
   schedule on the same seed-0 input, and on ragged runs, and must give
-  x + 1 bit for bit.
+  x + 1 bit for bit, as must ``stream_probe`` on a CPU tensor for the
+  default kernel and the old one (``_old=True``); ``stream_replay``'s
+  SASS reader is checked on mangled names.
 - exp24 and exp45: each script is loaded by path (its top level imports
   only numpy); ``pallas_loop(body, n)`` runs in interpret mode for n in
   {1, 3} on every body of ``main()`` (all flags) and is compared with
@@ -34,7 +36,8 @@ import torch
 from soda_tpu_torch import utils
 from soda_tpu_torch.experiments import (exp24_stage_tax, exp27_gridloop,
                                         exp30_dma_granularity,
-                                        exp45_transcendental_tax, probes)
+                                        exp45_transcendental_tax, probes,
+                                        stream_replay)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 STREAM_CASES = probes.EXP27_CASES + probes.EXP30_CASES
@@ -94,6 +97,63 @@ def test_stream_plain_ragged_runs(case, ctas):
   got = probes.stream_probe_plain(x, case.kind, case.blk, case.split,
                                   case.depth, ctas=ctas)
   assert torch.equal(got, x + 1)
+
+
+def test_stream_probe_old_on_the_cpu():
+  """The old kernel's wrapper, like the default's, runs the plain walk
+  on a CPU tensor: x + 1 bit for bit, and no launch counted."""
+  case = probes.EXP27_CASES[3]  # loop db
+  x = probes.stream_input(64, 'cpu')
+  before = dict(probes.LAUNCHES)
+  for old in (True, False):
+    got = probes.stream_probe(x, *case.args, _old=old)
+    assert torch.equal(got, x + 1)
+    assert torch.equal(got, probes.stream_probe_plain(x, *case.args))
+  assert dict(probes.LAUNCHES) == before
+
+
+def test_stream_launch_keys_tell_the_kernels_apart():
+  case = probes.EXP27_CASES[3]
+  assert case.key == ('probe_stream', 'loop blk4 split1 depth2')
+  assert case.old_key == ('probe_stream[old]', 'loop blk4 split1 depth2')
+  assert probes._stream_key(*case.args) == case.key
+  assert probes._stream_key(*case.args, old=True) == case.old_key
+
+
+def test_stream_ring_keeps_room_for_the_barriers():
+  """A ring of whole 4 KiB tiles plus the mbarriers' 128 bytes: 224 KiB
+  of slots fit in a CTA's 227 KiB, 228 do not."""
+  x = torch.zeros(57 * 4 * 1024)
+  assert probes.STREAM_BAR_BYTES + 56 * 4096 <= probes.MAX_CTA_SMEM
+  got = probes.stream_probe(x[:56 * 4 * 1024], 'loop', 56, depth=1)
+  assert torch.equal(got, torch.ones(56 * 4 * 1024))
+  with pytest.raises(utils.InputError, match='shared memory'):
+    probes.stream_probe(x, 'loop', 57, depth=1)
+
+
+def test_stream_replay_needs_the_card(capsys):
+  if torch.cuda.is_available():
+    pytest.skip('a card is present')
+  assert stream_replay.main(['loop db']) == 1
+  assert 'no CUDA device' in capsys.readouterr().err
+
+
+def test_stream_replay_reads_entries_and_copy_opcodes():
+  """The SASS check's reader: each entry's kernel and template arguments
+  from its mangled name, its copies by their opcodes."""
+  bulk = ('_ZN41_GLOBAL__N__2b3c_probe_stream_cu_1e4c17probe_stream_bulkILi1E'
+          'Li3ELi2EEEvPK6float4PS1_xii')
+  old = '_ZN12_GLOBAL__N_119probe_stream_kernelILi0ELi1ELi4EEEvPK6float4PS1_xii'
+  assert stream_replay._ENTRY.search(bulk).groups() == ('bulk', '1', '3', '2')
+  assert stream_replay._ENTRY.search(old).groups() == ('kernel', '0', '1', '4')
+  assert stream_replay._ENTRY.search('_Z6othervv') is None
+  assert stream_replay.sass_ok({'kernel': 'bulk', 'ops': {
+      'UBLKCP.S.G': 4, 'UBLKCP.G.S': 1}})
+  assert not stream_replay.sass_ok({'kernel': 'bulk', 'ops': {
+      'UBLKCP.S.G': 4, 'LDGSTS.E.BYPASS.128': 8}})
+  assert stream_replay.sass_ok({'kernel': 'old', 'ops': {
+      'LDGSTS.E.BYPASS.128': 8}})
+  assert not stream_replay.sass_ok({'kernel': 'old', 'ops': {}})
 
 
 def test_stream_schedule_covers_every_tile_once():
