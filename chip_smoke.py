@@ -187,9 +187,19 @@ seconds:
    for blocks 256, 512 and 1024 bit for bit on rows [2, h-2), and the
    port's jacobi2d kernel at block_rows 256, 512 and its default, each
    with its cold-L2 ms, share of the byte bound, back-to-back µs and the
-   plain version's time. Every case launched, no kernel spills, the
-   overlap kernel's chain B between its copy's issue and its wait in the
-   SASS, the store control's reloads not forwarded.
+   plain version's time (exp9's blocks run the default kernel, the
+   bulk kernel). Every case launched, no kernel spills, the overlap
+   kernel's chain B between its copy's issue and its wait in the SASS,
+   the store control's reloads not forwarded. Then exp9 on the device
+   alone (``layout25d_replay``): the SASS check (the new entry copies by
+   UTMALDG alone, the old kernel's by LDGSTS alone, none spills; shared
+   loads and shuffles), each block's two kernels (``jacobi25d``;
+   ``_old=True``) bit for bit against ``jacobi25d_plain`` on rows [2,
+   h-2), replayed old, new, new, old beside the jacobi2d default kernel
+   and ``torch.add`` on the same bytes replayed (yardsticks, not the
+   same function: library none); an exp9 record's ``ms`` is the new
+   kernel's replayed one, held within ``narrow.MAX_SHARE`` of its
+   bound.
 
 19. deep: the many-stage form of the contrast cell's default kernel
    (``tile_plan.DeepForm``: the tile of fewest stage evaluations an
@@ -1863,7 +1873,8 @@ def main() -> int:
                                           exp32_dma_shift,
                                           exp45_transcendental_tax,
                                           exp9_layout25d, copyshift,
-                                          layout25d, narrow, stream_replay)
+                                          layout25d, layout25d_replay, narrow,
+                                          stream_replay)
   from soda_tpu_torch.experiments import probes as exp_probes
   from soda_tpu_torch.model.compiled import compiled_stats
   from soda_tpu_torch.parallel import dryrun, launch, replicate, spmd
@@ -2907,6 +2918,19 @@ def main() -> int:
         'ms': row['ms'], 'plain_ms': row['plain_ms'],
         'bound_ms': row['bound_ms'], 'bound_by': row['bound_by'],
         'library_ms': None})
+  layout25d_replay.sass_check(log18)
+  replayed9 = {row['block']: row for row in layout25d_replay.run(log=log18)
+               if 'block' in row}
+  # the new kernel's replayed time, the faster of its two readings
+  replayed_ms = {block: min(row['us']['new']) / 1e3
+                 for block, row in replayed9.items()}
+  differs = [block for block, row in replayed9.items() if not row['ok']]
+  over = [block for block, ms in replayed_ms.items()
+          if not narrow.within_bound(layout25d.bound_ms(layout25d.SHAPE), ms)]
+  if differs or over:
+    raise RuntimeError('exp9: kernels differ from the plain version at '
+                       'blocks %s; replayed over the bound at blocks %s' % (
+                           differs, over))
   for row in rows9[1:]:
     if 'block' in row:
       kernels.append({
@@ -2916,7 +2940,7 @@ def main() -> int:
               layout25d.SCRIPT, layout25d.LINE),
           'launches': launched9[(layout25d.KERNEL, 'block %d' %
                                  row['block'])],
-          'max_abs_err': row['abs_err'], 'ms': row['ms'],
+          'max_abs_err': row['abs_err'], 'ms': replayed_ms[row['block']],
           'plain_ms': row['plain_ms'], 'bound_ms': row['bound_ms'],
           'bound_by': 'bytes', 'library_ms': None})
     else:

@@ -1065,7 +1065,7 @@ def _interior_box(stencil, shape, tile, spans, margins, offsets
   return tuple(box)
 
 
-def _ctas_budget(ctas: int) -> int:
+def ctas_budget(ctas: int) -> int:
   """Shared memory a CTA may use where ``ctas`` reside on an SM."""
   return min(SMEM_LIMIT, SM_SMEM // ctas - CTA_SMEM_RESERVED)
 
@@ -1080,7 +1080,7 @@ def _tile_schedule(stencil, order, spans, tile):
   best = None
   for ctas in range(most, 0, -1):
     stages, offsets, peak = _deep_schedule(stencil, order, spans, tile,
-                                           _ctas_budget(ctas))
+                                           ctas_budget(ctas))
     got = (stages, offsets, peak,
            hazard_barriers(stencil, stages, offsets, spans, tile))
     if len(got[3]) <= DEEP_MAX_BARRIER_SHARE * len(order):

@@ -18,6 +18,7 @@ Pallas probe it ports, runs the same cases and prints one line per case:
     python -m soda_tpu_torch.experiments.exp9_layout25d
     python -m soda_tpu_torch.experiments.stream_replay [--sass]
     python -m soda_tpu_torch.experiments.narrow_oneshot
+    python -m soda_tpu_torch.experiments.layout25d_replay [--sass]
 
 ``--device cuda`` (the default) launches the kernels of ``probes.py``,
 ``narrow.py``, ``copyshift.py`` and ``layout25d.py`` and exits 1

@@ -73,10 +73,8 @@ def correctness(device, log=print):
 
 
 def _stats():
-  from soda_tpu_torch.backend import build
-  report = build.ptxas_report(build.csrc_source(layout25d.SOURCE))
-  entry, = report.values()
-  return entry['registers'], entry['spill_stores'] + entry['spill_loads']
+  stats = layout25d.kernel_stats()
+  return stats['registers'], stats['spills']
 
 
 def run_25d(device, log=print):

@@ -873,17 +873,33 @@ def test_copy_probe_refuses_what_it_cannot_copy():
     ((64, 16, 128), 32), ((96, 2, 128), 32), ((8192, 16, 128), 256),
     ((8192, 16, 128), 512), ((8192, 16, 128), 1024)])
 def test_jacobi25d_on_the_card(shape, block):
-  """exp9's 2.5-D kernel at the script's check and timed shapes and
-  blocks: one launch, bit for bit equal to the whole-grid function on
-  rows [2, h-2); built without spills, with the walk's band and tile."""
+  """exp9's 2.5-D kernels, the bulk one and the old one
+  (``_old=True``), at the script's check and timed shapes and blocks:
+  one launch each, bit for bit equal to the whole-grid function on rows
+  [2, h-2); built without spills, with the walks' band and tiles."""
   _need_gpu()
   x = layout25d.grid_input(shape, 'cuda')
-  key = (layout25d.KERNEL, 'block %d' % block)
-  before = probes.LAUNCHES[key]
-  got = layout25d.jacobi25d(x, block)
-  torch.cuda.synchronize()
-  assert probes.LAUNCHES[key] == before + 1
-  assert torch.equal(layout25d.stored(got),
-                     layout25d.stored(layout25d.jacobi25d_plain(x)))
-  entry, = build.ptxas_report(build.csrc_source(layout25d.SOURCE)).values()
-  assert entry['spill_stores'] == entry['spill_loads'] == 0
+  want = layout25d.stored(layout25d.jacobi25d_plain(x))
+  for kind in layout25d.KINDS:
+    old = kind == 'old'
+    key = layout25d.launch_key(block, old)
+    before = probes.LAUNCHES[key]
+    got = layout25d.jacobi25d(x, block, _old=old)
+    torch.cuda.synchronize()
+    assert probes.LAUNCHES[key] == before + 1
+    assert torch.equal(layout25d.stored(got), want), kind
+    assert layout25d.kernel_stats(kind)['spills'] == 0
+
+
+@pytest.mark.gpu
+def test_jacobi25d_copies_as_designed_on_the_card():
+  """The bulk entry copies by bulk tensor copies (UTMALDG) alone, the
+  old one by LDGSTS alone; the bulk kernel's grid at the timed shape is
+  resident in one wave."""
+  _need_gpu()
+  from soda_tpu_torch.experiments import layout25d_replay
+  layout25d_replay.sass_check(log=lambda line: None)
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  for block in layout25d.BLOCKS:
+    grid = layout25d.launch_config(layout25d.SHAPE, block, 'cuda')
+    assert grid['per_sm'] * sms >= grid['ctas'], (block, grid)

@@ -1,17 +1,19 @@
 """exp9's 2.5-D jacobi probe: its plain versions against the JAX script.
 
 ``soda_tpu_torch/experiments/layout25d.py`` ports the Pallas probe of
-experiments/exp9_layout25d.py (``build_25d``). Its kernel runs only on
-the card (tests/test_torch_gpu.py; a g++ emulation of its text in
-tests/test_torch_copy_emulation.py); here its two plain versions (the
+experiments/exp9_layout25d.py (``build_25d``). Its kernels run only on
+the card (tests/test_torch_gpu.py; a g++ emulation of their text in
+tests/test_torch_25d_emulation.py); here its two plain versions (the
 whole-grid function and the walk that follows the kernel's CTAs, tiles,
-clipped slab starts and buffer slots) equal each other bit for bit, and
+clipped slab starts and ring slots) equal each other bit for bit, and
 match the script's kernel, loaded by path and run under
 ``pltpu.force_tpu_interpret_mode()``, within 1e-6 absolute on rows [2,
 h-2), all columns (XLA on the CPU may contract the script's sums: 2.4e-7
 measured at (64, 16, 128)), at the script's check shape and at shapes of
 three and more row blocks; and the port's NumPy oracle within 1e-4 on
-the script's region.
+the script's region. Both kernels' walks (the bulk kernel's ring of
+slots and sweeping warps, ``layout25d.ring``; the old one's two slabs,
+``_old=True``) equal the whole-grid function.
 """
 
 import importlib.util
@@ -62,6 +64,65 @@ def test_walk_equals_the_whole_grid_function(shape, block):
   h = shape[0]
   flat = got.reshape(h, -1)
   assert not flat[:2].any() and not flat[h - 2:].any()
+
+
+@pytest.mark.parametrize('shape, block', SHAPES + [((2048, 2, 128), 256),
+                                                    ((256, 3, 128), 128)])
+def test_old_walk_equals_the_whole_grid_function(shape, block):
+  x = layout25d.grid_input(shape, 'cpu')
+  want = layout25d.jacobi25d_plain(x)
+  assert torch.equal(layout25d.jacobi25d_walk(x, block, _old=True), want)
+  assert torch.equal(layout25d.jacobi25d(x, block, _old=True), want)
+
+
+@pytest.mark.parametrize('sms', [1, 16, 132])
+@pytest.mark.parametrize('shape, block', [((192, 2, 128), 64),
+                                          ((512, 2, 128), 256)])
+def test_walk_sweeps_each_tile_from_its_ring_slot(shape, block, sms):
+  """Warp t % warps sweeps tile t from slot t % depth, the tiles of a CTA
+  in order; the walk equals the whole-grid function on every ring."""
+  x = layout25d.grid_input(shape, 'cpu')
+  schedule = []
+  got = layout25d.jacobi25d_walk(x, block, sms=sms, schedule=schedule)
+  assert torch.equal(got, layout25d.jacobi25d_plain(x))
+  warps, depth = layout25d.ring(layout25d.ctas(shape, block), sms)
+  tiles = block // layout25d.BULK_TILE
+  assert schedule == [(run0, c0, t, t % warps, t % depth)
+                      for run0 in range(0, shape[0], block)
+                      for c0 in range(0, shape[1] * shape[2], layout25d.BAND)
+                      for t in range(tiles)]
+
+
+def test_ring_fits_the_grid_in_one_wave():
+  """At (8192, 16, 128) on 132 SMs each block's ring leaves its CTAs
+  resident in one wave, 8 sweeping warps an SM, two fills or more in
+  flight while each warp sweeps, each slot one warp's; the slots fit the
+  CTAs an SM."""
+  sms = 132
+  rings = {}
+  for block in layout25d.BLOCKS:
+    n = layout25d.ctas(layout25d.SHAPE, block)
+    warps, depth = layout25d.ring(n, sms)
+    per_sm = -(-n // sms)
+    smem = layout25d.BAR_BYTES + depth * layout25d.SLOT_BYTES
+    assert per_sm * (smem + 1024) <= 233_472 and smem <= 232_448
+    assert warps * per_sm == layout25d.MAX_WARPS and depth >= warps + 2
+    assert depth % warps == 0  # each slot one warp's
+    rings[block] = (n, warps, depth)
+  assert rings == {256: (512, 2, 4), 512: (256, 4, 8), 1024: (128, 8, 16)}
+  # a slab of 20 rows of 136 floats, two wrap areas of 20 x 4, each
+  # 128-byte aligned
+  assert layout25d.SLOT_BYTES == 20 * 136 * 4 + 384 + 384
+  # a grid of more CTAs than 8 an SM keeps one warp and three slots
+  assert layout25d.ring(9 * sms, sms) == (1, 3)
+
+
+def test_sweeps_and_shared_accesses_an_output():
+  assert layout25d.sweep1_per_output(old=True) == 34 * 130 / 4096
+  assert layout25d.sweep1_per_output() == 18 * 6 / 64
+  assert layout25d.shared_accesses_per_output(old=True) == pytest.approx(
+      11.47, abs=0.01)
+  assert layout25d.shared_accesses_per_output() == 60 / 64
 
 
 @pytest.mark.parametrize('shape, block', SHAPES)
