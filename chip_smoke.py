@@ -123,9 +123,12 @@ seconds:
    share of the byte bound, microseconds per step per CTA and back to
    back) and each of the 37 chain bodies (kernel against its plain
    version at 1, 2, 5 and CHAIN_N_SMALL iterations, microseconds per
-   iteration as the slope from CHAIN_N_SMALL to CHAIN_N_BIG, grid
-   barriers, the operation bound; exp24's shift chains run in the narrow
-   probe's strip kernel); each entry point is one run, so a case's
+   iteration as the slope from CHAIN_N_SMALL to CHAIN_N_BIG, grid and
+   cluster barriers, the operation bound; exp24's shift chains run in
+   the narrow probe's kernels, the strip kernel (roll10, proll10 and
+   chunk128 a grid barrier a phase) and indep10 ``strip_cluster``, the
+   chunked bodies ``chain_chunk_cluster``: one thread-block cluster
+   each); each entry point is one run, so a case's
    launches are its own (the streaming cases launch the bulk kernel,
    the default). Then the streaming probe on the device alone
    (``stream_replay``): the SASS check (every bulk-kernel entry copies
@@ -138,7 +141,15 @@ seconds:
    Each chain body against
    ``chain_probe_plain`` at 1, 2, 5 and CHAIN_N_SMALL iterations (int32
    bit-exact, float32 within ``probes.CHAIN_RTOL`` relative; the largest
-   error is the record's).
+   error is the record's). Then exp24's three cluster bodies beside their
+   old kernels (``cluster_chain``): the SASS (the cluster barrier's
+   opcodes in every cluster entry, no grid sync and no divergent branch
+   there; registers and spills), each bit for bit against its plain
+   version at 1, 2, 5 and CHAIN_N_SMALL iterations and against its old
+   kernel (``_old=True``: the strip kernel's grid barrier a phase, PR
+   6's ``chain_chunk``) at CHAIN_N_SMALL, slopes old, new, new, old,
+   grid and cluster barriers, CTAs, the bound's share on the card's and
+   on the cluster's SMs.
 17. narrow: the 16-bit and op-rate probes (exp13, exp29, exp16, exp12,
    exp2, exp1: the narrow probe, ``csrc/probe_narrow.cu``). Each entry
    point's ``run`` with every probe counter reset just before and read
@@ -307,7 +318,10 @@ seconds:
    oracle; device
    µs a call back to back (replayed from a CUDA graph) as old, new, new,
    old after a settle run, then the default kernel's, the tile, elements
-   off, resident CTAs, registers and spills, the bound and its share.
+   off, resident CTAs, registers and spills, the bound and its share
+   (40 calls a reading after a 0.1 s settle, a cell's first row after
+   0.3 s: cut from 100, 0.2 and 1.0 s to make room for phases 16-17's
+   cluster kernels; ``options_main`` runs the phase at both depths).
 27. layout-short: the layout keys on the short form (``layout_short_rows``:
    the 19 rows of phase 15 that carry a layout key), each through
    ``get_executor(..., **keys)`` with its counter reset just before and
@@ -408,9 +422,14 @@ RANKS = 4
 # phase 26: each row's back-to-back calls a measurement, replayed from a
 # CUDA graph (0.03-0.4 ms a call: enqueued from Python, the fastest read
 # the host's time), its settle run's seconds, and jacobi3d_256 with the
-# JAX seeds' block_rows and mid_tile
+# JAX seeds' block_rows and mid_tile (phase 27 runs at OPTION_CALLS and
+# OPTION_SETTLE_S; phase 26 at the last of OPTION26_DEPTHS, each (calls a
+# reading, the new form's settle s, a cell's first settle s): cut from
+# the first to make room for phases 16-17's cluster kernels, and
+# ``options_main`` runs the phase at both)
 OPTION_CALLS = 100
 OPTION_SETTLE_S = 0.2
+OPTION26_DEPTHS = ((100, 0.2, 1.0), (40, 0.1, 0.3))
 OPTION_FIXED = (('jacobi3d_256', {'block_rows': 16}),
                 ('jacobi3d_256', {'mid_tile': 64}))
 # phase 28: the conformance programs' shape (several short-form tiles,
@@ -725,7 +744,8 @@ def option_label(keys):
                   for k, v in sorted(keys.items()))
 
 
-def options_phase(cells, plains, plain_ms_of, lib, check_oracle, smi, log):
+def options_phase(cells, plains, plain_ms_of, lib, check_oracle, smi, log,
+                  depth=OPTION26_DEPTHS[-1], ratios=None):
   """Phase 26: the public kernel options on the short form. Each row of
   ``option_rows`` through ``get_executor(..., **keys)``, its counter
   reset just before the user's call and read just after (one launch):
@@ -737,8 +757,11 @@ def options_phase(cells, plains, plain_ms_of, lib, check_oracle, smi, log):
   the NumPy oracle; after a settle run, device µs a call back to back
   (``profiling.replay_us``) as old, new, new, old, then the default
   kernel's; the tile, the elements off, resident CTAs (the plan's and
-  the card's), registers and spills. Returns the rows' kernel records
-  (``library_ms``: the cell's, ``lib``)."""
+  the card's), registers and spills. ``depth``: calls a reading, the
+  new form's settle seconds, a cell's first settle seconds; ``ratios``, a
+  dict, receives each row's new/old (or new/default) ratio by its label.
+  Returns the rows' kernel records (``library_ms``: the cell's,
+  ``lib``)."""
   import torch
   import soda_tpu_torch
   from soda_tpu_torch import profiling, testing
@@ -748,6 +771,7 @@ def options_phase(cells, plains, plain_ms_of, lib, check_oracle, smi, log):
   from soda_tpu_torch.model.compiled import compiled_stats
   by_name = {c[0]: c for c in cells}
   stencils = {c[0]: c[2] for c in cells}
+  calls, settle_s, first_s = depth
   settled = set()
   records = []
   for name, keys in option_rows(stencils):
@@ -785,15 +809,17 @@ def options_phase(cells, plains, plain_ms_of, lib, check_oracle, smi, log):
     card = compiled_stats(new)['kernels'][0]
 
     def b2b(e):
-      return profiling.replay_us(lambda: e.fn(*args), calls=OPTION_CALLS)
+      return profiling.replay_us(lambda: e.fn(*args), calls=calls)
 
-    if name not in settled:  # a cell's first row: a second of its work
-      profiling.settle(lambda: default.fn(*args))
+    if name not in settled:  # a cell's first row: warm the clocks
+      profiling.settle(lambda: default.fn(*args), first_s)
       settled.add(name)
-    profiling.settle(lambda: new.fn(*args), OPTION_SETTLE_S)
+    profiling.settle(lambda: new.fn(*args), settle_s)
     seq = [b2b(old), b2b(new), b2b(new), b2b(old)]
     default_us = b2b(default)
     ratio = (seq[1] + seq[2]) / (seq[0] + seq[3])
+    if ratios is not None:
+      ratios[label] = ratio
     new_us = (seq[1] + seq[2]) / 2
     lead = next((k for k in ('prefetch', 'dma_split', 'out_dma',
                              'stream_loop') if k in keys), None)
@@ -1811,6 +1837,80 @@ def conformance_main() -> int:
   return 0
 
 
+def options_main() -> int:
+  """Phase 26 alone at each of OPTION26_DEPTHS, in one run (``python -c
+  'import chip_smoke; chip_smoke.options_main()'``): the cells' default
+  kernels and the phase's built at once, each cell's plain version on the
+  card, then the phase at each depth; one line a row, then each row's
+  new/old ratio at the first depth and the last, and the largest
+  difference."""
+  import torch
+  if not torch.cuda.is_available():
+    print('chip_smoke: no CUDA device', file=sys.stderr)
+    return 1
+  sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+  import numpy as np
+  import soda_tpu_torch
+  from soda_tpu_torch import profiling, testing
+  from soda_tpu_torch.backend import build, cuda_source
+  from soda_tpu_torch.backend.fused import fused_stencil_plain
+  from soda_tpu_torch.backend.tile_plan import make_tile_plan
+  smi = profiling.device_report()['nvidia_smi']
+  say(smi)
+  t = time.time()
+  stencils = {name: testing.build_cell(name, overrides)
+              for name, _, overrides in testing.CELLS}
+  shape_of = {name: shape for name, shape, _ in testing.CELLS}
+  sources = [cuda_source.generate(make_tile_plan(stencils[name], shape))
+             for name, shape in shape_of.items()]
+  sources += option_sources(stencils, shape_of)
+  sources = list({s.digest: s for s in sources}.values())
+  build.build_all(sources)
+  say('[build] nvcc: %d kernels at once (%.1fs)' % (len(sources),
+                                                    time.time() - t))
+  cells, plains = [], {}
+  for name, shape in shape_of.items():
+    stencil = stencils[name]
+    ex = soda_tpu_torch.get_executor(stencil, shape)
+    inputs = testing.make_test_inputs(stencil, shape)
+    params = testing.make_test_params(stencil)
+    cells.append((name, shape, stencil, ex, inputs, params))
+    args = ex.prepare(inputs, params)
+    n_in = len(stencil.input_names)
+    plains[name] = dict(zip(stencil.output_names, fused_stencil_plain(
+        stencil, args[:n_in], args[n_in:], tile=None)))
+  _, shape, stencil, _, inputs, _ = cells[list(shape_of).index(FLAGSHIP)]
+  oracle = testing.oracle_run(stencil, inputs)
+
+  def check_oracle(got, context):
+    for out in stencil.output_names:
+      region = testing.output_valid_slices(stencil, shape, out)
+      if not np.array_equal(got[out].cpu().numpy()[region],
+                            oracle[out][region]):
+        raise RuntimeError('%s:%s differs from the NumPy oracle' % (
+            context, out))
+
+  ratios = []
+  for depth in OPTION26_DEPTHS:
+    t = time.time()
+    ratios.append({})
+    options_phase(cells, plains, {name: float('nan') for name in shape_of},
+                  {}, check_oracle, smi,
+                  lambda line: say('[options] ' + line), depth, ratios[-1])
+    say('[options] phase 26 at %d calls a reading, settles %g s and %g s '
+        '(%.1fs)' % (*depth, time.time() - t))
+  first, last = ratios[0], ratios[-1]
+  change = {label: last[label] / first[label] - 1 for label in first}
+  for label, c in change.items():
+    say('[options] %-40s new/old %.4f at %d calls, %.4f at %d (%+.2f%%)' % (
+        label, first[label], OPTION26_DEPTHS[0][0], last[label],
+        OPTION26_DEPTHS[-1][0], 100 * c))
+  worst = max(change, key=lambda label: abs(change[label]))
+  say('[options] %d rows; largest change of a ratio %+.2f%% (%s) | %s' % (
+      len(change), 100 * change[worst], worst, smi))
+  return 0
+
+
 def layout_short_main() -> int:
   """Phase 27 alone (``python -c 'import chip_smoke;
   chip_smoke.layout_short_main()'``): its rows' kernels built at once,
@@ -1863,8 +1963,8 @@ def main() -> int:
                                             fused_stencil_plain,
                                             replicated_stencil_plain)
   from soda_tpu_torch.backend.tile_plan import kernel_plan, make_tile_plan
-  from soda_tpu_torch.experiments import (exp1_value_mode, exp2_diag,
-                                          exp12_mosaic_reprobe,
+  from soda_tpu_torch.experiments import (cluster_chain, exp1_value_mode,
+                                          exp2_diag, exp12_mosaic_reprobe,
                                           exp13_narrow_i16,
                                           exp16_swar_erosion,
                                           exp24_stage_tax, exp27_gridloop,
@@ -2762,12 +2862,25 @@ def main() -> int:
         'bound_ms': row['bound_ms'], 'bound_by': 'operations',
         'library_ms': None})
     log16('%-14s == chain_probe_plain (n=%s, max |err| %.3g, relative %.3g);'
-          ' per iteration %.3f us, bound %.3f us (%s), plain %.1f us, %d '
-          'barriers, %d CTAs | %s' % (
+          ' per iteration %.3f us, bound %.3f us (%s), plain %.1f us, %d grid '
+          '+ %d cluster barriers, %d CTAs | %s' % (
               name, ','.join(map(str, exp_probes.CHECK_ITERS +
                                  (CHAIN_N_SMALL,))), abs_err, rel_err,
               row['us'], row['bound_ms'] * 1e3, row['bound_by'],
-              p_ms * 1e3 / CHAIN_N_SMALL, body.barriers, row['ctas'], smi))
+              p_ms * 1e3 / CHAIN_N_SMALL, *body.barriers, row['ctas'], smi))
+  # exp24's cluster bodies beside their old kernels: the SASS (the
+  # cluster barrier in every cluster entry, no grid sync), each bit for
+  # bit against its plain version and its old kernel, slopes old, new,
+  # new, old
+  t = time.time()
+  cluster_chain.sass_check(log16)
+  bad = [row['case'] for row in cluster_chain.run(
+      cluster_chain.CASES, CHAIN_N_SMALL, CHAIN_N_BIG, log=log16)
+         if not row['ok']]
+  if bad:
+    raise RuntimeError('experiments: cluster kernels differ from their plain '
+                       'versions or old kernels in %s' % bad)
+  log16('cluster kernels beside their old ones (%.1fs)' % (time.time() - t))
   log16('%d streaming cases, %d chain bodies (%.1fs)' % (
       len(stream_rows), len(exp_probes.CHAIN_BODIES), time.time() - t16))
 

@@ -22,7 +22,11 @@
 //     rows of margin (wrapping) of a W-lane tile into shared memory,
 //     runs the five row steps in place (a thread owns a column) and the
 //     five lane steps through registers with a block barrier each, and
-//     writes K rows: one grid barrier per iteration.
+//     writes K rows: one grid barrier per iteration (chain_chunk, kept
+//     for comparisons). On Hopper the block is one thread-block
+//     cluster of bands of half a chunk, each column's rows in a thread's
+//     registers for the whole chain, the margin rows read from the next
+//     bands' CTAs (chain_chunk_cluster, below).
 //   2 stencil: exp45's compound bodies, one or two phases per iteration
 //     (the g-stage into a third buffer, then the update), one grid
 //     barrier each.
@@ -230,6 +234,183 @@ __global__ void __launch_bounds__(W)
   }
 }
 
+// -- form 1 on Hopper: the block in one thread-block cluster ----------------
+//
+// chain_chunk above reloads its K + 18 rows from global memory every
+// iteration, walks the row steps through shared memory (two loads and a
+// store a cell) on 8 SMs and meets the other CTAs at a grid barrier. Here
+// the block is one cluster of 16 CTAs (no cooperative launch), each a
+// band of R = K / 2 rows by a tile of W lanes: an output row needs the
+// 18 rows after it and no others (the row steps' reach), so a chunk's
+// rows split into two bands compute what the chunk computes, on twice
+// the SMs. A thread holds its column's R + 18 rows in registers for the
+// whole chain and runs the five row steps there on shrinking slices (no
+// shared memory, no barrier); a lane step takes the cells d lanes on
+// from the warp by shuffles, and the d lanes past the warp's edge from
+// the next warp through shared memory (one CTA barrier a step; only the
+// lanes past the edge read it). Between iterations a CTA's R rows stay in
+// its registers; it publishes its first rows in one of two buffers of
+// its shared memory, a cluster barrier, and reads its 18 margin rows
+// (wrapping) from the next bands' CTAs (mapa, ld.shared::cluster). The
+// buffers alternate, so one barrier an iteration does: a buffer is
+// written again two iterations on, after every CTA arrived at the
+// barrier between, past its reads of it; a last barrier before exit
+// lets no CTA free rows another still reads. Global memory is read once
+// and written once a launch.
+//
+// Bound: operations, on the cluster's 16 SMs (the chunked body's bound
+// is the card's; the cluster's own is 132 / 16 times it).
+
+#ifdef __CUDACC__
+// an address in another CTA's shared memory (the shared::cluster window)
+using RemoteAddr = unsigned;
+// this CTA's rank in its cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// a barrier across the cluster's threads, in halves: the arrival
+// releases this thread's shared-memory accesses, the wait returns once
+// every thread arrived, acquiring theirs
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// word p of this CTA's shared memory, in CTA `rank`'s
+__device__ __forceinline__ RemoteAddr remote(const unsigned* p,
+                                             unsigned rank) {
+  RemoteAddr a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+      : "=r"(a)
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(rank));
+  return a;
+}
+// the word `word` words past a
+__device__ __forceinline__ unsigned ld_remote(RemoteAddr a, int word) {
+  unsigned v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(a + 4 * word)
+               : "memory");
+  return v;
+}
+#endif
+
+constexpr int kEdgeLanes = 8;  // the farthest lane step
+
+// a band of R rows and a tile of W lanes a CTA, a column a thread; the
+// block rows x cols, its bands and tiles one cluster
+template <int R, int W>
+__global__ void __launch_bounds__(W, 1)
+    chain_chunk_cluster(const int* __restrict__ x, int* __restrict__ y,
+                        int rows, int cols, long long n) {
+  constexpr int kDists[5] = {1, 2, 4, 8, 3};  // exp24's DISTS0 and DISTS1
+  constexpr int kRowsHeld = R + kMargin, kWarps = W / 32;
+  // the rows a CTA publishes: the margin of the band before, or the
+  // first R of its rows and the band after holds the rest
+  constexpr int kPub = R < kMargin ? R : kMargin;
+  // a warp's edge lanes: kEdgeLanes runs of R cells, 4 words of gap
+  // apart (16-byte accesses of 8 lanes on distinct banks)
+  constexpr int kEdge = R + 4;
+  static_assert(2 * R >= kMargin && R % 4 == 0 && W % 32 == 0,
+                "band shape: the margin within the next two bands");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the published rows, two buffers of kPub x W
+  unsigned* const pub = reinterpret_cast<unsigned*>(smem_raw);
+  int* const edge = reinterpret_cast<int*>(pub + 2 * kPub * W);
+  const int j = threadIdx.x, lane = j & 31, warp = j >> 5;
+  const int tiles = cols / W, bands = rows / R;
+  const int rank = static_cast<int>(cluster_rank());
+  const int band = rank / tiles, tile = rank - band * tiles;
+  const int r0 = band * R, c = tile * W + j;
+  // the CTAs of the next two bands (wrapping), whose rows are the margin
+  const int next1 = band + 1 == bands ? 0 : band + 1;
+  const int next2 = next1 + 1 == bands ? 0 : next1 + 1;
+  const int next_warp = warp + 1 == kWarps ? 0 : warp + 1;
+  int v[kRowsHeld];
+  // its R rows, then the margin: the next bands' first rows
+  const int* const own = x + static_cast<long long>(r0) * cols + c;
+  const int* const first1 = x + static_cast<long long>(next1) * R * cols + c;
+  const int* const first2 = x + static_cast<long long>(next2) * R * cols + c;
+#pragma unroll
+  for (int r = 0; r < kRowsHeld; ++r)
+    v[r] = r < R       ? own[r * cols]
+           : r < 2 * R ? first1[(r - R) * cols]
+                       : first2[(r - 2 * R) * cols];
+  int parity = 0;
+  for (long long it = 0; it < n; ++it) {
+    // row steps, min(w[:-d], w[d:]): shrinking slices, in place, ascending
+    int held = kRowsHeld;
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      held -= kDists[s];
+#pragma unroll
+      for (int r = 0; r < kRowsHeld; ++r)
+        if (r < held) v[r] = min(v[r], v[r + kDists[s] < kRowsHeld
+                                             ? r + kDists[s]
+                                             : kRowsHeld - 1]);
+    }
+    // lane steps, wrapping inside the tile: lanes < d publish their R
+    // cells for the warp before them
+#pragma unroll
+    for (int s = 0; s < 5; ++s) {
+      const int d = kDists[s];
+      int* const buf = edge + parity * kWarps * kEdgeLanes * kEdge;
+      parity ^= 1;
+      if (lane < d) {
+        int4* const out = reinterpret_cast<int4*>(
+            buf + (warp * kEdgeLanes + lane) * kEdge);
+#pragma unroll
+        for (int q = 0; q < R / 4; ++q)
+          out[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
+                             v[4 * q + 3]);
+      }
+      __syncthreads();
+      // the lanes past the edge read a run (predicated loads: the
+      // shuffles stay in converged code)
+      const bool past = lane + d >= 32;
+      const int4* const in = reinterpret_cast<const int4*>(
+          buf + (next_warp * kEdgeLanes + (past ? lane + d - 32 : 0)) * kEdge);
+#pragma unroll
+      for (int q = 0; q < R / 4; ++q) {
+        int4 e = make_int4(0, 0, 0, 0);
+        if (past) e = in[q];
+        const int far[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int r = 4 * q + k;
+          const int near = __shfl_sync(0xffffffffu, v[r], (lane + d) & 31);
+          v[r] = min(v[r], past ? far[k] : near);
+        }
+      }
+    }
+    if (it + 1 == n) break;
+    // the margin: the next bands' first rows, from their CTAs (the
+    // buffer's last readers arrived at the barrier before)
+    unsigned* const mine = pub + (it & 1) * kPub * W;
+#pragma unroll
+    for (int r = 0; r < kPub; ++r) mine[r * W + j] = static_cast<unsigned>(v[r]);
+    cluster_arrive();
+    cluster_wait();
+    const RemoteAddr a1 = remote(mine, next1 * tiles + tile);
+    const RemoteAddr a2 = remote(mine, next2 * tiles + tile);
+#pragma unroll
+    for (int m = 0; m < kMargin; ++m)
+      v[R + m] = static_cast<int>(
+          ld_remote(m < R ? a1 : a2, (m < R ? m : m - R) * W + j));
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) y[static_cast<long long>(r0 + r) * cols + c] = v[r];
+  // the exit barrier: no CTA leaves while another may read its rows
+  if (n > 1) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
 // -- form 2: exp45's compound bodies -----------------------------------------
 
 __device__ __forceinline__ float at(const float* v, int i, int j) {
@@ -387,9 +568,81 @@ cudaError_t launch_chunk(const void* x, void* y, void* tmp, long long n,
                      stream, ctas);
 }
 
+// one launch of chain_chunk_cluster<R, W> on a rows x cols block: its
+// bands and tiles one cluster (1-16 CTAs; past 8 a non-portable size),
+// refused unless the card can hold one such cluster at once
+template <int R, int W>
+cudaError_t launch_chunk_cluster(const void* x, void* y, int rows, int cols,
+                                 long long n, cudaStream_t stream,
+                                 int* ctas) {
+  if (rows < R + kMargin || cols < W || rows % R || cols % W)
+    return cudaErrorInvalidValue;
+  const int cluster = (rows / R) * (cols / W);
+  if (cluster > 16) return cudaErrorInvalidValue;
+  const void* kernel = reinterpret_cast<const void*>(chain_chunk_cluster<R, W>);
+  // the two buffers of published rows and the two edge buffers
+  const int smem = static_cast<int>(sizeof(int)) *
+                   ((R < kMargin ? 2 * R : 2 * kMargin) * W +
+                    2 * (W / 32) * kEdgeLanes * (R + 4));
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess ||
+      (cluster > 8 &&
+       (err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+           cudaSuccess))
+    return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster);
+  config.blockDim = dim3(W);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(
+           &clusters, chain_chunk_cluster<R, W>, &config)) != cudaSuccess)
+    return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  if (ctas != nullptr) *ctas = cluster;
+  return cudaLaunchKernelEx(&config, chain_chunk_cluster<R, W>,
+                            static_cast<const int*>(x), static_cast<int*>(y),
+                            rows, cols, n);
+}
+
 }  // namespace
 
+// the (chunk rows, lane tile) pairs chain_chunk_cluster is built for
+// (exp24's chunk32 and chunk64x512)
+#ifndef SODA_CHUNK_FORMS
+#define SODA_CHUNK_FORMS(X) X(32, 1024) X(64, 512)
+#endif
+
 extern "C" {
+
+// y = the chunked body^n(x) on chain_chunk_cluster: chunks of k_rows rows
+// x lane_tile lanes of a rows x cols int32 block, one cluster of bands of
+// k_rows / 2 rows. ctas (may be null) receives the grid size.
+int probe_chain_chunk_cluster(int k_rows, int lane_tile, int rows, int cols,
+                              const void* x, void* y, long long n,
+                              void* stream, int* ctas) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n < 1 || k_rows < 1 || rows % k_rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define CHUNK_CASE(K, W)                  \
+  if (k_rows == (K) && lane_tile == (W)) \
+    return static_cast<int>(              \
+        launch_chunk_cluster<(K) / 2, W>(x, y, rows, cols, n, s, ctas));
+  SODA_CHUNK_FORMS(CHUNK_CASE)
+#undef CHUNK_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 // the op names of forms 0 and 2, in `op` order: "form0names;form2names"
 const char* probe_chain_ops() {
@@ -400,8 +653,10 @@ const char* probe_chain_ops() {
 
 // y = body^n(x) over a (256, 1024) block. form 0: elementwise op `op`;
 // 1: chunks of k_rows rows x lane_tile lanes (k_rows 32 x 1024 or 64 x
-// 512); 2: compound op `op`. tmp: a second buffer of the block (forms 1,
-// 2), g: a third (form 2). ctas (may be null) receives the grid size.
+// 512) on chain_chunk_cluster; 2: compound op `op`; 3: form 1's chunks
+// on chain_chunk (a grid barrier an iteration), for comparisons. tmp: a
+// second buffer of the block (forms 2, 3), g: a third (form 2). ctas
+// (may be null) receives the grid size.
 int probe_chain_launch(int form, int op, int k_rows, int lane_tile,
                        const void* x, void* y, void* tmp, void* g,
                        long long n, void* stream, int* ctas) {
@@ -421,6 +676,9 @@ int probe_chain_launch(int form, int op, int k_rows, int lane_tile,
       case 9: return launch_ew<Full2dNoroll>(x, y, n, s, ctas);
     }
   } else if (form == 1) {
+    return probe_chain_chunk_cluster(k_rows, lane_tile, kRows, kCols, x, y, n,
+                                     stream, ctas);
+  } else if (form == 3) {
     if (k_rows == 32 && lane_tile == 1024)
       return static_cast<int>(launch_chunk<32, 1024>(x, y, tmp, n, s, ctas));
     if (k_rows == 64 && lane_tile == 512)

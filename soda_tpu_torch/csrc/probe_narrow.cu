@@ -41,7 +41,10 @@
 //     step before) or, in an independent phase (exp24's indep10; a
 //     cooperative launch), all read the phase's values: the taps along
 //     the phase's axis from the exchange, those along the other axis
-//     ("cross") from global memory, combined by a min.
+//     ("cross") from global memory, combined by a min. A MinI32 body of
+//     independent phases along the lanes whose block one cluster holds
+//     runs strip_cluster instead (one thread-block cluster, the block in
+//     bands of rows, see its section).
 //
 // 16-bit values compute in 32 bits and store the low 16, wrapping as the
 // scripts' int16 arithmetic does; 32-bit integer arithmetic wraps through
@@ -58,6 +61,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -803,6 +808,279 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- strip_cluster: an independent phase in one thread-block cluster -------
+//
+// The strip kernel runs a body of independent phases (exp24's indep10:
+// each cell the min of itself and the cells 1, 2, 4, 8, 3 on along its row
+// and along its column, all of the phase's values) one phase at a time
+// over its strips, the block through global memory (the L2) and a grid
+// barrier a phase: the cross taps read other strips' cells. On the TPU
+// the block stayed in one core's VMEM for all n iterations. Its Hopper
+// counterpart is one thread-block cluster: C CTAs on neighbouring SMs
+// that read each other's shared memory (distributed shared memory), a
+// cluster barrier (barrier.cluster) in place of the grid's. The block,
+// rows of W 32-bit words (exp24's (256, 1024) int32 block), lies in the
+// cluster's registers in bands: CTA c holds rows R c ... R c + R - 1
+// (C = rows / R: 16 CTAs of 16 rows), its thread j word column j of them.
+// The layout never changes:
+//
+//   The taps along the row stay in the CTA: a word's neighbour d words on
+//     comes by a warp shuffle, and past a warp's edge from the next warp's
+//     first lanes through shared memory (one CTA barrier a phase; the row
+//     wraps inside the CTA).
+//   The cross taps (rows further on, at most kMaxDist) need that many rows
+//     after the band, its margin, read from the next band's CTA before the
+//     phase: each CTA publishes its first rows in one of two buffers of its
+//     shared memory, a cluster barrier, then reads its margin (mapa,
+//     ld.shared::cluster; a warp's reads whole 128-byte lines).
+//
+// The buffers alternate, so one barrier an exchange does: a buffer is
+// written again two exchanges on, after every CTA arrived at the barrier
+// between, past its reads of it; a last barrier before exit lets no CTA
+// free rows another still reads. Global memory is read once and written
+// once a launch. Chained phases stay on the strip kernel: on an H100 the
+// same cluster scheme ran roll10's two phases 1.3x and exp16's 1.5-2.9x
+// the strip kernel's time (16 SMs against 128 for the same operations).
+//
+// Bound: the body's operations, as the strip kernel's, on C of the card's
+// SMs: the cluster's own bound is the card's times its SMs / C.
+
+constexpr int kMaxDist = 8;  // a tap's distance, along the row or across
+constexpr int kEdgeLanes = 8;  // the lanes a warp posts for the warp before
+
+#ifdef __CUDACC__
+// an address in another CTA's shared memory (the shared::cluster window)
+using RemoteAddr = unsigned;
+// this CTA's rank in its cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// a barrier across the cluster's threads, in halves: the arrival
+// releases this thread's shared-memory accesses, the wait returns once
+// every thread arrived, acquiring theirs
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// word p of this CTA's shared memory, in CTA `rank`'s
+__device__ __forceinline__ RemoteAddr remote(const unsigned* p,
+                                             unsigned rank) {
+  RemoteAddr a;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+      : "=r"(a)
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))), "r"(rank));
+  return a;
+}
+// the word `word` words past a
+__device__ __forceinline__ unsigned ld_remote(RemoteAddr a, int word) {
+  unsigned v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "r"(a + 4 * word)
+               : "memory");
+  return v;
+}
+#endif
+
+// the plan as the kernel takes it, per phase (each independent, along the
+// lanes): its taps' and cross taps' distances (a bit each) and the margin
+// rows it reads first (its furthest cross tap; 0: none)
+struct ClusterPlan {
+  int phases, ctas;
+  int reach[kMaxPhases];
+  unsigned mask[kMaxPhases];
+  unsigned cross_mask[kMaxPhases];
+};
+
+// field q of the plan, read from the parameters at constant offsets (a
+// dynamic index would copy them to local memory; q is uniform, so the
+// value is, and the shuffles behind a test of it need no convergence
+// check)
+template <class T>
+__device__ __forceinline__ T pick(const T (&a)[kMaxPhases], int q) {
+  T v = a[0];
+#pragma unroll
+  for (int r = 1; r < kMaxPhases; ++r)
+    if (q == r) v = a[r];
+  return v;
+}
+
+// a band of R rows of W words a CTA: the rows a thread holds (its R and
+// the margin after them), and its edge runs (kEdgeLanes runs of R words
+// a warp, 4 words of gap apart: 16-byte accesses of 8 lanes on distinct
+// banks)
+template <int R, int W>
+struct Band {
+  static constexpr int kHeld = R + kMaxDist, kWarps = W / 32;
+  static constexpr int kEdge = R + 4;
+  static constexpr int kEdgeBuf = kWarps * kEdgeLanes * kEdge;
+  static constexpr int kSmemWords = 2 * kMaxDist * W + 2 * kEdgeBuf;
+};
+
+// the thread's lanes and warps, and its edge buffers' parity
+struct Lanes {
+  int lane, warp, next_warp, parity;
+};
+
+// the first kEdgeLanes lanes of each warp post their R words into buffer
+// `parity` for the warp before (the edge buffers alternate, so one CTA
+// barrier a phase does), the barrier; the buffer
+template <int R, int W>
+__device__ __forceinline__ const unsigned* post_edge(
+    const unsigned (&v)[Band<R, W>::kHeld], unsigned* edge, Lanes& t) {
+  using Bd = Band<R, W>;
+  unsigned* const buf = edge + t.parity * Bd::kEdgeBuf;
+  t.parity ^= 1;
+  if (t.lane < kEdgeLanes) {
+    uint4* const out = reinterpret_cast<uint4*>(
+        buf + (t.warp * kEdgeLanes + t.lane) * Bd::kEdge);
+#pragma unroll
+    for (int q = 0; q < R / 4; ++q)
+      out[q] = make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  }
+  __syncthreads();
+  return buf;
+}
+
+// rows 4 q ... 4 q + 3 of the word Off words on along the row: by
+// shuffles in the warp, past its edge from the next warp's runs in buf
+// (predicated loads: the shuffles stay in converged code)
+template <int R, int W, int Off>
+__device__ __forceinline__ uint4 ahead4(const unsigned (&v)[Band<R, W>::kHeld],
+                                        const unsigned* buf, const Lanes& t,
+                                        int q) {
+  const bool past = t.lane + Off >= 32;
+  uint4 e = make_uint4(0, 0, 0, 0);
+  if (past)
+    e = *reinterpret_cast<const uint4*>(
+        buf + (t.next_warp * kEdgeLanes + t.lane + Off - 32) *
+                  Band<R, W>::kEdge +
+        4 * q);
+  const int src = (t.lane + Off) & 31;
+  const unsigned a = __shfl_sync(0xffffffffu, v[4 * q], src);
+  const unsigned b = __shfl_sync(0xffffffffu, v[4 * q + 1], src);
+  const unsigned c = __shfl_sync(0xffffffffu, v[4 * q + 2], src);
+  const unsigned d = __shfl_sync(0xffffffffu, v[4 * q + 3], src);
+  return past ? e : make_uint4(a, b, c, d);
+}
+
+// MinI32's step on four words
+__device__ __forceinline__ unsigned min_word(unsigned own, unsigned s) {
+  return static_cast<int>(s) < static_cast<int>(own) ? s : own;
+}
+__device__ __forceinline__ void min4(unsigned& a, unsigned& b, unsigned& c,
+                                     unsigned& d, const uint4& s) {
+  a = min_word(a, s.x);
+  b = min_word(b, s.y);
+  c = min_word(c, s.z);
+  d = min_word(d, s.w);
+}
+
+// an independent phase along the lanes: each word the min of itself, the
+// words the distances in `mask` on along its row and the rows the
+// distances in `cross` on (the margin read first), all of the phase's
+// values: ascending, in place (a row is written once the rows it reads
+// are read)
+template <int R, int W>
+__device__ __forceinline__ void indep_taps(unsigned (&v)[Band<R, W>::kHeld],
+                                           unsigned mask, unsigned cross,
+                                           unsigned* edge, Lanes& t) {
+  const unsigned* const buf = post_edge<R, W>(v, edge, t);
+#pragma unroll
+  for (int q = 0; q < R / 4; ++q) {
+    unsigned a = v[4 * q], b = v[4 * q + 1], c = v[4 * q + 2],
+             d = v[4 * q + 3];
+#define LANE_TAP(D) \
+  if ((mask >> D) & 1u) min4(a, b, c, d, ahead4<R, W, D>(v, buf, t, q));
+#define CROSS_TAP(D)                                                   \
+  if ((cross >> D) & 1u)                                               \
+    min4(a, b, c, d,                                                   \
+         make_uint4(v[4 * q + D], v[4 * q + 1 + D], v[4 * q + 2 + D],  \
+                    v[4 * q + 3 + D]));
+#define CLUSTER_DISTS(D) D(1) D(2) D(3) D(4) D(5) D(6) D(7) D(8)
+    CLUSTER_DISTS(LANE_TAP)
+    CLUSTER_DISTS(CROSS_TAP)
+#undef CLUSTER_DISTS
+#undef CROSS_TAP
+#undef LANE_TAP
+    v[4 * q] = a;
+    v[4 * q + 1] = b;
+    v[4 * q + 2] = c;
+    v[4 * q + 3] = d;
+  }
+}
+
+// the margin: the first `reach` rows after the band, from the next band's
+// CTA, through buffer `ex` of the two (its last readers arrived at the
+// barrier before)
+template <int R, int W>
+__device__ __forceinline__ void exchange(unsigned (&v)[Band<R, W>::kHeld],
+                                         unsigned* pub, int reach, int& ex,
+                                         int j, unsigned next) {
+  unsigned* const mine = pub + (ex & 1) * kMaxDist * W;
+  ++ex;
+#pragma unroll
+  for (int r = 0; r < kMaxDist; ++r)
+    if (r < reach) mine[r * W + j] = v[r];
+  cluster_arrive();
+  cluster_wait();
+  const RemoteAddr a = remote(mine, next);
+#pragma unroll
+  for (int m = 0; m < kMaxDist; ++m)
+    if (m < reach) v[R + m] = ld_remote(a, m * W + j);
+}
+
+template <int R, int W>
+__global__ void __launch_bounds__(W, 1)
+    strip_cluster(const unsigned* __restrict__ x, unsigned* __restrict__ y,
+                  const __grid_constant__ ClusterPlan plan, long long n) {
+  using Bd = Band<R, W>;
+  static_assert(R >= kMaxDist && R % 4 == 0 && W % 32 == 0 &&
+                    kEdgeLanes >= kMaxDist,
+                "a band's margin lies in the next band");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned* const pub = reinterpret_cast<unsigned*>(smem_raw);
+  unsigned* const edge = pub + 2 * kMaxDist * W;
+  const int j = threadIdx.x;
+  Lanes t;
+  t.lane = j & 31;
+  t.warp = j >> 5;
+  t.next_warp = t.warp + 1 == Bd::kWarps ? 0 : t.warp + 1;
+  t.parity = 0;
+  const unsigned rank = cluster_rank();
+  const unsigned next =
+      rank + 1 == static_cast<unsigned>(plan.ctas) ? 0 : rank + 1;
+  // the band's R rows (one base a thread, constant offsets), no margin
+  // yet: an exchange fills it before a phase reads it
+  unsigned v[Bd::kHeld];
+  {
+    const unsigned* const in = x + static_cast<long long>(rank) * R * W + j;
+#pragma unroll
+    for (int r = 0; r < Bd::kHeld; ++r) v[r] = r < R ? in[r * W] : 0u;
+  }
+  int ex = 0;  // exchanges so far
+  for (long long it = 0; it < n; ++it) {
+    for (int q = 0; q < plan.phases; ++q) {
+      const int reach = pick(plan.reach, q);
+      if (reach) exchange<R, W>(v, pub, reach, ex, j, next);
+      indep_taps<R, W>(v, pick(plan.mask, q), pick(plan.cross_mask, q), edge,
+                       t);
+    }
+  }
+  unsigned* const out = y + static_cast<long long>(rank) * R * W + j;
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[r * W] = v[r];
+  // the exit barrier: no CTA leaves while another may read its rows
+  if (ex) {
+    cluster_arrive();
+    cluster_wait();
+  }
+}
+
 // -- launching ---------------------------------------------------------------
 
 using BinaryLaunch = cudaError_t (*)(const void*, const void*, void*, int,
@@ -1116,6 +1394,106 @@ cudaError_t launch_strip(const void* x, void* y, void* tmp, const Plan& plan,
                                      stream);
 }
 
+// strip_cluster's plan from the strip plan `plan` on bands of `r` rows:
+// rows / r CTAs (1-16); every phase independent and along the lanes, each
+// tap and cross tap 1 to kMaxDist cells on. false if the kernel does not
+// take it (the strip kernel does).
+bool cluster_plan(const Plan& plan, int r, ClusterPlan* cp) {
+  if (plan.rows % r || plan.rows / r > 16) return false;
+  cp->phases = plan.phases;
+  cp->ctas = plan.rows / r;
+  for (int q = 0; q < kMaxPhases; ++q) {
+    const Phase& p = plan.ph[q];
+    if (!p.indep || p.axis != 1) return false;
+    cp->reach[q] = 0;
+    cp->mask[q] = cp->cross_mask[q] = 0;
+    for (int s = 0; s < p.steps + p.cross; ++s) {
+      const int d = s < p.steps ? p.dist[s] : p.cross_dist[s - p.steps];
+      if (d < 1 || d > kMaxDist) return false;
+      if (s < p.steps) {
+        cp->mask[q] |= 1u << d;
+      } else {
+        cp->cross_mask[q] |= 1u << d;
+        if (d > cp->reach[q]) cp->reach[q] = d;
+      }
+    }
+  }
+  return true;
+}
+
+// one launch of strip_cluster<R, W>: a cluster of cp.ctas CTAs (past 8, a
+// non-portable size), refused unless the card can hold one such cluster
+// at once (cudaOccupancyMaxActiveClusters)
+template <int R, int W>
+cudaError_t launch_band(const void* x, void* y, const ClusterPlan& cp,
+                        long long n, cudaStream_t stream, int* ctas) {
+  const void* kernel = reinterpret_cast<const void*>(strip_cluster<R, W>);
+  // the published rows' two buffers and the two edge buffers
+  const int smem =
+      static_cast<int>(sizeof(unsigned)) * Band<R, W>::kSmemWords;
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+          cudaSuccess ||
+      (cp.ctas > 8 &&
+       (err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+           cudaSuccess))
+    return err;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = cp.ctas;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cp.ctas);
+  config.blockDim = dim3(W);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  int clusters = 0;
+  if ((err = cudaOccupancyMaxActiveClusters(&clusters, strip_cluster<R, W>,
+                                            &config)) != cudaSuccess)
+    return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  *ctas = cp.ctas;
+  return cudaLaunchKernelEx(&config, strip_cluster<R, W>,
+                            static_cast<const unsigned*>(x),
+                            static_cast<unsigned*>(y), cp, n);
+}
+
+// the (band rows R, words a row W) strip_cluster is built for: exp24's
+// block at 16 CTAs of 16 rows
+#ifndef SODA_CLUSTER_FORMS
+#define SODA_CLUSTER_FORMS(X) X(16, 1024)
+#endif
+
+// MinI32's strip body on strip_cluster; refused (cudaErrorInvalidValue)
+// for a block or plan it does not take
+cudaError_t launch_strip_cluster(const void* x, void* y, void*,
+                                 const Plan& plan, long long n,
+                                 cudaStream_t stream, int* ctas) {
+  ClusterPlan cp;
+#define FORM_CASE(R, W)                                                  \
+  if (plan.cols == (W) && plan.rows % (R) == 0 && plan.rows / (R) <= 16) \
+    return cluster_plan(plan, R, &cp)                                    \
+               ? launch_band<R, W>(x, y, cp, n, stream, ctas)            \
+               : cudaErrorInvalidValue;
+  SODA_CLUSTER_FORMS(FORM_CASE)
+#undef FORM_CASE
+  return cudaErrorInvalidValue;
+}
+
+// strip_cluster's launcher of a strip op, or none where it is not built
+template <class B>
+constexpr StripLaunch cluster_entry() {
+  if constexpr (std::is_same<B, MinI32>::value)
+    return &launch_strip_cluster;
+  else
+    return nullptr;
+}
+
 #define BINARY_ENTRY(op) &launch_binary<op>,
 #define EW_ENTRY(op) &launch_ew<op>,
 #define FOLD_ENTRY(op) &launch_fold<op>,
@@ -1126,6 +1504,8 @@ const BinaryLaunch kBinary[] = {BINARY_OPS(BINARY_ENTRY)};
 const EwLaunch kEw[] = {EW_OPS(EW_ENTRY)};
 const FoldLaunch kFold[] = {FOLD_OPS(FOLD_ENTRY)};
 const StripLaunch kStrip[] = {STRIP_OPS(STRIP_ENTRY)};
+#define STRIP_CLUSTER_ENTRY(op) cluster_entry<op>(),
+const StripLaunch kStripCluster[] = {STRIP_OPS(STRIP_CLUSTER_ENTRY)};
 
 #define VEC_BINARY_ENTRY(op) &launch_vec_binary<op>,
 #define TILE_FOLD_ENTRY(op) &launch_tile_fold<op>,
@@ -1223,7 +1603,9 @@ const char* probe_narrow_ops() {
 // kMaxPhases phases, each (axis, independent, steps, that many distances,
 // cross taps, that many distances); tmp: a second block (a cooperative
 // plan). 4 and 5: the old forms of 0 and 2 (binary, fold), for
-// comparisons. ctas receives the grid size.
+// comparisons. 6: form 3's body on strip_cluster (one cluster of CTAs;
+// MinI32's independent phases along the lanes, refused otherwise).
+// ctas receives the grid size.
 int probe_narrow_launch(int form, int op, const int* args, int n_args,
                         int rows, int cols, int in_rows, int in_cols,
                         const void* a, const void* b, void* y, void* tmp,
@@ -1248,7 +1630,7 @@ int probe_narrow_launch(int form, int op, const int* args, int n_args,
     return static_cast<int>((form == 2 ? kTileFold : kFold)[op](
         a, y, in_rows, in_cols, rows, cols, t, s, ctas));
   }
-  if (form == 3 && op < count(kStrip)) {
+  if ((form == 3 || form == 6) && op < count(kStrip)) {
     Plan plan;
     plan.rows = rows;
     plan.cols = cols;
@@ -1270,6 +1652,10 @@ int probe_narrow_launch(int form, int op, const int* args, int n_args,
     if (plan.phases == 0) return static_cast<int>(bad);
     plan.cooperative |= plan.phases > 1;
     for (int r = plan.phases; r < kMaxPhases; ++r) plan.ph[r] = plan.ph[0];
+    if (form == 6)
+      return static_cast<int>(
+          kStripCluster[op] ? kStripCluster[op](a, y, tmp, plan, n, s, ctas)
+                            : bad);
     return static_cast<int>(kStrip[op](a, y, tmp, plan, n, s, ctas));
   }
   return static_cast<int>(bad);

@@ -4,17 +4,22 @@ The port of experiments/exp24_stage_tax.py (its Pallas probe,
 pallas_loop at :75). Each body (ten chained min steps on a (256, 1024)
 int32 block: unshifted, rolled, rolled against the original, chunked)
 runs n times in one launch; its time per iteration is the slope between
-two n. A shifted step needs other CTAs' cells: on the card it is one
-grid barrier (values through the L2), against registers for the
-unshifted chain and shared memory for the chunked ones (chunk128's
-chunk does not fit and runs the barrier form). See probes.chain_probe.
+two n. A shifted step needs other CTAs' cells. On the card a chain of
+shifts along one axis is one phase of the strip kernel (whole lines a
+CTA, no grid barrier); roll10's two phases (chunk128's too: its chunk
+does not fit a CTA) take a grid barrier each; indep10's cross taps run
+in one thread-block cluster whose registers hold the block, 16 rows a
+CTA, a cluster barrier before each read of margin rows from the next
+CTA; the chunked bodies run in one cluster of bands of half a chunk;
+the unshifted chain stays in registers. See probes.chain_probe.
 
     python -m soda_tpu_torch.experiments.exp24_stage_tax [--device cpu]
         [--dists] [--n-small 64] [--n-big 16384]
 
 ``--dists``: five rolls of one distance, along rows and lanes. On the
 card each body prints microseconds per iteration, ns per cell per step,
-grid barriers per iteration, the bound (operations over the issue rate)
+grid and cluster barriers per iteration, the bound (operations over the
+issue rate; a cluster body's share on the cluster's SMs too)
 and the kernel's largest error against its plain version at 1, 2, 5
 and n-small iterations;
 ``--device cpu`` runs the plain versions.

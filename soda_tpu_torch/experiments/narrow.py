@@ -14,7 +14,16 @@ shifted slices of one); ``ew`` and ``strip`` chain a body ``n`` times in
 one launch (in registers; wrap-around shifts along whole lines a CTA
 holds). The strip kernel also runs exp24's shift chains for
 ``probes.chain_probe`` (``EXP24_SHIFT``), and every shift chain's plain
-version is ``probes._shift_step``.
+version is ``probes._shift_step``. A strip body of one chained phase runs
+the strip kernel with no grid barrier, one of several phases (exp16's
+two stages, exp24's roll10) a grid barrier a phase. A MinI32 body of
+independent phases along the lanes whose block one cluster holds
+(exp24's indep10; ``NarrowBody.cluster``, fixed by its plan) runs
+``strip_cluster``: the block held in one thread-block cluster's
+registers for all n iterations, a band of rows a CTA, the cross taps'
+margin rows read from the next band's CTA after a cluster barrier
+(``NarrowBody.barriers``); the strip kernel stays for comparisons
+(``launch(..., _old=True)``).
 
 The blocks' types on the card: int16, int32, float32; an unsigned 16-bit
 block travels as the int16 tensor of its bits, an unsigned 32-bit one
@@ -31,8 +40,9 @@ refuses) and runs the plain version only for CPU tensors; each launch
 adds one to ``probes.LAUNCHES[('probe_narrow', body name)]``. On the
 card the one-shot forms run ``vec_binary`` and ``tile_fold``; the first
 ``binary`` and ``fold`` kernels stay for comparisons
-(``launch(..., _old=True)``). ``narrow_oneshot`` times the one-shot
-bodies replayed from a CUDA graph.
+(``launch(..., _old=True)``), as does the strip kernel for a
+``strip_cluster`` body. ``narrow_oneshot`` times the one-shot bodies
+replayed from a CUDA graph.
 """
 
 from __future__ import annotations
@@ -69,6 +79,15 @@ FORMS = ('binary', 'ew', 'fold', 'strip')
 # the old one-shot kernels' form indices (the first binary and fold, kept
 # byte for byte for comparisons; the public path never passes them)
 OLD_FORMS = {'binary': 4, 'fold': 5}
+# strip_cluster: its form index, its builds (the source's
+# SODA_CLUSTER_FORMS: op -> rows a band (a CTA), 32-bit words a row), its
+# most CTAs (one non-portable cluster) and a tap's furthest distance (its
+# kMaxDist)
+CLUSTER_FORM = 6
+CLUSTER_FORMS = {'MinI32': (16, 1024)}
+CLUSTER_MAX_CTAS = 16
+CLUSTER_MAX_DIST = 8
+MAX_STEPS = 10  # the most steps of a strip phase (the source's kMaxSteps)
 _I16, _I32, _F32 = torch.int16, torch.int32, torch.float32
 # the SASS opcodes each body's row shows (cuobjdump -sass), beside the
 # total: integer min (sm_90's VIMNMX; IMNMX before it), the packed pair
@@ -234,17 +253,24 @@ def phase_taps(phases) -> Tuple[Tuple[int, int, bool], ...]:
 
 
 def taps_phases(taps) -> Tuple[tuple, ...]:
-  """``probes._shift_step``'s taps of a min chain as strip phases: a
-  phase of one tap a phase of one step; a phase of several taps an
-  independent phase along the axis most of them take (the lanes at a
-  tie), the others its cross taps."""
+  """``probes._shift_step``'s taps of a min chain as strip phases: a run
+  of phases of one tap each along one axis one chained phase of that
+  many steps (up to MAX_STEPS: the same function, each step reading the
+  one before); a phase of several taps an independent phase along the
+  axis most of them take (the lanes at a tie), the others its cross
+  taps."""
   phases, group = [], []
   for axis, d, last in taps:
     group.append((axis, d))
     if not last:
       continue
     if len(group) == 1:
-      phases.append((axis, (d,)))
+      prev = phases[-1] if phases else None
+      if (prev is not None and len(prev) == 2 and prev[0] == axis and
+          len(prev[1]) < MAX_STEPS):
+        phases[-1] = (axis, prev[1] + (d,))
+      else:
+        phases.append((axis, (d,)))
     else:
       along = int(2 * sum(a for a, _ in group) >= len(group))
       phases.append((along, tuple(d for a, d in group if a == along),
@@ -313,11 +339,46 @@ class NarrowBody:
     return self.in_shape or self.shape
 
   @property
-  def barriers(self) -> int:
-    """Grid barriers per iteration on the card: one a phase where there
-    are several, or cross taps."""
-    cooperative = len(self.phases) > 1 or any(len(p) > 2 for p in self.phases)
-    return len(self.phases) if cooperative else 0
+  def cooperative(self) -> bool:
+    """Whether the strip kernel takes a grid barrier a phase for the body
+    (a strip of several phases, or of an independent one)."""
+    return self.form == 'strip' and (
+        len(self.phases) > 1 or any(len(p) > 2 for p in self.phases))
+
+  @property
+  def cluster(self) -> bool:
+    """Whether the body runs ``strip_cluster``, fixed by its plan: a
+    strip body of independent phases along the lanes (exp24's indep10)
+    whose op and block the kernel is built for (``CLUSTER_FORMS``: whole
+    bands, at most CLUSTER_MAX_CTAS), every tap and cross tap 1 to
+    CLUSTER_MAX_DIST cells on. Any other strip body runs the strip
+    kernel."""
+    form = CLUSTER_FORMS.get(self.op)
+    if self.form != 'strip' or form is None or not self.phases:
+      return False
+    band, words = form
+    rows, cols = self.kshape or self.shape
+    return (cols * self.dtype.itemsize == 4 * words and rows % band == 0 and
+            rows // band <= CLUSTER_MAX_CTAS and
+            all(len(p) > 2 and p[0] == 1 and
+                all(1 <= d <= CLUSTER_MAX_DIST for d in p[1] + p[2])
+                for p in self.phases))
+
+  @property
+  def barriers(self) -> probes.Barriers:
+    """Grid and cluster barriers per iteration on the card: on
+    ``strip_cluster``, a cluster barrier a phase with cross taps (its
+    margin's exchange); else the strip kernel's (``old_barriers``)."""
+    if self.cluster:
+      return probes.Barriers(0, sum(bool(p[2]) for p in self.phases))
+    return self.old_barriers
+
+  @property
+  def old_barriers(self) -> probes.Barriers:
+    """The strip kernel's barriers, which ``launch(..., _old=True)`` runs
+    for a ``strip_cluster`` body: a grid barrier a phase of a cooperative
+    plan."""
+    return probes.Barriers(len(self.phases) if self.cooperative else 0, 0)
 
   @property
   def cells(self) -> int:
@@ -760,22 +821,27 @@ def launch(body: NarrowBody, xs: Sequence[torch.Tensor], n: int,
            ctas: Optional[List[int]] = None,
            _old: bool = False) -> torch.Tensor:
   """One launch of ``body``'s kernel on the CUDA tensors ``xs`` (checked
-  by the caller, which counts the launch), on the current stream.
-  ``_old`` (a one-shot body; private to the tests, chip_smoke.py and
-  ``narrow_oneshot``): the old form of its kernel, for comparisons."""
+  by the caller, which counts the launch), on the current stream; a
+  refused launch raises (nothing falls back). ``_old`` (a one-shot or
+  ``strip_cluster`` body; private to the tests, chip_smoke.py and
+  ``narrow_oneshot``): the old form of its kernel, for comparisons (a
+  ``strip_cluster`` body's: the strip kernel, a grid barrier a phase)."""
   form = FORMS.index(body.form)
   if _old:
-    if body.form not in OLD_FORMS:
+    if body.form not in OLD_FORMS and not body.cluster:
       raise utils.InputError('narrow probe %s: no old form of a %s body' % (
           body.name, body.form))
-    form = OLD_FORMS[body.form]
+    form = OLD_FORMS.get(body.form, form)
+  elif body.cluster:
+    form = CLUSTER_FORM
   device = xs[0].device
   lib = _lib()
   op = lib['ops'][body.form].index(body.op)
   flat, rows, cols, in_rows, in_cols = launch_geometry(body)
   args = (ctypes.c_int * max(len(flat), 1))(*flat)
   y = torch.empty(body.shape, dtype=body.dtype, device=device)
-  tmp = torch.empty_like(y) if body.barriers else None
+  tmp = (torch.empty_like(y) if body.cooperative and form != CLUSTER_FORM
+         else None)
   b = xs[1].data_ptr() if body.n_inputs == 2 else None
   grid = ctypes.c_int(0)
   with torch.cuda.device(device):
@@ -875,6 +941,7 @@ def bound_ms(body, sms: int, clock_hz: float) -> Tuple[float, str]:
 # one-shot forms keep their form's name)
 KERNEL_NAMES = {'binary': 'vec_binary', 'ew': 'ew', 'fold': 'tile_fold',
                 'strip': 'strip'}
+CLUSTER = 'strip_cluster'  # the kernel of a ``NarrowBody.cluster`` body
 
 
 def _mangled_op(kernel: str, op: str) -> str:
@@ -947,8 +1014,9 @@ def sass_report(old: bool = False) -> Dict[Tuple[str, str],
   """(form, op) -> {'opcodes': counts, 'total', 'loop' (instructions of
   its largest loop), 'registers', 'spills' (bytes stored and loaded)} of
   each kernel as built: ``cuobjdump -sass`` of the library beside nvcc,
-  and the ``-Xptxas -v`` report. ``old``: the old one-shot forms'
-  kernels (``OLD_FORMS``) in place of the default ones."""
+  and the ``-Xptxas -v`` report; (CLUSTER, op) too for each op of
+  CLUSTER_FORMS. ``old``: the old one-shot forms' kernels
+  (``OLD_FORMS``) in place of the default ones."""
   from soda_tpu_torch.backend import build
   source = build.csrc_source(SOURCE)
   listings = parse_listing(cuobjdump_sass(source))
@@ -957,21 +1025,33 @@ def sass_report(old: bool = False) -> Dict[Tuple[str, str],
   for form, ops in _lib()['ops'].items():
     if old and form not in OLD_FORMS:
       continue
-    for op in ops:
-      marks = _mangled_op(form if old else KERNEL_NAMES[form], op)
-      entries = [e for e in listings if all(m in e for m in marks)]
-      regs = [r for e, r in ptxas.items() if all(m in e for m in marks)]
+    marks = {(form, op): _mangled_op(form if old else KERNEL_NAMES[form],
+                                     op) for op in ops}
+    if form == 'strip' and not old:
+      # strip_cluster<rows a band, words a row>, one build an op
+      marks.update({(CLUSTER, op): ('%d%s' % (len(CLUSTER), CLUSTER),
+                                    'ILi%dELi%dE' % CLUSTER_FORMS[op])
+                    for op in ops if op in CLUSTER_FORMS})
+    for key, mark in marks.items():
+      entries = [e for e in listings if all(m in e for m in mark)]
+      regs = [r for e, r in ptxas.items() if all(m in e for m in mark)]
       if len(entries) != 1 or len(regs) != 1:
         raise RuntimeError('narrow probe: %d SASS and %d ptxas entries for '
-                           '%s %s' % (len(entries), len(regs), form, op))
+                           '%s %s' % (len(entries), len(regs), *key))
       listing = listings[entries[0]]
       counts = collections.Counter(base_opcode(o) for _, o, _ in listing)
-      out[(form, op)] = {
+      out[key] = {
           'opcodes': counts, 'total': sum(counts.values()),
           'loop': len(main_loop(listing)),
           'registers': regs[0]['registers'],
           'spills': regs[0]['spill_stores'] + regs[0]['spill_loads']}
   return out
+
+
+def sass_key(body, old: bool = False) -> Tuple[str, str]:
+  """``sass_report(old)``'s key of the kernel ``body`` runs."""
+  body = _get(body)
+  return (CLUSTER if body.cluster and not old else body.form, body.op)
 
 
 def sass_line(body, old: bool = False) -> str:
@@ -980,7 +1060,7 @@ def sass_line(body, old: bool = False) -> str:
   register chain its main loop's instructions a trip (EW_UNROLL
   iterations). ``old``: a one-shot body's old form."""
   body = _get(body)
-  rep = sass_report(old)[(body.form, body.op)]
+  rep = sass_report(old)[sass_key(body, old)]
   ops = ' '.join('%s %d' % (op, rep['opcodes'][op]) for op in SASS_OPS
                  if rep['opcodes'][op])
   loop = ('; main loop %d instrs for %d iterations' % (rep['loop'], EW_UNROLL)
@@ -1001,7 +1081,7 @@ def key_ops(body, old: bool = False) -> Dict[str, int]:
   """The count of each of KEY_OPS a body's kernel has (``old``: its old
   form's), those it has none of left out."""
   body = _get(body)
-  counts = sass_report(old)[(body.form, body.op)]['opcodes']
+  counts = sass_report(old)[sass_key(body, old)]['opcodes']
   return {op: counts[op] for op in KEY_OPS if counts[op]}
 
 
@@ -1091,7 +1171,7 @@ def run_bodies(bodies: Sequence[NarrowBody], device='cuda', n_small: int = 32,
                         bool(torch.isfinite(got.to(torch.float64)).all()))
       log('%-52s plain %s; %d grid barriers/iter on the card; least ops '
           'per %s: ALU %g, integer %g, fp32 %g' % (
-              body.name, 'OK' if ok else 'WRONG', body.barriers,
+              body.name, 'OK' if ok else 'WRONG', body.barriers.grid,
               'word' if body.elems == 2 else 'cell', *body.ops))
       continue
     ctas: List[int] = []
@@ -1142,8 +1222,8 @@ def run_bodies(bodies: Sequence[NarrowBody], device='cuda', n_small: int = 32,
                'WRONG' if not right else 'OVER ITS BOUND')
     log('%-52s %s  %d barriers/iter  bound %.4g %s (%s, share %.3f)  plain '
         '%.4g ms  library %s  %d CTAs  max err %.3g (rel %.3g)  %s  [%s]' % (
-            body.name, timing, body.barriers, bound * (1e3 if body.chain
-                                                       else 1),
+            body.name, timing, body.barriers.grid,
+            bound * (1e3 if body.chain else 1),
             'us' if body.chain else 'ms', bound_by, bound / ms, plain_ms,
             '%.4f ms' % lib_ms if lib_ms is not None else 'none', ctas[0],
             abs_err, rel_err, verdict, row['sass']))

@@ -13,9 +13,15 @@ package's ``experiments/``:
   register stores, stays behind ``_old=True`` for comparisons.
 - ``csrc/probe_chain.cu`` (``chain_probe``): a body applied n times to a
   (256, 1024) block, for exp24_stage_tax.py:75 and
-  exp45_transcendental_tax.py:71 (``pallas_loop``); exp24's chains of
-  shifted mins run in the narrow probe's strip kernel
-  (``csrc/probe_narrow.cu``, see narrow.py), one grid barrier a phase.
+  exp45_transcendental_tax.py:71 (``pallas_loop``). The chunked bodies
+  run ``chain_chunk_cluster``: the block one thread-block cluster of 16
+  bands of half a chunk's rows, each column's rows in a thread's
+  registers, the margin rows read from the next bands' shared memory;
+  the first ``chain_chunk`` (a grid barrier an iteration) stays behind
+  ``_old=True``. exp24's chains of shifted
+  mins run in the narrow probe's kernels (``csrc/probe_narrow.cu``, see
+  narrow.py): the strip kernel, a grid barrier a phase past the first;
+  indep10 ``strip_cluster``, the strip kernel behind ``_old=True``.
 
 Each wrapper launches its kernel for a CUDA tensor (raising if CUDA
 refuses the launch) and runs its plain version only for a CPU tensor;
@@ -318,6 +324,15 @@ CHAIN_RTOL = 1e-5
 CHECK_ITERS = (1, 2, 5)
 # issue lanes per SM and clock (Hopper architecture white paper)
 UNIT_LANES = {'fp32': 128, 'int32': 64, 'sfu': 16}
+# probe_chain_launch's form of the old chunk kernel (the first chain_chunk,
+# kept for comparisons; the public path never passes it)
+OLD_CHUNK_FORM = 3
+
+
+class Barriers(collections.namedtuple('Barriers', 'grid cluster')):
+  """Barriers per iteration a kernel takes: grid barriers (a cooperative
+  launch's ``grid.sync``) and cluster barriers (``barrier.cluster``
+  arrive and wait pairs)."""
 
 
 def _roll(v: torch.Tensor, axis: int, d: int) -> torch.Tensor:
@@ -367,11 +382,31 @@ class ChainBody:
   note: str = ''
 
   @property
-  def barriers(self) -> int:
-    """Grid barriers per iteration on the card."""
+  def barriers(self) -> Barriers:
+    """Grid and cluster barriers per iteration on the card: a shift
+    chain's its narrow body's (``narrow.NarrowBody.barriers``: a grid
+    barrier a phase of several on the strip kernel, one cluster barrier
+    on ``strip_cluster``); a chunked body's one cluster barrier (the
+    margin rows' exchange, its two buffers alternating); a stencil's a
+    grid barrier a phase."""
     if self.form == 'shift':
-      return sum(last for _, _, last in self.taps)
-    return {'elementwise': 0, 'chunk': 1}.get(self.form, self.phases)
+      from soda_tpu_torch.experiments import narrow
+      return narrow.EXP24_SHIFT[self.name].barriers
+    return {'elementwise': Barriers(0, 0), 'chunk': Barriers(0, 1)}.get(
+        self.form, Barriers(self.phases, 0))
+
+  @property
+  def old_barriers(self) -> Barriers:
+    """The barriers of the old kernels: the strip kernel's (a shift
+    chain; ``chain_probe(..., _old=True)`` runs it for indep10), the old
+    chunk kernel's grid barrier an iteration (a chunked body)."""
+    if self.form == 'shift':
+      from soda_tpu_torch.experiments import narrow
+      return narrow.EXP24_SHIFT[self.name].old_barriers
+    if self.form != 'chunk':
+      raise utils.InputError('chain probe %s: no old form of a %s body' % (
+          self.name, self.form))
+    return Barriers(1, 0)
 
 
 def _chained(axis_dists) -> Tuple[Tuple[int, int, bool], ...]:
@@ -634,12 +669,16 @@ def _check_chain(x: torch.Tensor, body: ChainBody, n: int) -> None:
 
 
 def chain_probe(x: torch.Tensor, body, n: int,
-                ctas: Optional[List[int]] = None) -> torch.Tensor:
+                ctas: Optional[List[int]] = None, *,
+                _old: bool = False) -> torch.Tensor:
   """``body`` (a ChainBody or its name) applied ``n`` times to the
   (256, 1024) block ``x``: the chain probe kernel (a shift chain: the
-  narrow probe's strip kernel) for a CUDA tensor, its plain version for
-  a CPU tensor. ``ctas``, a list, receives the
-  kernel's grid size."""
+  narrow probe's kernel) for a CUDA tensor, its plain version for a CPU
+  tensor; a refused launch raises (nothing falls back). ``ctas``, a
+  list, receives the kernel's grid size. ``_old`` (a chunked body or a
+  shift chain on ``strip_cluster``; private: tests and chip_smoke.py): the
+  old kernel, the first ``chain_chunk`` or the strip kernel, counted
+  under 'probe_chain[old]'."""
   body = _body(body)
   _check_chain(x, body, n)
   if x.device.type == 'cpu':
@@ -647,27 +686,37 @@ def chain_probe(x: torch.Tensor, body, n: int,
   if x.device.type != 'cuda':
     raise utils.InputError('chain probe: a cpu or cuda tensor, got %s' %
                            x.device)
+  key = ('probe_chain[old]' if _old else 'probe_chain', body.name)
+  if _old and body.form not in ('shift', 'chunk'):
+    raise utils.InputError('chain probe %s: no old form of a %s body' % (
+        body.name, body.form))
   if body.form == 'shift':
-    # the narrow probe's strip kernel (narrow imports this module)
+    # the narrow probe's kernels (narrow imports this module)
     from soda_tpu_torch.experiments import narrow
-    y = narrow.launch(narrow.EXP24_SHIFT[body.name], (x,), n, ctas)
-    LAUNCHES[('probe_chain', body.name)] += 1
+    y = narrow.launch(narrow.EXP24_SHIFT[body.name], (x,), n, ctas,
+                      _old=_old)
+    LAUNCHES[key] += 1
     return y
   lib = _chain_lib()
   op = (lib['ops'][body.form].index(body.name)
         if body.form in lib['ops'] else 0)
   rows, lanes = body.chunk or (0, 0)
-  y, tmp, g = (torch.empty_like(x) for _ in range(3))
+  y = torch.empty_like(x)
   grid = ctypes.c_int(0)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream().cuda_stream
-    status = lib['launch'](FORMS[body.form], op, rows, lanes, x.data_ptr(),
-                           y.data_ptr(), tmp.data_ptr(), g.data_ptr(), n,
+    # (the chunk kernel holds the block on chip: no second buffer)
+    tmp, g = ((None, None) if body.form == 'chunk' and not _old else
+              (torch.empty_like(x), torch.empty_like(x)))
+    status = lib['launch'](OLD_CHUNK_FORM if _old else FORMS[body.form], op,
+                           rows, lanes, x.data_ptr(), y.data_ptr(),
+                           tmp.data_ptr() if tmp is not None else None,
+                           g.data_ptr() if g is not None else None, n,
                            stream, ctypes.byref(grid))
   if status:
     raise RuntimeError('chain probe kernel (%s) failed to launch: %s' % (
         body.name, lib['error'](status).decode()))
-  LAUNCHES[('probe_chain', body.name)] += 1
+  LAUNCHES[key] += 1
   if ctas is not None:
     ctas.append(grid.value)
   return y
@@ -851,16 +900,17 @@ def run_chain(bodies, device='cuda', n_small: int = 64, n_big: int = 16384,
   for body in bodies:
     x = chain_input(body.dtype, device)
     counts = op_counts(body.name)
-    row = {'body': body.name, 'barriers': body.barriers, 'ops': counts}
+    row = {'body': body.name, 'barriers': body.barriers, 'ops': counts,
+           'cluster': body.barriers.cluster > 0}
     rows.append(row)
     if device.type == 'cpu':
       got = chain_probe(x, body, 1)
       ok = tuple(got.shape) == SHAPE and got.dtype == body.dtype and \
           bool(torch.isfinite(got.to(torch.float64)).all())
       row['ok'] = ok
-      log('%-14s: plain %s (n=1); %d grid barriers/iter on the card; per '
-          'cell and iteration fp32 %g, int32 %g, sfu %g ops' % (
-              body.name, 'OK' if ok else 'WRONG', body.barriers,
+      log('%-14s: plain %s (n=1); %d grid + %d cluster barriers/iter on the '
+          'card; per cell and iteration fp32 %g, int32 %g, sfu %g ops' % (
+              body.name, 'OK' if ok else 'WRONG', *body.barriers,
               counts['fp32'], counts['int32'], counts['sfu']))
       continue
     ctas: List[int] = []
@@ -871,11 +921,16 @@ def run_chain(bodies, device='cuda', n_small: int = 64, n_big: int = 16384,
                bound_ms=bound_ms, bound_by=unit, abs_err=abs_err,
                rel_err=rel_err, ctas=ctas[0],
                ok=chain_ok(body, abs_err, rel_err))
-    log('%-14s: %9.3f us/iter  %7.4f ns/cell/step  %2d barriers/iter  '
-        'bound %.3f us (%s, share %.3f)  %d CTAs  max err %.3g (rel %.3g)%s'
-        % (body.name, us, row['ns_cell_step'], body.barriers,
-           bound_ms * 1e3, unit, bound_ms * 1e3 / us, ctas[0], abs_err,
-           rel_err, '  [%s]' % body.note if body.note else ''))
+    cluster = ('; on the cluster\'s %d SMs %.3f' % (
+        ctas[0], bound_ms * 1e3 * sms / ctas[0] / us) if row['cluster']
+               else '')
+    log('%-14s: %9.3f us/iter  %7.4f ns/cell/step  %2d grid + %d cluster '
+        'barriers/iter  bound %.3f us (%s, share %.3f%s)  %d CTAs%s  max err '
+        '%.3g (rel %.3g)%s' % (
+            body.name, us, row['ns_cell_step'], *body.barriers,
+            bound_ms * 1e3, unit, bound_ms * 1e3 / us, cluster, ctas[0],
+            ' (one cluster)' if row['cluster'] else '', abs_err, rel_err,
+            '  [%s]' % body.note if body.note else ''))
   return rows
 
 

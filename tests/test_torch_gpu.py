@@ -45,7 +45,8 @@ from soda_tpu_torch.backend.fused import FusedExecutor
 from soda_tpu_torch.backend.grouped import GroupedExecutor
 from soda_tpu_torch.backend.whole_grid import WholeGridExecutor
 from soda_tpu_torch.backend import build
-from soda_tpu_torch.experiments import copyshift, layout25d, narrow, probes
+from soda_tpu_torch.experiments import (cluster_chain, copyshift, layout25d,
+                                        narrow, probes)
 from soda_tpu_torch.parallel.replicate import ReplicatedExecutor
 from soda_tpu_torch.parallel.spmd import ShardedExecutor
 from soda_tpu_torch.backend import tile_plan
@@ -790,8 +791,73 @@ def test_narrow_probe_on_the_card(name):
     abs_err, rel_err = probes.max_error(got, body.plain(*xs, n=n))
     assert narrow.narrow_ok(body, abs_err, rel_err), (name, n, abs_err,
                                                       rel_err)
-  report = narrow.sass_report()[(body.form, body.op)]
+  report = narrow.sass_report()[narrow.sass_key(body)]
   assert report['spills'] == 0 and report['total'] > 0, report
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', [b.name for b in cluster_chain.CASES])
+def test_cluster_kernel_matches_plain_and_old_kernel(name):
+  """Each body on its thread-block-cluster kernel (strip_cluster,
+  chain_chunk_cluster; one cluster, no grid barrier) bit for bit against
+  its plain version and its old kernel (``_old=True``: the strip
+  kernel's grid barrier a phase, the first chain_chunk) at 1, 2 and 5
+  iterations, the launch counted under each kernel's key."""
+  _need_gpu()
+  body = probes.CHAIN_BODIES[name]
+  x = probes.chain_input(body.dtype, 'cuda')
+  for n in probes.CHECK_ITERS:
+    ctas = []
+    got = cluster_chain.call(body, x, n, False, ctas)
+    old = cluster_chain.call(body, x, n, True)
+    torch.cuda.synchronize()
+    want = probes.chain_probe_plain(x, body, n)
+    assert torch.equal(got, want) and torch.equal(old, want), (name, n)
+    assert 1 <= ctas[0] <= 16
+  before = dict(probes.LAUNCHES)
+  probes.chain_probe(x, body, 1)
+  probes.chain_probe(x, body, 1, _old=True)
+  for key in ('probe_chain', 'probe_chain[old]'):
+    assert probes.LAUNCHES[(key, name)] == before.get((key, name), 0) + 1
+
+
+@pytest.mark.gpu
+def test_cluster_kernels_sass_pins_the_cluster_barrier():
+  """Every cluster entry arrives at and waits on the cluster barrier
+  (cluster_chain.CLUSTER_OPS), has none of the cooperative grid sync's
+  opcodes, no divergent branch and no spilled bytes; every old entry has
+  the grid sync."""
+  _need_gpu()
+  rows = cluster_chain.sass_check(log=lambda line: None)
+  assert len(rows) == len(cluster_chain.CASES)
+  for row in rows:
+    assert cluster_chain.sass_ok(row), row['case']
+    assert row['new']['spills'] == 0, row['case']
+
+
+@pytest.mark.gpu
+def test_refused_cluster_launch_raises():
+  """strip_cluster refuses a plan it does not take (roll10's chained
+  phases, on form 6) and nothing falls back; ``narrow.launch`` sends
+  such a plan to the strip kernel by its plan, bit for bit."""
+  _need_gpu()
+  import ctypes
+  body = narrow.EXP24_SHIFT['roll10']
+  assert not body.cluster
+  x = probes.chain_input(torch.int32, 'cuda')
+  lib = narrow._lib()
+  flat, rows, cols, in_rows, in_cols = narrow.launch_geometry(body)
+  y = torch.empty_like(x)
+  status = lib['launch'](
+      narrow.CLUSTER_FORM, lib['ops']['strip'].index(body.op),
+      (ctypes.c_int * len(flat))(*flat), len(flat), rows, cols, in_rows,
+      in_cols, x.data_ptr(), None, y.data_ptr(), None, 1,
+      torch.cuda.current_stream().cuda_stream, ctypes.byref(ctypes.c_int(0)))
+  assert status != 0
+  ctas = []
+  got = narrow.launch(body, (x,), 1, ctas)
+  assert ctas[0] > 16
+  assert torch.equal(got, body.plain(x.cpu()).to('cuda'))
 
 
 @pytest.mark.gpu

@@ -502,39 +502,43 @@ def test_check_iterations_tell_a_wrong_kernel(body):
 def test_op_and_barrier_counts_as_written():
   """Each body's ops are the least its function needs (ALU-only integer,
   integer, fp32), one count shared by every form of a function;
-  barriers one a phase where there are several."""
+  barriers (grid, cluster): a grid barrier a phase where there are
+  several, none for one chained phase; no narrow body runs
+  strip_cluster."""
   ops = {name: (b.ops, b.barriers, b.steps, b.elems)
          for name, b in narrow.BODIES.items()}
   # a min, however written, is one ALU op; a shift of the block is free
   for name in ('exp13 i16 where(a<b,a,b) [cmp+select min]',
                'exp13 i16 mask-min b+((a-b)&-(a<b))',
                'exp12 u32 unsigned compare select', 'exp12 native i16 min'):
-    assert ops[name] == ((1, 0, 0), 0, 1, 1), name
+    assert ops[name] == ((1, 0, 0), (0, 0), 1, 1), name
   assert ops['exp13 i16 synth-sub a+(b^-1)+1'][0] == (0, 1, 0)
   assert ops['exp13 i16 and/or/xor'][0] == (1, 0, 0)  # a | b
   assert ops['exp13 i16 19-tap lane add fold'][0] == (0, 18, 0)
   assert ops['exp13 i16 19-tap sublane where-min fold'][0] == (18, 0, 0)
-  assert ops['exp13 lane_min int16'] == ((1, 0, 0), 0, 1, 1)
+  assert ops['exp13 lane_min int16'] == ((1, 0, 0), (0, 0), 1, 1)
   assert ops['exp13 lane_nmin int32'] == ops['exp13 lane_min int32']
   # a pair min and a byte permute (the odd lane shift) a word, both forms
-  assert ops['exp13 lane_swar_pk int32 [bitwise]'] == ((2, 0, 0), 0, 1, 2)
-  assert ops['exp13 lane_swar_pk int32'] == ((2, 0, 0), 0, 1, 2)
-  assert ops['exp29 roll10_i32'] == ((10, 0, 0), 0, 10, 1)
-  assert ops['exp29 roll10_packed'] == ((10, 0, 0), 0, 10, 2)
-  assert ops['exp29 ew_i32'] == ((1, 1, 0), 0, 1, 1)  # a multiply-add, a min
+  assert ops['exp13 lane_swar_pk int32 [bitwise]'] == ((2, 0, 0), (0, 0), 1, 2)
+  assert ops['exp13 lane_swar_pk int32'] == ((2, 0, 0), (0, 0), 1, 2)
+  assert ops['exp29 roll10_i32'] == ((10, 0, 0), (0, 0), 10, 1)
+  assert ops['exp29 roll10_packed'] == ((10, 0, 0), (0, 0), 10, 2)
+  assert ops['exp29 ew_i32'] == ((1, 1, 0), (0, 0), 1, 1)  # a multiply-add, a min
   # exp16: ten steps of two grid-wide phases; each odd lane distance
   # (1, 3) a byte permute
-  assert ops['exp16 wide'] == ((10, 0, 0), 2, 10, 1)
-  assert ops['exp16 swar [bitwise]'] == ((12, 0, 0), 2, 10, 2)
-  assert ops['exp16 swar'] == ((12, 0, 0), 2, 10, 2)
+  assert ops['exp16 wide'] == ((10, 0, 0), (2, 0), 10, 1)
+  assert ops['exp16 swar [bitwise]'] == ((12, 0, 0), (2, 0), 10, 2)
+  assert ops['exp16 swar'] == ((12, 0, 0), (2, 0), 10, 2)
   assert ops['exp12 24-operand shifted add-chain'][0] == (0, 23, 0)
   assert ops['exp12 pltpu.roll axis=0 wide 2-D'][0] == (0, 0, 0)
   assert ops['exp2 fma float32 (512, 2048)'][0] == (0, 0, 2)
   assert ops['exp2 add int32 (512, 2048)'][0] == (0, 1, 0)
   assert ops['exp29 pack_roundtrip'][0] == (0, 1, 0)  # a packed add
   assert ops['exp2 lane_roll_add float32 (128, 32, 128)'] == (
-      (0, 0, 1), 0, 1, 1)
-  assert sum(b.barriers for b in narrow.BODIES.values()) == 6
+      (0, 0, 1), (0, 0), 1, 1)
+  assert sum(b.barriers.grid for b in narrow.BODIES.values()) == 6
+  assert sum(b.barriers.cluster for b in narrow.BODIES.values()) == 0
+  assert not any(b.cluster for b in narrow.BODIES.values())
   # every form of one function: one count
   for bitwise in narrow.BODIES.values():
     if bitwise.case.endswith('[bitwise]'):
@@ -609,14 +613,54 @@ def test_register_chains_check_their_main_loop():
   assert 'constexpr int kUnroll = %d;' % narrow.EW_UNROLL in text
 
 
+def test_taps_phases_merge_chained_runs_along_one_axis():
+  """A run of chained taps along one axis is one chained phase of that
+  many steps (up to MAX_STEPS), the same function: roll10 (proll10,
+  chunk128) two phases (two grid barriers, from ten), proll5_* and
+  every --dists body one (no barrier), indep10 one independent phase
+  with its cross taps (on strip_cluster, one cluster barrier)."""
+  dists = (1, 2, 4, 8, 3)
+  phases = {name: b.phases for name, b in narrow.EXP24_SHIFT.items()}
+  for name in ('roll10', 'proll10', 'chunk128'):
+    assert phases[name] == ((0, dists), (1, dists)), name
+    assert narrow.EXP24_SHIFT[name].barriers == (2, 0)
+    assert not narrow.EXP24_SHIFT[name].cluster
+  assert phases['proll5_sub'] == ((0, dists),)
+  assert phases['proll5_lane'] == ((1, dists),)
+  assert phases['indep10'] == ((1, dists, dists),)
+  assert narrow.EXP24_SHIFT['indep10'].cluster
+  assert narrow.EXP24_SHIFT['indep10'].barriers == (0, 1)
+  for body in probes.EXP24_DIST_BODIES:
+    (axis, d, _), = set(body.taps)
+    assert phases[body.name] == ((axis, (d,) * 5),), body.name
+    assert narrow.EXP24_SHIFT[body.name].barriers == (0, 0)
+    assert not narrow.EXP24_SHIFT[body.name].cluster
+  # twelve chained taps along one axis: ten steps, then two; an axis
+  # change or an independent group ends a run
+  twelve = tuple((0, d, True) for d in range(1, 13))
+  assert narrow.taps_phases(twelve) == (
+      (0, tuple(range(1, 11))), (0, (11, 12)))
+  mixed = ((0, 1, True), (1, 2, True), (1, 3, True), (0, 4, False),
+           (1, 5, True), (1, 6, True))
+  assert narrow.taps_phases(mixed) == (
+      (0, (1,)), (1, (2, 3)), (1, (5,), (4,)), (1, (6,)))
+  # (chained taps come back as they were; an independent group's taps
+  # come back in another order, one min all the same)
+  for taps in (twelve,) + tuple(
+      b.taps for b in probes.CHAIN_BODIES.values()
+      if b.form == 'shift' and all(last for _, _, last in b.taps)):
+    assert narrow.phase_taps(narrow.taps_phases(taps)) == taps
+
+
 @pytest.mark.parametrize('name', sorted(narrow.EXP24_SHIFT))
 def test_exp24_shift_chains_as_strips(name):
-  """exp24's shift chains as the strip kernel runs them: the same
-  function as the chain probe's plain version at CHECK_ITERS, the same
-  grid barriers an iteration."""
+  """exp24's shift chains as the strip kernels run them (the merged
+  phases): the same function as the chain probe's plain version at
+  CHECK_ITERS, the same barriers an iteration."""
   strip = narrow.EXP24_SHIFT[name]
   chain = probes.CHAIN_BODIES[name]
   assert strip.barriers == chain.barriers
+  assert strip.old_barriers == chain.old_barriers
   x = probes.chain_input(torch.int32, 'cpu')
   for n in probes.CHECK_ITERS:
     assert torch.equal(strip.plain(x, n=n),

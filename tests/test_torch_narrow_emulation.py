@@ -42,17 +42,20 @@ SMALL = (16, 32)
 PRELUDE = r'''
 #include <atomic>
 #include <barrier>
+#include <chrono>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <mutex>
 #include <thread>
 #include <vector>
 
 #define __global__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __grid_constant__
 
@@ -74,9 +77,11 @@ inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups
 
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorLaunchOutOfResources = 7,
                    cudaErrorCooperativeLaunchTooLarge = 82 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed = 12 };
 typedef void* cudaStream_t;
 static cudaError_t cudaGetLastError() { return cudaSuccess; }
 static cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
@@ -196,6 +201,189 @@ static void soda_emu_launch(bool coop, int grid, int block, int smem, void*,
     for (auto& th : threads) th.join();
     for (auto* b : bars) delete b;
   }
+}
+
+// -- clusters (strip_cluster): a cluster launch runs a cluster's CTAs at
+// once, each a warp's 32 threads with a barrier of their own (at
+// __syncwarp and twice at each __shfl_sync); a cluster
+// barrier in halves (an arrival, a wait for every thread's); another
+// CTA's shared memory read through its rank. A read of another CTA's
+// shared memory made after the reader's a-th arrival, where that CTA
+// leaves after its a-th wait or sooner, may come after it left: the
+// launch aborts.
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue { struct { unsigned x, y, z; } clusterDim; };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+[[noreturn]] static void soda_emu_fail(const char* what) {
+  fprintf(stderr, "%s\n", what);
+  abort();
+}
+struct SodaEmuWarp {
+  std::barrier<> bar{32};
+  unsigned long long slot[32];
+};
+static thread_local SodaEmuWarp* soda_emu_warp = nullptr;
+static void __syncwarp(unsigned mask = 0xffffffffu) {
+  if (mask != 0xffffffffu || soda_emu_warp == nullptr)
+    soda_emu_fail("__syncwarp: a full warp's mask inside a cluster launch");
+  soda_emu_warp->bar.arrive_and_wait();
+}
+template <class T>
+static T __shfl_sync(unsigned mask, T v, int src) {
+  static_assert(sizeof(T) <= 8, "a shuffled value is a register");
+  if (mask != 0xffffffffu || soda_emu_warp == nullptr)
+    soda_emu_fail("__shfl_sync: a full warp's mask inside a cluster launch");
+  unsigned long long bits = 0;
+  memcpy(&bits, &v, sizeof(T));
+  soda_emu_warp->slot[threadIdx.x & 31] = bits;
+  soda_emu_warp->bar.arrive_and_wait();
+  bits = soda_emu_warp->slot[src & 31];
+  soda_emu_warp->bar.arrive_and_wait();
+  T out;
+  memcpy(&out, &bits, sizeof(T));
+  return out;
+}
+struct SodaEmuCluster {
+  int ctas = 0, threads = 0;
+  size_t bytes = 0;
+  std::vector<unsigned char*> smem;
+  std::mutex mu;
+  std::condition_variable cv;
+  long long arrived = 0, completed = 0;
+  std::vector<long long> left;  // a CTA's waits when its threads left
+  std::vector<long long> read;  // the most arrivals of a reader from
+                                // another CTA at a read of its memory
+};
+static SodaEmuCluster* soda_emu_cl = nullptr;
+static thread_local long long soda_emu_arrivals = 0, soda_emu_waits = 0;
+static unsigned cluster_rank() { return blockIdx.x % soda_emu_cl->ctas; }
+static void cluster_arrive() {
+  if (soda_emu_arrivals != soda_emu_waits)
+    soda_emu_fail("barrier.cluster: two arrivals without a wait");
+  ++soda_emu_arrivals;
+  std::lock_guard<std::mutex> g(soda_emu_cl->mu);
+  if (++soda_emu_cl->arrived ==
+      static_cast<long long>(soda_emu_cl->ctas) * soda_emu_cl->threads) {
+    soda_emu_cl->arrived = 0;
+    ++soda_emu_cl->completed;
+    soda_emu_cl->cv.notify_all();
+  }
+}
+static void cluster_wait() {
+  if (soda_emu_waits + 1 != soda_emu_arrivals)
+    soda_emu_fail("barrier.cluster: a wait without an arrival");
+  ++soda_emu_waits;
+  std::unique_lock<std::mutex> g(soda_emu_cl->mu);
+  if (!soda_emu_cl->cv.wait_for(g, std::chrono::seconds(60), [] {
+        return soda_emu_cl->completed >= soda_emu_waits;
+      }))
+    soda_emu_fail("barrier.cluster: a phase never completes");
+}
+struct RemoteAddr {
+  int cta;
+  const unsigned* p;
+};
+static RemoteAddr remote(const unsigned* p, unsigned rank) {
+  const unsigned char* c = reinterpret_cast<const unsigned char*>(p);
+  if (rank >= static_cast<unsigned>(soda_emu_cl->ctas) || c < soda_emu_smem ||
+      c >= soda_emu_smem + soda_emu_cl->bytes)
+    soda_emu_fail("mapa: no such CTA, or not shared memory");
+  return {static_cast<int>(rank),
+          reinterpret_cast<const unsigned*>(soda_emu_cl->smem[rank] +
+                                            (c - soda_emu_smem))};
+}
+static uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
+static unsigned ld_remote(RemoteAddr a, int word) {
+  const unsigned char* c = reinterpret_cast<const unsigned char*>(a.p + word);
+  const unsigned char* base = soda_emu_cl->smem[a.cta];
+  if (c < base || c + 4 > base + soda_emu_cl->bytes)
+    soda_emu_fail("ld.shared::cluster outside the CTA's shared memory");
+  if (a.cta != static_cast<int>(cluster_rank())) {
+    std::lock_guard<std::mutex> g(soda_emu_cl->mu);
+    long long& most = soda_emu_cl->read[a.cta];
+    if (soda_emu_arrivals > most) most = soda_emu_arrivals;
+  }
+  return a.p[word];
+}
+template <class F>
+static cudaError_t cudaOccupancyMaxActiveClusters(
+    int* n, F*, const cudaLaunchConfig_t* c) {
+  // one cluster a card; none of more CTAs than 16, or past 227 KB a CTA
+  const unsigned ctas = c->numAttrs ? c->attrs[0].val.clusterDim.x : 0;
+  *n = ctas >= 1 && ctas <= 16 && c->dynamicSmemBytes <= 232448;
+  return cudaSuccess;
+}
+// each cluster of the grid one after another, its CTAs at once
+template <class... P, class... A>
+static cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* c,
+                                      void (*kernel)(P...), A&&... args) {
+  if (c->numAttrs != 1 || c->attrs[0].id != cudaLaunchAttributeClusterDimension)
+    soda_emu_fail("a cluster launch without cluster dimensions");
+  const int ctas = static_cast<int>(c->attrs[0].val.clusterDim.x);
+  const int threads = static_cast<int>(c->blockDim.x);
+  if (ctas < 1 || c->gridDim.x % ctas || threads % 32)
+    soda_emu_fail("a cluster launch of whole clusters and warps");
+  gridDim.x = c->gridDim.x;
+  blockDim.x = threads;
+  for (unsigned first = 0; first < c->gridDim.x; first += ctas) {
+    SodaEmuCluster cl;
+    cl.ctas = ctas;
+    cl.threads = threads;
+    cl.bytes = c->dynamicSmemBytes;
+    cl.left.assign(ctas, -1);
+    cl.read.assign(ctas, -1);
+    std::vector<std::vector<unsigned char>> mems;
+    std::vector<std::barrier<>*> bars;
+    std::vector<SodaEmuWarp*> warps;
+    for (int r = 0; r < ctas; ++r) {
+      mems.emplace_back(cl.bytes + 16, 0xA5);
+      bars.push_back(new std::barrier<>(threads));
+      for (int w = 0; w < threads / 32; ++w) warps.push_back(new SodaEmuWarp);
+    }
+    for (auto& m : mems) cl.smem.push_back(m.data());
+    soda_emu_cl = &cl;
+    std::vector<std::thread> pool;
+    for (int r = 0; r < ctas; ++r)
+      for (int t = 0; t < threads; ++t)
+        pool.emplace_back([&, r, t]() {
+          threadIdx.x = t;
+          blockIdx.x = first + r;
+          soda_emu_cta = bars[r];
+          soda_emu_smem = cl.smem[r];
+          soda_emu_warp = warps[r * (threads / 32) + t / 32];
+          soda_emu_arrivals = soda_emu_waits = 0;
+          kernel(args...);
+          std::lock_guard<std::mutex> g(cl.mu);
+          if (cl.left[r] < 0 || soda_emu_waits < cl.left[r])
+            cl.left[r] = soda_emu_waits;
+        });
+    for (auto& th : pool) th.join();
+    for (int r = 0; r < ctas; ++r)
+      if (cl.read[r] >= 0 && cl.read[r] >= cl.left[r])
+        soda_emu_fail("a CTA's shared memory read after that CTA passed its "
+                      "last barrier");
+    soda_emu_cl = nullptr;
+    for (auto* b : bars) delete b;
+    for (auto* w : warps) delete w;
+  }
+  return cudaSuccess;
 }
 '''
 

@@ -247,6 +247,18 @@ def test_chain_plain_matches_the_jax_body(name):
                           probes.chain_probe_plain(x, body, 3)) == (0, 0)
 
 
+@pytest.mark.parametrize('name', ['roll10', 'indep10', 'proll5_sub',
+                                  'proll5_lane', 'chunk128', 'lane_d512'])
+def test_merged_strip_plan_matches_the_jax_body(name):
+  """The strip plan a shift chain runs on the card (its chained taps
+  along one axis merged into one phase) walks the JAX script's own body
+  bit for bit."""
+  from soda_tpu_torch.experiments import narrow
+  x = probes.chain_input(torch.int32, 'cpu')
+  np.testing.assert_array_equal(narrow.EXP24_SHIFT[name].plain(x, n=2).numpy(),
+                                _jax_loop(name, 2, x), err_msg=name)
+
+
 def test_chunked_bodies_equal_their_rolled_function():
   """chunk32 and chunk128 compute roll10's function (their margins wrap
   as the rolls do), which is why chunk128 may run roll10's barrier form
@@ -263,17 +275,31 @@ def test_chunked_bodies_equal_their_rolled_function():
 def test_barriers_and_op_counts():
   got = {name: (b.barriers, probes.op_counts(name))
          for name, b in probes.CHAIN_BODIES.items()}
-  assert got['ew10'] == (0, {'fp32': 0, 'int32': 15, 'sfu': 0})  # LEA.HI
-  assert got['roll10'] == (10, {'fp32': 0, 'int32': 10, 'sfu': 0})
-  assert got['indep10'] == (1, {'fp32': 0, 'int32': 10, 'sfu': 0})
-  assert got['sub_d64'] == (5, {'fp32': 0, 'int32': 5, 'sfu': 0})
+  # (grid, cluster) barriers an iteration: roll10's two phases a grid
+  # barrier each; indep10's cross taps one cluster barrier on
+  # strip_cluster; a chunked body one (its two margin buffers
+  # alternating); one chained phase (proll5_*, the --dists bodies) none
+  assert got['ew10'] == ((0, 0), {'fp32': 0, 'int32': 15, 'sfu': 0})
+  assert got['roll10'] == ((2, 0), {'fp32': 0, 'int32': 10, 'sfu': 0})
+  assert got['indep10'] == ((0, 1), {'fp32': 0, 'int32': 10, 'sfu': 0})
+  assert got['sub_d64'] == ((0, 0), {'fp32': 0, 'int32': 5, 'sfu': 0})
   # 8 chunks of 50 rows: the row steps' shrinking slices, then 32 rows
-  assert got['chunk32'][0] == 1 and got['chunk32'][1]['int32'] == \
+  assert got['chunk32'][0] == (0, 1) and got['chunk32'][1]['int32'] == \
       8 * (49 + 47 + 43 + 35 + 32) * 1024 / probes.CELLS + 5
-  assert got['div10'] == (0, {'fp32': 20, 'int32': 0, 'sfu': 10})
-  assert got['gstage'] == (1, {'fp32': 12, 'int32': 0, 'sfu': 1})
-  assert got['full2d'] == (2, {'fp32': 45, 'int32': 0, 'sfu': 1})
-  assert got['full3d'] == (2, {'fp32': 57, 'int32': 0, 'sfu': 3})
+  assert got['div10'] == ((0, 0), {'fp32': 20, 'int32': 0, 'sfu': 10})
+  assert got['gstage'] == ((1, 0), {'fp32': 12, 'int32': 0, 'sfu': 1})
+  assert got['full2d'] == ((2, 0), {'fp32': 45, 'int32': 0, 'sfu': 1})
+  assert got['full3d'] == ((2, 0), {'fp32': 57, 'int32': 0, 'sfu': 3})
+  # the old kernels: the strip kernel's grid barrier a merged phase
+  # (indep10's _old=True), the old chunk kernel's one an iteration;
+  # nothing else has an old kernel
+  old = {name: b.old_barriers for name, b in probes.CHAIN_BODIES.items()
+         if b.form in ('shift', 'chunk')}
+  assert old['roll10'] == old['proll10'] == old['chunk128'] == (2, 0)
+  assert old['indep10'] == (1, 0) and old['chunk32'] == (1, 0)
+  assert old['proll5_sub'] == old['lane_d512'] == (0, 0)
+  with pytest.raises(utils.InputError, match='no old form'):
+    probes.CHAIN_BODIES['gstage'].old_barriers
   assert {name: tuple(c.values()) for name, (_, c) in got.items()
           if name.startswith(('sub_', 'lane_', 'proll5'))} == {
               name: (5, 0, 0) for name in got
